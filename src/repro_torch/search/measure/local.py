@@ -1,0 +1,246 @@
+"""In-process Builder and Runner (serial reference implementation).
+
+``LocalBuilder`` lowers each candidate through the selected lowering
+backend (``backend=`` registry spec, default ``"cuda"``); ``LocalRunner``
+times the artifacts on one device.  Inputs are ``random_inputs(func, 0)``,
+moved to the device once per workload.  On a CUDA device every call is
+bracketed by CUDA events; on the CPU by ``perf_counter``; the latency is
+the median of the repeats.
+
+Only a schedule rejection — a ``ScheduleRejected`` from the lowering (the
+tile does not divide, or exceeds the grid, shared-memory or thread caps),
+an invalid trace or a first call over the timeout — becomes an ``inf``
+latency.  A failed kernel build, a refused launch, a fault on the card or
+any other error propagates: it must never look like a search where every
+candidate was merely rejected.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ...backends.registry import DEFAULT_BACKEND, get_backend
+from ...core.tir import PrimFunc, random_inputs
+from ...core.validator import validate_trace
+from ...device import resolve_device
+from ...kernels import ScheduleRejected
+from ...obs import emit, metrics, trace_enabled
+from .hashing import structural_hash
+from .protocol import Builder, BuildResult, MeasureInput, MeasureResult, Runner
+
+
+class LocalBuilder(Builder):
+    """Lower each candidate in the current process."""
+
+    name = "local"
+
+    def __init__(self, backend: Optional[str] = None):
+        self.backend = backend or DEFAULT_BACKEND
+        get_backend(self.backend)  # fail fast on a typo'd spec
+
+    def build(self, inputs: List[MeasureInput]) -> List[BuildResult]:
+        be = get_backend(self.backend)
+        out: List[BuildResult] = []
+        for mi in inputs:
+            t0 = time.perf_counter()
+            sch = mi.schedule
+            if sch is None:
+                v = validate_trace(mi.func, mi.trace)
+                if not v.ok:
+                    out.append(BuildResult(error=f"invalid trace: {v.reason}"))
+                else:
+                    sch = v.schedule
+            if sch is not None:
+                try:
+                    lowered = be.lower(sch, workload_key=mi.workload_key)
+                except ScheduleRejected as e:  # not a crash
+                    out.append(
+                        BuildResult(
+                            error=f"rejected ({e.reason}): {e}",
+                            build_time_s=time.perf_counter() - t0,
+                        )
+                    )
+                else:
+                    out.append(
+                        BuildResult(
+                            artifact=lowered.fn,
+                            build_time_s=time.perf_counter() - t0,
+                            meta=lowered.meta,
+                        )
+                    )
+            br = out[-1]
+            metrics().observe(
+                "measure.build_s", br.build_time_s, backend=self.backend
+            )
+            if trace_enabled():
+                emit(
+                    "measure.build",
+                    key=mi.workload_key,
+                    hash=structural_hash(mi.workload_key, mi.trace),
+                    ok=br.ok,
+                    dur_s=br.build_time_s,
+                    backend=self.backend,
+                    **({"error": br.error} if br.error else {}),
+                )
+        return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_call(fn, device: torch.device, repeats: int, warmup: int) -> List[float]:
+    """Seconds of each of ``repeats`` calls of ``fn()`` after ``warmup``
+    calls: CUDA events around each call on a card, ``perf_counter`` on the
+    CPU."""
+    for _ in range(warmup):
+        fn()
+    _sync(device)
+    times = []
+    for _ in range(repeats):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    return times
+
+
+def time_artifact(
+    fn,
+    ins,
+    repeats: int,
+    warmup: int,
+    timeout_s: float,
+    device: torch.device,
+) -> MeasureResult:
+    """Shared timing loop: first call with timeout check, then warmup, then
+    the median of ``repeats`` timed runs.  Exceptions propagate."""
+    t0 = time.perf_counter()
+    fn(ins)
+    _sync(device)
+    first = time.perf_counter() - t0
+    if first > timeout_s:
+        # a completed measurement (the schedule is too slow), cacheable
+        return MeasureResult(
+            float("inf"), f"timeout (first call took {first:.2f}s)"
+        )
+    times = time_call(lambda: fn(ins), device, repeats, warmup)
+    return MeasureResult(float(np.median(times)), run_time_s=float(sum(times)))
+
+
+def device_inputs(func: PrimFunc, device: torch.device) -> Dict[str, torch.Tensor]:
+    """``random_inputs(func, 0)`` as tensors on ``device``."""
+    return {
+        k: torch.from_numpy(v).to(device)
+        for k, v in random_inputs(func, 0).items()
+    }
+
+
+class LocalRunner(Runner):
+    """Serial in-process measurement through a ``LocalBuilder``."""
+
+    name = "local"
+
+    def __init__(
+        self,
+        repeats: int = 3,
+        warmup: int = 1,
+        timeout_s: float = 10.0,
+        backend: Optional[str] = None,
+        device: str = "cuda",
+    ):
+        self.repeats = repeats
+        self.warmup = warmup
+        self.timeout_s = timeout_s
+        self.device = resolve_device(device)
+        self.builder = LocalBuilder(backend=backend)
+        self.backend = self.builder.backend
+        # kernels are built here, before anything is timed: an nvcc build
+        # inside the first call would trip the first-call timeout
+        get_backend(self.backend).prepare(self.device)
+        self._inputs_cache: Dict[str, Dict] = {}
+        self.n_measured = 0
+        self.n_failed = 0
+
+    def _inputs(self, func: PrimFunc):
+        key = func.name + str(tuple(b.shape for b in func.inputs))
+        if key not in self._inputs_cache:
+            self._inputs_cache[key] = device_inputs(func, self.device)
+        return self._inputs_cache[key]
+
+    def run(self, inputs: List[MeasureInput]) -> List[MeasureResult]:
+        built = self.builder.build(inputs)
+        out: List[MeasureResult] = []
+        for mi, br in zip(inputs, built):
+            if not br.ok:
+                self.n_failed += 1
+                metrics().inc("measure.failed", backend=self.backend)
+                out.append(
+                    MeasureResult(float("inf"), br.error, build_time_s=br.build_time_s)
+                )
+                continue
+            t0 = time.perf_counter()
+            res = time_artifact(
+                br.artifact,
+                self._inputs(mi.func),
+                self.repeats,
+                self.warmup,
+                self.timeout_s,
+                self.device,
+            )
+            run_wall = time.perf_counter() - t0
+            res.build_time_s = br.build_time_s
+            res.meta = br.meta
+            self.n_measured += 1
+            metrics().inc("measure.measured", backend=self.backend)
+            metrics().observe("measure.run_s", run_wall, backend=self.backend)
+            if not res.ok:
+                self.n_failed += 1
+                metrics().inc("measure.failed", backend=self.backend)
+            if trace_enabled():
+                emit(
+                    "measure.run",
+                    key=mi.workload_key,
+                    hash=structural_hash(mi.workload_key, mi.trace),
+                    ok=res.ok,
+                    latency_s=res.latency_s if res.ok else None,
+                    dur_s=run_wall,
+                    backend=self.backend,
+                    **({"error": res.error} if res.error else {}),
+                )
+            out.append(res)
+        return out
+
+    def measure_plain(self, func: PrimFunc) -> float:
+        """Median latency of the workload's plain PyTorch version on this
+        runner's device — the baseline ``tune_workload`` reports."""
+        from ...backends.gpu_backend import plain
+
+        fn = plain(func)
+        ins = self._inputs(func)
+        fn(ins)
+        return float(
+            np.median(time_call(lambda: fn(ins), self.device,
+                                max(self.repeats, 2), self.warmup))
+        )
+
+    def stats(self):
+        return {
+            "measured": self.n_measured,
+            "failed": self.n_failed,
+            "backend": self.backend,
+            "device": str(self.device),
+        }
