@@ -12,17 +12,26 @@ Phases, in order; a failing phase makes the run exit non-zero:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, in float32,
    at the smollm-135m shapes with tiles that are not powers of two;
-4. the main path, part one: extract smollm-135m's dense, batch_matmul and
-   attention tasks (batch 1, seq 256) and tune them on the ``cuda``
+3b. the decode kernels (K5, and K6 against K5 on the gathered view)
+   against their plain versions on the card, in float32, at the serving
+   shapes, with ragged lengths, sentinels, a softcap and a window;
+4. the forward path, part one: extract smollm-135m's dense, batch_matmul
+   and attention tasks (batch 1, seq 256) and tune them on the ``cuda``
    backend through ``cached+local`` with a small budget;
-5. the main path, part two: the full-width 30-layer bf16 forward under
+5. the forward path, part two: the full-width 30-layer bf16 forward under
    ``DispatchContext`` against the same forward with no context;
+7. the serving path: extract smollm-135m's decode tasks (4 slots, max_seq
+   256, paged, 32-token prefill chunks), tune them the same way, serve 8
+   requests through ``ContinuousBatchingScheduler`` on the paged arena
+   under the tuned context, then the same requests with no context; one
+   decode-only tick is run both ways and compared;
 6. each kernel's time at its main-path shapes with the tuned tiles, beside
-   its plain version, the one PyTorch call that computes the same function,
-   and the least time the card could take.
+   its plain version, the one PyTorch call that computes the same function
+   (where there is one), and the least time the card could take.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-the main path and read just after it.  TF32 is off for float32 matmuls in
+each of the two paths (forward: phases 4-5; serving: phase 7) and read just
+after it.  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -39,6 +48,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -54,6 +64,14 @@ BATCH = 1
 TOL_MATMUL = 2e-3  # f32, K <= 1536, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
 TOL_LOGITS_REL = 5e-2  # bf16 plain forward vs f32 kernels cast to bf16
+
+# the serving path (phase 7)
+SERVE_SLOTS = 4
+SERVE_MAX_SEQ = 256
+SERVE_PAGE = 16
+SERVE_CHUNK = 32
+SERVE_REQUESTS = 8
+SERVE_NEW_TOKENS = 32
 
 
 def fail(msg: str) -> None:
@@ -217,11 +235,107 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
+def decode_bias(lengths, T, window: int = 0):
+    """(B, T) additive decode mask: 0 where position < length (and inside
+    the window), -1e30 elsewhere."""
+    import torch
+
+    pos = torch.arange(T, device="cuda")[None, :]
+    lv = torch.tensor(lengths, device="cuda")[:, None]
+    ok = pos < lv
+    if window:
+        ok &= pos > lv - 1 - window
+    return torch.where(ok, 0.0, -1e30).float()
+
+
+def gathered(pool, table):
+    """A page pool gathered through a page table into the contiguous
+    (B, KVH, P·ps, D) view (sentinels clamped), as K6's yardstick."""
+    import torch
+
+    n_pages, kvh, ps, d = pool.shape
+    B, P = table.shape
+    idx = torch.clamp(table.long(), max=n_pages - 1)
+    return pool[idx].permute(0, 2, 1, 3, 4).reshape(B, kvh, P * ps, d).contiguous()
+
+
+def sdpa_decode(q4, k, v, bias):
+    """The library call that computes K5's function (a yardstick only):
+    q (B, H, 1, D) against the cache, the bias as an additive mask."""
+    import torch.nn.functional as F
+
+    B, KVH, G, D = q4.shape
+    return F.scaled_dot_product_attention(
+        q4.reshape(B, KVH * G, 1, D), k, v, attn_mask=bias[:, None, None, :],
+        enable_gqa=True,
+    )
+
+
+def phase_decode_kernels(gen, errs: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, KVH, G, D = SERVE_SLOTS, 3, 3, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def report(kernel, label, got, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        print(f"[decode] {kernel} {label}: max_abs_err {err:.3e} (tol {TOL_ATTN:g})")
+        if not math.isfinite(err) or err > TOL_ATTN:
+            fail(f"{kernel} {label}: max_abs_err {err} > {TOL_ATTN}")
+
+    q = randn(B, KVH, G, D)
+    for T, tiles in ((SERVE_MAX_SEQ, (16, 64, 256)), (192, (48, 96))):
+        k, v = randn(B, KVH, T, D), randn(B, KVH, T, D)
+        cases = [("full", None, decode_bias([T] * B, T)),
+                 ("ragged", None, decode_bias([T, 1, 77, T - 5], T)),
+                 ("ragged softcap=50", 50.0, decode_bias([T, 33, 2, 150], T)),
+                 ("ragged window=64", None, decode_bias([T, 100, 64, 9], T, 64))]
+        for bkv in tiles:
+            for label, cap, bias in cases:
+                got = fa.decode_flash_attention(q, k, v, bias, softcap=cap,
+                                                block_kv=bkv)
+                launched = fa.decode_flash_attention.last_launch["blocks"]
+                if launched != (bkv,):
+                    fail(f"decode_flash_attention launched {launched}, asked ({bkv},)")
+                want = ref.decode_attention(q, k, v, bias, softcap=cap)
+                report("decode_flash_attention",
+                       f"({B},{KVH},{G},{T},{D}) block_kv {bkv} {label}", got, want)
+    # K6: pages scattered over a pool, sentinel entries, ragged lengths
+    P = SERVE_MAX_SEQ // SERVE_PAGE
+    n_pages = B * P + 3
+    kp, vp = randn(n_pages, KVH, SERVE_PAGE, D), randn(n_pages, KVH, SERVE_PAGE, D)
+    table = torch.randperm(n_pages - 1, generator=gen, device="cuda")[: B * P]
+    table = table.reshape(B, P).to(torch.int32)
+    table[1, 10:] = n_pages
+    table[3, 1:] = n_pages
+    T = P * SERVE_PAGE
+    for label, cap, bias in (
+        ("sentinels ragged", None, decode_bias([T, 10 * SERVE_PAGE - 3, 77, 16], T)),
+        ("sentinels ragged softcap=50", 50.0, decode_bias([T, 150, 1, 5], T)),
+    ):
+        got = fa.paged_decode_flash_attention(q, kp, vp, table, bias, softcap=cap)
+        want = fa.decode_flash_attention(q, gathered(kp, table), gathered(vp, table),
+                                         bias, softcap=cap, block_kv=SERVE_PAGE)
+        report("paged_decode_flash_attention",
+               f"pools {tuple(kp.shape)} table {tuple(table.shape)} {label} vs K5",
+               got, want)
+        report("paged_decode_flash_attention", f"{label} vs plain", got,
+               ref.paged_decode_attention(q, kp, vp, table, bias, softcap=cap))
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the main path
+# phases 4-5: the forward path
 # ---------------------------------------------------------------------------
 
-KERNELS = ("matmul", "batch_matmul", "flash_attention")
+FORWARD_KERNELS = ("matmul", "batch_matmul", "flash_attention")
+KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_attention")
 
 
 def _wrappers():
@@ -229,7 +343,9 @@ def _wrappers():
     from repro_torch.kernels import matmul as mm
 
     return {"matmul": mm.matmul, "batch_matmul": mm.batch_matmul,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "decode_flash_attention": fa.decode_flash_attention,
+            "paged_decode_flash_attention": fa.paged_decode_flash_attention}
 
 
 def reset_counts() -> None:
@@ -241,18 +357,21 @@ def read_counts() -> dict:
     return {k: w.launches for k, w in _wrappers().items()}
 
 
-def phase_tune(cfg, db):
+def phase_tune(cfg, db, extract=None, tag="tune"):
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
     t0 = time.perf_counter()
-    tasks = repro_torch.extract_tasks(
-        cfg, batch=BATCH, seq=SEQ, dispatchable_only=True,
-        ops=("dense", "batch_matmul", "attention"),
-    )
-    print(f"[tune] extracted {len(tasks)} tasks in {time.perf_counter() - t0:.1f} s")
+    if extract is None:
+        tasks = repro_torch.extract_tasks(
+            cfg, batch=BATCH, seq=SEQ, dispatchable_only=True,
+            ops=("dense", "batch_matmul", "attention"),
+        )
+    else:
+        tasks = extract()
+    print(f"[{tag}] extracted {len(tasks)} tasks in {time.perf_counter() - t0:.1f} s")
     for t in tasks:
-        print(f"[tune]   {t.key} weight {t.weight:g}")
+        print(f"[{tag}]   {t.key} weight {t.weight:g}")
     search = SearchConfig(
         max_trials=32, init_random=8, population=16, measure_per_round=8,
         rollout_factor=2,
@@ -264,14 +383,14 @@ def phase_tune(cfg, db):
     t0 = time.perf_counter()
     sched = repro_torch.TaskScheduler(tasks, database=db, config=config)
     best = sched.tune(total_rounds=4 * len(tasks))
-    print(f"[tune] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
+    print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
           f"runner stats {sched.runner.stats()}")
     for key, lat in best.items():
         if not math.isfinite(lat):
             fail(f"task {key} has no finite best latency")
     reasons = Counter(failure_reason(err) for search in sched.searches
                       for _, err in search.errors)
-    print(f"[tune] failed candidates by reason: {dict(reasons)}")
+    print(f"[{tag}] failed candidates by reason: {dict(reasons)}")
     others = [r for r in reasons if not r.startswith(EXPECTED_FAILURES)]
     if others:
         fail(f"candidates failed for reasons other than a rejection: {others}")
@@ -323,6 +442,11 @@ def check_tiles(tasks, db) -> dict:
             bq, bkv = snapped
             want = dict(grid=(s // bq, b * kvh * g), threads=fa.THREADS,
                         smem_bytes=fa.smem_bytes(bq, bkv, d))
+        elif kern == "decode_flash_attention":
+            b, kvh, g, d = shapes[0]
+            (bkv,) = snapped
+            want = dict(grid=(b * kvh,), threads=fa.THREADS,
+                        smem_bytes=fa.decode_smem_bytes(g, bkv, d))
         else:
             if kern == "matmul":
                 (M, K), (_, N), B = shapes[0], shapes[1], 1
@@ -443,6 +567,18 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             l_ms = median_ms(lambda: torch.bmm(a, b))
             flops = 2 * B * M * N * K
             nbytes = 4 * B * (M * K + K * N + M * N)
+        elif kern == "decode_flash_attention":
+            (b, kvh, g, d), t_len = shapes[0], shapes[1][2]
+            (bkv,) = snapped
+            q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
+            k = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
+            v = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
+            bias = decode_bias([t_len] * b, t_len)
+            k_ms = median_ms(lambda: fa.decode_flash_attention(
+                q, k, v, bias, block_kv=bkv))
+            p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias))
+            l_ms = median_ms(lambda: sdpa_decode(q, k, v, bias))
+            flops, nbytes = decode_work(b, kvh, g, t_len, d)
         else:
             b, kvh, g, s, d = shapes[0]
             h = kvh * g
@@ -465,6 +601,293 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
               f"plain {p_ms:.4f} ms library {l_ms:.4f} ms bound {b_ms:.4f} ms "
               f"({b_by})")
     return rows
+
+
+def decode_work(b, kvh, g, t_len, d, table_entries: int = 0):
+    """(flops, bytes) of one decode attention call: q·k and p·v over the
+    whole cache; K and V read once, q read and o written, the bias row read
+    (and the page table, for K6)."""
+    flops = 4 * b * kvh * g * t_len * d
+    nbytes = 4 * (2 * b * kvh * t_len * d + 2 * b * kvh * g * d + b * t_len
+                  + table_entries)
+    return flops, nbytes
+
+
+def paged_timing(gen, t_len: int, ps: int) -> dict:
+    """K6 at the serving shape, pages scattered over the pool, beside K5
+    on the gathered view and the plain version.  No single PyTorch call
+    reads a cache through a page table, so there is no library time."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, kvh, g, d = SERVE_SLOTS, 3, 3, 64
+    P = t_len // ps
+    n_pages = b * P
+    q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
+    kp = torch.randn(n_pages, kvh, ps, d, generator=gen, device="cuda")
+    vp = torch.randn(n_pages, kvh, ps, d, generator=gen, device="cuda")
+    table = torch.randperm(n_pages, generator=gen, device="cuda").reshape(b, P)
+    table = table.to(torch.int32)
+    bias = decode_bias([t_len] * b, t_len)
+    k_ms = median_ms(lambda: fa.paged_decode_flash_attention(q, kp, vp, table, bias))
+    p_ms = median_ms(lambda: ref.paged_decode_attention(q, kp, vp, table, bias))
+    flops, nbytes = decode_work(b, kvh, g, t_len, d, table_entries=b * P)
+    b_ms, b_by = bound(flops, nbytes)
+    row = dict(kernel="paged_decode_flash_attention", blocks=[ps], ms=k_ms,
+               plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               flops=flops, weight=0)
+    print(f"[time] paged decode ({b},{kvh},{g},{t_len},{d}) page {ps}: kernel "
+          f"{k_ms:.4f} ms plain {p_ms:.4f} ms library - (no single PyTorch call "
+          f"reads through a page table) bound {b_ms:.4f} ms ({b_by})")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving path
+# ---------------------------------------------------------------------------
+
+
+def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
+    """Serve ``prompts`` through the paged continuous-batching scheduler;
+    ``on_tick(sched)`` runs before every tick.  Returns (scheduler,
+    requests, wall seconds)."""
+    import torch
+
+    from repro_torch.serving import ContinuousBatchingScheduler, ServeConfig
+
+    sched = ContinuousBatchingScheduler(cfg, params, config=ServeConfig(
+        max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
+        page_size=SERVE_PAGE, prefill_chunk=SERVE_CHUNK, dispatch=dispatch,
+    ))
+    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while sched.pending():
+        if on_tick is not None:
+            on_tick(sched)
+        sched.step()
+    torch.cuda.synchronize()
+    return sched, reqs, time.perf_counter() - t0
+
+
+def profile_device(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device's events
+    (kernels, copies), their summed time by name, the time the device was
+    busy (the union of their intervals) and the span from the first event's
+    start to the last one's end.  Empty when the profiler saw no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {}
+    busy, end = 0.0, spans[0][0]
+    by_name = Counter()
+    for t0, t1, name in spans:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name[:60]] += t1 - t0
+    span = end - spans[0][0]
+    return dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
+                idle_share=1.0 - busy / span if span > 0 else 0.0,
+                top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
+
+
+def snapshot_tick(sched) -> dict:
+    """The scheduler's next tick, decode lanes only: its inputs and a copy
+    of the arena it would run on."""
+    import torch
+
+    toks, valid, chunked = sched.tick_inputs()
+    if chunked or toks.shape[1] != 1:
+        fail(f"the checked tick is not decode-only: chunks {chunked}")
+    return dict(toks=torch.from_numpy(toks).cuda(),
+                valid=torch.from_numpy(valid).cuda(),
+                cache={k: v.clone() for k, v in sched.arena.cache.items()})
+
+
+def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str) -> dict:
+    """Run a snapshotted decode-only tick on copies of its arena, under
+    ``ctx`` and with no context, and compare the logits; then time the same
+    tick both ways on the host clock (median of 3, each on a fresh copy,
+    under ``timing_ctx`` so ``ctx``'s counts stay the check's) and trace it
+    once each way with the profiler."""
+    import torch
+
+    toks, valid = snap["toks"], snap["valid"]
+
+    def copy():
+        return {k: v.clone() for k, v in snap["cache"].items()}
+
+    def run(dispatch, cache):
+        with torch.no_grad(), (dispatch if dispatch is not None else nullcontext()):
+            return sched.model.serve_step(sched.params, cache, toks, valid)[0]
+
+    def tick_ms(dispatch):
+        ts = []
+        for _ in range(3):
+            cache = copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(dispatch, cache)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[1] * 1e3
+
+    hits0 = ctx.hits_by_key.get(attn_key, 0)
+    counts0 = read_counts()
+    reasons0 = Counter(r for row in ctx.stats_by_key().values()
+                       for r, n in row["reasons"].items() for _ in range(n))
+    tuned = run(ctx, copy())
+    torch.cuda.synchronize()
+    hits = ctx.hits_by_key.get(attn_key, 0) - hits0
+    launches = {k: n - counts0[k] for k, n in read_counts().items()}
+    reasons = Counter(r for row in ctx.stats_by_key().values()
+                      for r, n in row["reasons"].items() for _ in range(n))
+    plain = run(None, copy())
+    live = valid.bool()
+    d, p = tuned[live].float(), plain[live].float()
+    rel = float((d - p).abs().max() / p.abs().max())
+    dispatched_ms, plain_ms = tick_ms(timing_ctx), tick_ms(None)
+    caches = copy(), copy()
+    traced = profile_device(lambda: run(timing_ctx, caches[0]))
+    traced_plain = profile_device(lambda: run(None, caches[1]))
+    return dict(lanes=int(live.sum()), attention_decode_hits=hits,
+                launches=launches, new_reasons=dict(reasons - reasons0),
+                max_rel_err=rel, finite=bool(torch.isfinite(d).all()),
+                dispatched_ms=dispatched_ms, plain_ms=plain_ms,
+                profile=traced, profile_plain=traced_plain)
+
+
+def phase_serve(cfg, db, gen_seed: int = 0):
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as T
+
+    def extract():
+        return repro_torch.extract_decode_tasks(
+            cfg, batch=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
+            chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=True,
+        )
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="serve-tune")
+    tune_counts = read_counts()
+    attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
+    print(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()}, "
+          f"{SERVE_NEW_TOKENS} new tokens each, greedy")
+    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    snap = {}
+
+    def on_tick(sched):
+        # the first tick that will decode only (nothing prefilling, and no
+        # admission can start a prompt) is kept for the check below
+        idle_admit = not sched.queue or not sched.pool.free
+        if not snap and sched.active and not sched.prefilling and idle_admit:
+            snap.update(snapshot_tick(sched))
+
+    counts0 = read_counts()
+    sched, reqs, wall = serve_requests(cfg, params, ctx, prompts, on_tick)
+    serve_counts = {k: read_counts()[k] - counts0[k] for k in KERNELS}
+    stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # the serving run's
+    if not snap:
+        fail("no decode-only tick was checked")
+    plain_sched, plain_reqs, plain_wall = serve_requests(cfg, params, None, prompts)
+    # the check runs after both serving runs, so it perturbs neither their
+    # times (its profiler trace included) nor the path's launch counts
+    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key)
+    done = sum(r.done for r in reqs)
+    tokens = sum(len(r.generated) for r in reqs)
+    ttft = [r.ttft_s for r in reqs]
+    plain_ttft = [r.ttft_s for r in plain_reqs]
+    agree = total = 0
+    for r, pr in zip(reqs, plain_reqs):
+        for a, b in zip(r.generated, pr.generated):
+            agree, total = agree + (a == b), total + 1
+    s = sched.stats
+    res = dict(
+        requests=len(reqs), completed=done, tokens=tokens, wall_s=wall,
+        plain_wall_s=plain_wall,
+        decode_tok_s=sched.decode_tok_s, prefill_tok_s=sched.prefill_tok_s,
+        plain_decode_tok_s=plain_sched.decode_tok_s,
+        plain_prefill_tok_s=plain_sched.prefill_tok_s,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p95_s=float(np.percentile(ttft, 95)),
+        plain_ttft_p50_s=float(np.percentile(plain_ttft, 50)),
+        plain_ttft_p95_s=float(np.percentile(plain_ttft, 95)),
+        decode_steps=s["decode_steps"], mixed_ticks=s["mixed_ticks"],
+        prefill_chunks=s["prefill_chunks"],
+        attention_decode_tuned=stats["attention_decode_tuned"],
+        greedy_agreement=agree / max(total, 1), stats=stats, tick_check=check,
+        launches=serve_counts,
+    )
+    print(f"[serve] completed {done}/{len(reqs)} requests, {tokens} tokens in "
+          f"{wall:.2f} s ({s['decode_steps']} decode ticks, {s['mixed_ticks']} "
+          f"mixed, {s['prefill_chunks']} prefill chunks)")
+    print(f"[serve] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
+          f"{sched.prefill_tok_s:.1f} tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms "
+          f"p95 {res['ttft_p95_s'] * 1e3:.1f} ms")
+    print(f"[serve] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
+          f"{plain_sched.prefill_tok_s:.1f} tok/s, TTFT p50 "
+          f"{res['plain_ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{res['plain_ttft_p95_s'] * 1e3:.1f} ms, wall {plain_wall:.2f} s")
+    print(f"[serve] dispatch stats {stats}")
+    reasons = Counter()
+    for key, row in by_key.items():
+        print(f"[serve]   {key}: hits {row['hits']} misses {row['misses']} "
+              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
+        reasons.update(row["reasons"])
+    print("[serve] decode-only tick check: "
+          f"{ {k: v for k, v in check.items() if not k.startswith('profile')} }")
+    for label in ("profile", "profile_plain"):
+        prof = check[label]
+        if not prof:
+            print(f"[serve] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[serve] {label} of one decode-only tick: {prof['events']} device "
+              f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+              f"span, idle share {prof['idle_share']:.3f}")
+        for name, ms in prof["top_ms"].items():
+            print(f"[serve]   {ms:8.3f} ms  {name}")
+    print(f"[serve] one decode-only tick ({check['lanes']} lanes, host clock, median "
+          f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
+          f"{check['plain_ms']:.2f} ms")
+    print(f"[serve] greedy tokens agreeing with the plain run: {agree}/{total} "
+          f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
+          f"f32 kernels)")
+    print(f"[serve] kernel launches while serving: {serve_counts}")
+    if done != len(reqs) or any(len(r.generated) != SERVE_NEW_TOKENS for r in reqs):
+        fail(f"{done} of {len(reqs)} requests finished with {SERVE_NEW_TOKENS} tokens")
+    if serve_counts["decode_flash_attention"] <= 0:
+        fail("decode_flash_attention was not launched while serving")
+    if serve_counts["matmul"] <= 0:
+        fail("matmul was not launched while serving")
+    if reasons.get("lowering_failed"):
+        fail(f"{reasons['lowering_failed']} lowering_failed misses while serving")
+    k5_tick = check["launches"]["decode_flash_attention"]
+    if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
+        fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
+             f"hits, {k5_tick} K5 launches; want {cfg.n_layers}")
+    if check["new_reasons"].get("lowering_failed"):
+        fail("lowering_failed in the decode-only tick")
+    if not check["finite"] or check["max_rel_err"] > TOL_LOGITS_REL:
+        fail(f"decode-only tick logits rel err {check['max_rel_err']} > {TOL_LOGITS_REL}")
+    return tasks, best, res, tune_counts
 
 
 def main(argv=None) -> int:
@@ -502,20 +925,34 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     errs = phase_kernels(gen)
 
+    phase_decode_kernels(gen, errs)
+
     cfg = get_config("smollm-135m")
     db = Database()
-    reset_counts()  # the main path starts here
+    reset_counts()  # the forward path starts here
     tasks, best = phase_tune(cfg, db)
     tune_counts = read_counts()
     print(f"[tune] kernel launches while tuning: {tune_counts}")
-    for k in KERNELS:
+    for k in FORWARD_KERNELS:
         if tune_counts[k] <= 0:
             fail(f"{k} was not launched while tuning")
     runs = check_tiles(tasks, db)
     fwd, fwd_counts = phase_forward(cfg, tasks, db)
-    launches = {k: tune_counts[k] + fwd_counts[k] for k in KERNELS}
+
+    serve_db = Database()
+    reset_counts()  # the serving path starts here
+    serve_tasks, serve_best, serve, serve_tune_counts = phase_serve(cfg, serve_db)
+    runs.update(check_tiles(serve_tasks, serve_db))
+    paths = {
+        "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
+        "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
+    }
+    launches = {k: paths["forward"][k] + paths["serving"][k] for k in KERNELS}
+    print(f"[launches] by path (tuning + run): {paths}")
 
     rows = phase_timings(tasks, runs, gen, cfg.vocab)
+    rows.update(phase_timings(serve_tasks, runs, gen, cfg.vocab))
+    rows["paged_decode"] = paged_timing(gen, SERVE_MAX_SEQ, SERVE_PAGE)
     sources = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:46"),
@@ -523,6 +960,12 @@ def main(argv=None) -> int:
                          "src/repro/kernels/matmul.py:114"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:96"),
+        "decode_flash_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/flash_attention.py:218"),
+        "paged_decode_flash_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/flash_attention.py:337"),
     }
     entries = []
     for k in KERNELS:
@@ -533,6 +976,7 @@ def main(argv=None) -> int:
         entries.append(dict(
             name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
             launches=launches[k], forward_launches=fwd_counts[k],
+            launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
@@ -546,7 +990,9 @@ def main(argv=None) -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            total_s=total_s, kernels=entries, timings=rows,
                            forward=fwd, tune_best=best,
-                           tune_launches=tune_counts), f, indent=1)
+                           tune_launches=tune_counts, serve=serve,
+                           serve_tune_best=serve_best,
+                           launches_by_path=paths), f, indent=1)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

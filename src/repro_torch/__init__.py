@@ -14,6 +14,10 @@ C++.  The public surface, importable straight off the package::
     with repro_torch.DispatchContext(db, tasks=tasks):
         ...  # model forward — tuned kernels served by workload key
 
+    sched = repro_torch.ContinuousBatchingScheduler(
+        cfg, params, config=repro_torch.ServeConfig(dispatch=ctx),
+    )  # serving: tuned decode kernels serve every generated token
+
 Entry points measure and run on ``device="cuda"`` unless told otherwise and
 raise when there is no card.  Everything here is a lazy re-export (PEP
 562): importing ``repro_torch`` stays cheap until a symbol is touched.
@@ -35,9 +39,13 @@ _EXPORTS = {
     "TaskScheduler": "search.task_scheduler",
     "TuneTask": "search.task_scheduler",
     "extract_tasks": "integration.extract",
-    # persistence + dispatch
+    "extract_decode_tasks": "integration.extract",
+    # persistence + dispatch + serving
     "Database": "search.database",
     "DispatchContext": "integration.dispatch",
+    "ServeConfig": "serving.config",
+    "ServingEngine": "serving.engine",
+    "ContinuousBatchingScheduler": "serving.scheduler",
     # measurement
     "create_runner": "search.measure",
     "as_runner": "search.measure",
@@ -67,7 +75,10 @@ def __dir__():
 
 if TYPE_CHECKING:  # static-analysis view of the lazy exports
     from .integration.dispatch import DispatchContext  # noqa: F401
-    from .integration.extract import extract_tasks  # noqa: F401
+    from .integration.extract import (  # noqa: F401
+        extract_decode_tasks,
+        extract_tasks,
+    )
     from .obs import metrics  # noqa: F401
     from .search.database import Database  # noqa: F401
     from .search.evolutionary import SearchConfig  # noqa: F401
@@ -77,6 +88,9 @@ if TYPE_CHECKING:  # static-analysis view of the lazy exports
         runner_names,
     )
     from .search.task_scheduler import TaskScheduler, TuneTask  # noqa: F401
+    from .serving.config import ServeConfig  # noqa: F401
+    from .serving.engine import ServingEngine  # noqa: F401
+    from .serving.scheduler import ContinuousBatchingScheduler  # noqa: F401
     from .search.tune import (  # noqa: F401
         TuneConfig,
         TuneResult,

@@ -4,8 +4,9 @@ The port of the JAX package's ``backends/pallas_backend.py``.  The (S2·S3)
 spatial tile extents and the R1 reduce tile of the tensorized block become
 the (bm, bn, bk) of :mod:`repro_torch.kernels.matmul` (dense and batched);
 the (i, j) tiles of an attention schedule's ``scores`` block become the
-(block_q, block_kv) of :mod:`repro_torch.kernels.flash_attention`.
-Inlined/attached elementwise consumers of a dense become the kernel's fused
+(block_q, block_kv) of :mod:`repro_torch.kernels.flash_attention`, and the
+j tile of an ``attention_decode`` schedule's ``scores`` block its decode
+kernel's block_kv.  Inlined/attached elementwise consumers of a dense become the kernel's fused
 epilogue.
 
 The kernels tile exactly, so sampled tile extents are *snapped* to the
@@ -17,9 +18,9 @@ A tile the card cannot run (grid, shared memory or thread caps) raises
 ``ScheduleRejected`` here, which the measurement stack treats as a
 rejected candidate; every other failure propagates.
 
-Workloads covered: ``dense_*`` (+fused epilogues), ``batch_matmul`` and
-``attention_*`` (prefill).  ``sfm`` and ``attention_decode`` belong to later
-slices and raise here.
+Workloads covered: ``dense_*`` (+fused epilogues), ``batch_matmul``,
+``attention_*`` (prefill) and ``attention_decode*``.  ``sfm`` belongs to a
+later slice and raises here.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..kernels.matmul import DEFAULT_BLOCKS
 # epilogue variant; attention_* covers the causal/window/softcap variants)
 _LOWERABLE_PREFIXES = ("dense_", "attention_")
 _LOWERABLE_NAMES = ("batch_matmul",)
-_LATER_SLICES = ("sfm", "attention_decode")
+_LATER_SLICES = ("sfm",)
 
 
 def supports(func: PrimFunc) -> bool:
@@ -244,6 +245,69 @@ def lower_attention(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
     return fn, meta
 
 
+DEFAULT_DECODE_KV_BLOCK = 128  # pre-tuning fixed decode kv tile
+
+
+def extract_decode_kv_block(sch: Schedule) -> Optional[int]:
+    """block_kv = the j (kv) tile extent of the decode scores block."""
+    for n in iter_nodes(sch.root):
+        if isinstance(n, BlockNode) and n.block.name == "scores":
+            per_axis = _per_axis_tile(sch, n)
+            bkv = per_axis.get("j", 1)
+            return bkv if bkv > 1 else None
+    return None
+
+
+def _decode_softcap(name: str) -> Optional[float]:
+    """The softcap of an ``attention_decode[_t{cap}]`` workload name."""
+    for part in name.split("_"):
+        if part.startswith("t") and part != "t":
+            try:
+                return float(part[1:])
+            except ValueError:
+                pass
+    return None
+
+
+def lower_attention_decode(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
+    """Tuned single-token decode attention via the CUDA decode kernel (K5).
+
+    The decode workload has no query tiling (s_q = 1: the GQA group rides
+    whole in one CTA), so the only tunable block is the kv tile — the
+    sampled ``j`` extent of the ``scores`` block, snapped to a divisor of
+    the cache length.  The dynamic mask arrives as the workload's BIAS
+    input, passed straight through to the kernel.
+    """
+    from ..kernels import flash_attention as fa
+
+    func = sch.func
+    b, kvh, g, d = func.inputs[0].shape
+    t = func.inputs[1].shape[2]
+    softcap = _decode_softcap(func.name)
+    sampled = extract_decode_kv_block(sch)
+    (bkv,) = snap_blocks((t,), (sampled or DEFAULT_DECODE_KV_BLOCK,))
+    _check_grid(b * kvh * (t // bkv), (bkv,))
+    fa.decode_launch_config(b, kvh, g, t, d, bkv)
+    meta = _block_meta(
+        "decode_flash_attention",
+        None if sampled is None else (sampled,),
+        (bkv,),
+    )
+
+    def fn(inputs: Dict):
+        out = fa.decode_flash_attention(
+            inputs["Q"].contiguous(),
+            inputs["K"].contiguous(),
+            inputs["V"].contiguous(),
+            inputs["BIAS"].contiguous(),
+            softcap=softcap,
+            block_kv=bkv,
+        )
+        return {func.outputs[0].name: out}
+
+    return fn, meta
+
+
 def _block_meta(kernel: str, sampled, snapped) -> Dict[str, Any]:
     meta: Dict[str, Any] = {
         "pallas_kernel": kernel,
@@ -273,6 +337,10 @@ def lower_to_cuda(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
         )
     if name.startswith("dense_"):
         return lower_dense(sch)
+    if name.startswith("attention_decode"):
+        # must route before the generic attention_ prefix: the prefill
+        # flash lowering assumes a 5-D square-sequence Q
+        return lower_attention_decode(sch)
     if name.startswith("attention_"):
         return lower_attention(sch)
     if name == "batch_matmul":
@@ -296,7 +364,14 @@ def plain(func: PrimFunc) -> Callable[[Dict], Dict]:
         }
     if name == "batch_matmul":
         return lambda ins: {out_name: ref.batch_matmul(ins["A"], ins["B"])}
-    if name.startswith("attention_") and not name.startswith(_LATER_SLICES):
+    if name.startswith("attention_decode"):
+        softcap = _decode_softcap(name)
+        return lambda ins: {
+            out_name: ref.decode_attention(
+                ins["Q"], ins["K"], ins["V"], ins["BIAS"], softcap=softcap
+            )
+        }
+    if name.startswith("attention_"):
         causal, window, softcap = _parse_attention_name(name)
         b, kvh, g, s, d = func.inputs[0].shape
 

@@ -7,7 +7,8 @@ candidates, and the dispatch layer serves models, through the *same*
 selected lowering::
 
     "cuda"   the hand-written CUDA kernels (dense, batch_matmul, prefill
-             attention); tensors on the CPU run the kernels' plain versions
+             attention, single-token decode attention); tensors on the CPU
+             run the kernels' plain versions
 
 Selection is explicit (``backend="cuda"`` through ``tune_workload`` /
 ``TaskScheduler`` / ``DispatchContext``); ``None`` means
@@ -93,7 +94,7 @@ def get_backend(spec: Optional[str] = None) -> Backend:
 
 class CudaBackend(Backend):
     """Hand-written CUDA kernels for tuned schedules (dense, batch_matmul,
-    prefill attention) plus the untuned fused attention the dispatch layer
+    prefill attention, decode attention) plus the untuned fused attention the dispatch layer
     serves.  Any other workload raises ``NotImplementedError``."""
 
     name = "cuda"

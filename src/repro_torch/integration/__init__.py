@@ -12,6 +12,8 @@ from __future__ import annotations
 _EXPORTS = {
     "extract_tasks": "extract",
     "extract_task_specs": "extract",
+    "extract_decode_tasks": "extract",
+    "extract_decode_task_specs": "extract",
     "ExtractedTask": "extract",
     "TaskSite": "extract",
     "SiteRecorder": "extract",
@@ -19,6 +21,7 @@ _EXPORTS = {
     "DispatchContext": "dispatch",
     "CompiledKernel": "dispatch",
     "current": "dispatch",
+    "maybe_dispatch": "dispatch",
 }
 
 __all__ = sorted(_EXPORTS)

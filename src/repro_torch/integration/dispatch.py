@@ -6,7 +6,8 @@ record per workload key, replays the stored trace through the validator,
 lowers the schedule with the selected backend (the CUDA kernels), and
 serves the lowered callable to the model layers — which call in through
 the hooks in :mod:`repro_torch.models.layers` (``dense_op`` / ``bmm_op`` /
-``unembed`` / ``chunked_attention``) while the context is active::
+``unembed`` / ``chunked_attention`` / ``decode_attention``) while the
+context is active::
 
     db = Database("results/tuning_db.json")
     with DispatchContext(db, tasks=extract_tasks(cfg)) as ctx:
@@ -101,6 +102,7 @@ class DispatchContext:
             "misses": 0,
             "attention_fused": 0,
             "attention_tuned": 0,
+            "attention_decode_tuned": 0,
         }
         self.hits_by_key: Dict[str, int] = {}
         self._by_key: Dict[str, Dict[str, Any]] = {}
@@ -415,17 +417,96 @@ class DispatchContext:
         )
         return out.to(q.dtype)
 
-    def decode_attention(self, *args, **kwargs) -> None:
-        """Decode attention is not in this slice: always a miss."""
-        self.stats["misses"] += 1
-        self._note("miss", None, "attention_decode", "not_in_slice")
-        return None
+    def decode_attention(
+        self,
+        q: torch.Tensor,  # (B, H, 1, D)
+        k: torch.Tensor,  # (B, KVH, T, D) — full fixed-shape cache
+        v: torch.Tensor,
+        *,
+        length: Any,  # valid length: scalar or per-slot (B,)
+        window: Optional[int] = None,
+        softcap: Optional[float] = None,
+        scale: Optional[float] = None,
+    ) -> Optional[torch.Tensor]:
+        """Tuned single-token decode attention (serving).
+
+        Serves ``attention_decode`` records keyed by the *static* shape
+        ``(b, h, kvh, t, d, softcap)`` — ``t`` is the fixed cache length,
+        so the key is position-independent.  The dynamic part of decode
+        (per-slot lengths, the layer's window) folds into an additive bias
+        built as data on the cache's device and fed to the kernel as the
+        workload's BIAS input: one tuned kernel serves every decode step of
+        a continuous-batching arena.  The JAX package also falls back for a
+        traced window or softcap (``traced_window`` / ``traced_softcap``);
+        eager PyTorch has no traced values, so those reasons cannot occur.
+        """
+        B, H, S, D = (int(s) for s in q.shape)
+        KVH, T = int(k.shape[1]), int(k.shape[2])
+        if S != 1:
+            # in-tick prefill chunk: a (B, C) serve_step tick runs its chunk
+            # queries through the plain staircase path; only single-token
+            # decode has a tuned kernel shape
+            self._note("fallback", None, "attention_decode", "chunked_query")
+            return None
+        if v.shape != k.shape or H % KVH != 0:
+            self._note("fallback", None, "attention_decode", "shape_mismatch")
+            return None
+        if scale is not None and abs(scale - D**-0.5) > 1e-12:
+            self._note(
+                "fallback", None, "attention_decode", "nondefault_scale"
+            )
+            return None
+        key = workload_key(
+            "attention_decode", b=B, h=H, kvh=KVH, t=T, d=D,
+            softcap=float(softcap or 0.0),
+        )
+        kern = self._lookup(key, "attention_decode")
+        if kern is None:
+            return None
+        G = H // KVH
+        w = int(window or 0)
+        # mask as data: 0 where attendable, -1e30 where not — position <
+        # length, and inside the window when the layer is local (ring
+        # wraparound approximated by slot, like the plain path)
+        pos = torch.arange(T, device=k.device)
+        lv = torch.as_tensor(length, device=k.device).expand(B)
+        valid = pos[None, :] < lv[:, None]
+        if w > 0:
+            valid = valid & (pos[None, :] > lv[:, None] - 1 - w)
+        bias = torch.where(
+            valid,
+            torch.zeros((), dtype=torch.float32, device=k.device),
+            torch.full((), -1e30, dtype=torch.float32, device=k.device),
+        )
+        if kern.grad_fn is None:
+            def fwd_kernel(q4, k2, v2, b2):
+                return kern.fn({"Q": q4, "K": k2, "V": v2, "BIAS": b2})[
+                    kern.out_name
+                ]
+
+            def ref(q4, k2, v2, b2):
+                from ..kernels import ref as kref
+
+                return kref.decode_attention(q4, k2, v2, b2, softcap=softcap)
+
+            kern.grad_fn = _with_reference_grad(fwd_kernel, ref)
+        self.stats["attention_decode_tuned"] += 1
+        q4 = q.reshape(B, KVH, G, D).float()
+        out = kern.grad_fn(q4, k.float(), v.float(), bias)
+        return out.reshape(B, H, 1, D).to(q.dtype)
 
     def rmsnorm(self, x, w, eps: float) -> None:
         """The rmsnorm workload is not in this slice: always a miss."""
         self.stats["misses"] += 1
         self._note("miss", None, "rmsnorm", "not_in_slice")
         return None
+
+
+def maybe_dispatch(ctx: Optional[DispatchContext]):
+    """``with maybe_dispatch(ctx):`` — no-op when ctx is None."""
+    from contextlib import nullcontext
+
+    return ctx if ctx is not None else nullcontext()
 
 
 def _with_reference_grad(kernel_fn: Callable, ref_fn: Callable) -> Callable:

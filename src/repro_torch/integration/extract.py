@@ -10,7 +10,15 @@ to it, mapped to registered tensor-program workloads:
   read transposed);
 * ``bmm_op``                 -> ``batch_matmul`` (the attention score and
   value contractions in canonical layout);
-* ``chunked_attention``      -> ``attention`` (see :func:`attention_sites`).
+* ``chunked_attention``      -> ``attention`` (see :func:`attention_sites`);
+* ``decode_attention``       -> ``attention_decode`` (see
+  :func:`decode_attention_sites`), plus its plain path's two cache
+  contractions as ``batch_matmul`` sites, which the reference's jaxpr walk
+  also finds.
+
+Decode extraction (:func:`extract_decode_tasks`) records one
+``decode_step`` in the continuous-batching arena layout and, for the paged
+or chunked serving tier, one ``serve_step`` tick.
 
 The weight of a site is the number of times its hook ran: 30 layers give
 weight 30, as the reference's scan trip count does.  Tasks dedup by the
@@ -36,7 +44,11 @@ TOKEN_TILE = 128  # default representative token block (batch=1 x seq=128)
 
 # ops the extractor understands in this slice
 EXTRACTABLE_OPS = ("dense", "batch_matmul", "attention")
-_LATER_SLICE_OPS = ("rmsnorm", "sfm", "attention_decode")
+# ops extracted from the decode trace (serving): dense/bmm keyed on
+# m = batch (or batch x chunk in a serve tick), plus the single-token
+# cache-attention workload
+DECODE_EXTRACTABLE_OPS = ("dense", "batch_matmul", "attention_decode")
+_LATER_SLICE_OPS = ("rmsnorm", "sfm")
 
 
 def _skip(site: str, reason: str) -> None:
@@ -104,8 +116,8 @@ class SiteRecorder:
     dots: List[TaskSite] = field(default_factory=list)
     sites: List[Dict[str, Any]] = field(default_factory=list)
 
-    def add_dot(self, op: str, **kwargs: int) -> None:
-        self.dots.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=True))
+    def add_dot(self, op: str, dispatchable: bool = True, **kwargs: int) -> None:
+        self.dots.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=dispatchable))
 
     def add(
         self, *, q_shape, kvh, kv_seq, causal, window, softcap, scale,
@@ -205,6 +217,54 @@ def attention_sites(
             )
         )
     return sites
+
+
+def decode_attention_sites(
+    cfg: ModelConfig, recorded: List[Dict[str, Any]]
+) -> List[TaskSite]:
+    """Weighted ``attention_decode`` TaskSites from decode-step records.
+
+    Every single-token cache-attention call maps to the same workload: the
+    key holds only the static shape (b, h, kvh, t, d, softcap) — the window
+    and the per-slot lengths ride in as BIAS data at dispatch time, so
+    layers differing only in window share one tuned kernel.  Each record
+    sharing a shape carries ``n_layers / n_records`` layers (one record per
+    layer here, so each weighs 1 and dedup sums them to the layer count,
+    as the reference's scan trip count does).
+    """
+    kept: List[Dict[str, Any]] = []
+    for r in recorded:
+        if r.get("kind") != "decode":
+            continue
+        B, H, S, D = r["q_shape"]
+        if S != 1:
+            _skip("attention_decode", "not_single_token")
+            continue
+        if H % r["kvh"] != 0:
+            _skip("attention_decode", "ragged_gqa")
+            continue
+        if r["scale"] is not None and abs(r["scale"] - D**-0.5) > 1e-12:
+            _skip("attention_decode", "nondefault_scale")
+            continue
+        kept.append(
+            dict(
+                b=B, h=H, kvh=r["kvh"], t=r["kv_seq"], d=D,
+                softcap=float(r["softcap"]),
+            )
+        )
+    by_shape: Dict[Tuple, int] = {}
+    for kw in kept:
+        sig = tuple(sorted(kw.items()))
+        by_shape[sig] = by_shape.get(sig, 0) + 1
+    Ln = max(int(cfg.n_layers), 1)
+    return [
+        TaskSite(
+            "attention_decode", kw,
+            Ln / by_shape[tuple(sorted(kw.items()))],
+            dispatchable=True,
+        )
+        for kw in kept
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -316,12 +376,7 @@ def extract_task_specs(
     dispatchable_only: bool = False,
 ) -> List[ExtractedTask]:
     """Like :func:`extract_tasks` but returns the rich task records."""
-    later = sorted(set(ops) & set(_LATER_SLICE_OPS))
-    if later:
-        raise NotImplementedError(
-            f"extracting {later} sites is not in this slice; "
-            f"supported ops: {EXTRACTABLE_OPS}"
-        )
+    _check_ops(ops, EXTRACTABLE_OPS)
     rec = record_forward_sites(cfg, batch=batch, seq=seq)
     sites = rec.dots + attention_sites(cfg, rec.sites)
     sites = [s for s in sites if s.op in ops]
@@ -361,3 +416,147 @@ def _apply_max_tasks(
         ", ".join(d.key for d in dropped),
     )
     return tasks
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving) entry point
+# ---------------------------------------------------------------------------
+
+
+def _check_ops(ops: Tuple[str, ...], supported: Tuple[str, ...]) -> None:
+    later = sorted(set(ops) & set(_LATER_SLICE_OPS))
+    if later:
+        raise NotImplementedError(
+            f"extracting {later} sites is not in this slice; "
+            f"supported ops: {supported}"
+        )
+
+
+def _meta_arena(cfg: ModelConfig, batch: int, max_seq: int):
+    """Parameters and a continuous-batching cache (per-slot ``(batch,)``
+    positions) on meta tensors."""
+    import torch
+
+    from ..models import transformer as T
+
+    params = T.init_params(cfg, device="meta")
+    cache = T.init_cache(cfg, batch, max_seq, device="meta")
+    cache["pos"] = torch.zeros((batch,), dtype=torch.int32, device="meta")
+    return params, cache
+
+
+def record_decode_sites(cfg: ModelConfig, batch: int = 4, max_seq: int = TOKEN_TILE):
+    """Run one ``decode_step`` on meta tensors in the continuous-batching
+    arena layout (one token per slot, the fixed-shape cache of ``max_seq``)
+    under a recorder: the program the serving scheduler runs every tick, so
+    dense/bmm sites key on ``m = batch`` and attention reaches the recorder
+    as single-token cache attention."""
+    import torch
+
+    from ..models import transformer as T
+
+    params, cache = _meta_arena(cfg, batch, max_seq)
+    tokens = torch.zeros((batch, 1), dtype=torch.int64, device="meta")
+    with SiteRecorder() as rec:
+        T.decode_step(cfg, params, cache, tokens)
+    return rec
+
+
+def record_serve_sites(
+    cfg: ModelConfig,
+    batch: int = 4,
+    max_seq: int = TOKEN_TILE,
+    chunk: int = 1,
+    paged: bool = False,
+    page_size: int = 16,
+):
+    """Run one ``serve_step`` tick on meta tensors under a recorder: the
+    ``chunk``-wide program the scheduler runs when in-tick prefill is on,
+    optionally through the paged cache layout.  Dense/bmm sites key on
+    ``m = batch * chunk``; the attention workload is unchanged by paging
+    (the page view restores ``t = kv_len``)."""
+    import torch
+
+    from ..models import transformer as T
+    from ..serving.kv import snap_page_size
+
+    params, cache = _meta_arena(cfg, batch, max_seq)
+    if paged:
+        Ln, _, kvh, kv_len, hd = cache["k"].shape
+        ps = snap_page_size(kv_len, page_size)
+        pages_per_slot = kv_len // ps
+        pool = torch.empty((Ln, batch * pages_per_slot, kvh, ps, hd),
+                           dtype=cache["k"].dtype, device="meta")
+        cache["k"], cache["v"] = pool, torch.empty_like(pool)
+        cache["page_table"] = torch.zeros(
+            (batch, pages_per_slot), dtype=torch.int32, device="meta"
+        )
+    tokens = torch.zeros((batch, max(1, chunk)), dtype=torch.int64, device="meta")
+    valid = torch.zeros((batch,), dtype=torch.int32, device="meta")
+    with SiteRecorder() as rec:
+        T.serve_step(cfg, params, cache, tokens, valid)
+    return rec
+
+
+def extract_decode_task_specs(
+    cfg: ModelConfig,
+    batch: int = 4,
+    max_seq: int = TOKEN_TILE,
+    min_task_elems: int = 1024,
+    max_tasks: int = 0,
+    ops: Tuple[str, ...] = DECODE_EXTRACTABLE_OPS,
+    dispatchable_only: bool = False,
+    chunk: int = 0,
+    paged: bool = False,
+    page_size: int = 16,
+) -> List[ExtractedTask]:
+    """Decode-shape tuning tasks for a serving configuration.
+
+    The decode counterpart of :func:`extract_task_specs`: the same dedup,
+    over one recorded ``decode_step`` — so the extracted keys are exactly
+    what :class:`~repro_torch.integration.dispatch.DispatchContext` looks
+    up while serving.  ``min_task_elems`` defaults lower than prefill
+    because decode shapes are small by construction (m = batch) yet run
+    every generated token.
+
+    ``chunk > 0`` / ``paged`` additionally record one ``serve_step`` tick
+    of that chunk width, merging its matrix-product sites (its chunk
+    attention has no tuned shape, so its attention records are dropped):
+    the mixed prefill+decode tick runs dense at ``m = batch * chunk``.
+    """
+    _check_ops(ops, DECODE_EXTRACTABLE_OPS)
+    rec = record_decode_sites(cfg, batch=batch, max_seq=max_seq)
+    sites = rec.dots + decode_attention_sites(cfg, rec.sites)
+    if chunk > 0 or paged:
+        srec = record_serve_sites(
+            cfg, batch=batch, max_seq=max_seq, chunk=max(1, chunk),
+            paged=paged, page_size=page_size,
+        )
+        sites += srec.dots
+    sites = [s for s in sites if s.op in ops]
+    if dispatchable_only:
+        sites = [s for s in sites if s.dispatchable]
+    tasks = dedup_sites(sites, min_task_elems=min_task_elems)
+    return _apply_max_tasks(cfg, tasks, max_tasks, ops, "attention_decode")
+
+
+def extract_decode_tasks(
+    cfg: ModelConfig,
+    batch: int = 4,
+    max_seq: int = TOKEN_TILE,
+    use_mxu: bool = True,
+    min_task_elems: int = 1024,
+    max_tasks: int = 0,
+    ops: Tuple[str, ...] = DECODE_EXTRACTABLE_OPS,
+    dispatchable_only: bool = False,
+    chunk: int = 0,
+    paged: bool = False,
+    page_size: int = 16,
+) -> List[TuneTask]:
+    """Like :func:`extract_decode_task_specs` but returns ``TuneTask``s."""
+    extracted = extract_decode_task_specs(
+        cfg, batch=batch, max_seq=max_seq, min_task_elems=min_task_elems,
+        max_tasks=max_tasks, ops=ops, dispatchable_only=dispatchable_only,
+        chunk=chunk, paged=paged, page_size=page_size,
+    )
+    return [t.to_tune_task(use_mxu=use_mxu) for t in extracted]

@@ -1,6 +1,8 @@
 # Hand-written CUDA kernels for the compute hot-spots the tuner optimizes:
-# the tunable-tile matmul and batched matmul (matmul.py, csrc/matmul.cu) and
-# prefill flash attention (flash_attention.py, csrc/flash_attention.cu).
+# the tunable-tile matmul and batched matmul (matmul.py, csrc/matmul.cu),
+# prefill flash attention (flash_attention.py, csrc/flash_attention.cu) and
+# single-token decode attention, contiguous and paged (flash_attention.py,
+# csrc/decode_attention.cu).
 # ref.py holds their plain PyTorch versions; _build.py compiles the sources
 # at first use.
 

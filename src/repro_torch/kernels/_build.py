@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "matmul": CSRC / "matmul.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "decode_attention": CSRC / "decode_attention.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -1,19 +1,26 @@
-"""K3 ``flash_attention``: online-softmax prefill attention.
+"""The attention kernels: K3 prefill, K5 decode and K6 paged decode.
 
-Source: ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``.  It replaces
-the Pallas kernel ``flash_attention`` of the JAX package's
-``kernels/flash_attention.py`` (prefill only; the decode kernels belong to
-a later slice).  One CTA owns one (batch·head, block of ``block_q`` query
-rows) and loops over the kv blocks of ``block_kv`` itself, with the running
-max, sum and accumulator in shared memory; GQA maps head h to kv head
-h // G by offset.  The tuned (block_q, block_kv) are runtime arguments that
-set the grid (S/block_q, B·H) and the shared memory of a CTA.  The note at
-the top of the source says what bounds the kernel and what its design does
-about it.
+K3 ``flash_attention`` (source ``csrc/flash_attention.cu``, CUDA C++ for
+``sm_90a``) replaces the Pallas kernel ``flash_attention`` of the JAX
+package's ``kernels/flash_attention.py``.  One CTA owns one (batch·head,
+block of ``block_q`` query rows) and loops over the kv blocks of
+``block_kv`` itself, with the running max, sum and accumulator in shared
+memory; GQA maps head h to kv head h // G by offset.  The tuned (block_q,
+block_kv) are runtime arguments that set the grid (S/block_q, B·H) and the
+shared memory of a CTA.
 
-Beside the wrapper: the plain PyTorch version (``kernels/ref.py``), which
+K5 ``decode_flash_attention`` and K6 ``paged_decode_flash_attention``
+(source ``csrc/decode_attention.cu``) replace the Pallas kernels of the
+same names: one query token per sequence against a fixed-shape cache, the
+length and window masks arriving as an additive bias row.  One CTA owns one
+(batch, kv head) with the G query rows of its group, and loops over the kv
+axis in tiles of ``block_kv`` (K5, a runtime divisor of T) or one page per
+step read through the page table (K6).  The note at the top of each source
+says what bounds the kernel and what its design does about it.
+
+Beside each wrapper: the plain PyTorch version (``kernels/ref.py``), which
 the wrapper runs for CPU tensors only, and the launch counter
-``flash_attention.launches``; ``last_launch`` records the latest launch
+``<wrapper>.launches``; ``last_launch`` records the latest launch
 configuration.
 """
 
@@ -30,6 +37,7 @@ NEG_INF = ref.NEG_INF
 MAX_SMEM_BYTES = 227 * 1024
 THREADS = 256  # fixed CTA size of the kernel (csrc/flash_attention.cu)
 _GRID_Y_MAX = 65535
+_GRID_X_MAX = 2**31 - 1
 
 
 def best_divisor(n: int, target: int) -> int:
@@ -88,6 +96,19 @@ def _lib():
     return lib
 
 
+def _check_cuda_operands(name: str, tensors, dtypes) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise RuntimeError(f"{name}: operands on different devices")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: the CUDA kernel takes {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -117,17 +138,7 @@ def flash_attention(
         return ref.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
         )
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    for t in (q, k, v):
-        if t.device != q.device:
-            raise RuntimeError("flash_attention: operands on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"flash_attention: the CUDA kernel takes float32, got {t.dtype}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("flash_attention: operands must be contiguous")
+    _check_cuda_operands("flash_attention", (q, k, v), (torch.float32,) * 3)
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
     cfg = launch_config(B, H, S, D, bq, bkv)
@@ -149,3 +160,160 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.last_launch = None
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: single-token decode attention
+# ---------------------------------------------------------------------------
+
+
+def decode_smem_bytes(g: int, bkv: int, d: int) -> int:
+    """Shared memory of one decode CTA: q and acc (G·D each), the K tile
+    padded to D+1 a row, the V tile, the G·bkv score tile and three
+    G-vectors."""
+    return 4 * (2 * g * d + bkv * (d + 1) + bkv * d + g * bkv + 3 * g)
+
+
+def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int) -> dict:
+    """Grid, threads and shared memory of a decode launch with kv tile
+    ``bkv``; raises ``ScheduleRejected`` for a tile the card cannot run."""
+    if T % bkv:
+        raise ScheduleRejected("divide", f"block_kv {bkv} must divide T={T}")
+    smem = decode_smem_bytes(G, bkv, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ScheduleRejected(
+            "shared_memory",
+            f"decode block_kv {bkv} at G={G}, D={D} needs {smem} bytes of "
+            f"shared memory; cap {MAX_SMEM_BYTES}"
+        )
+    grid = (B * KVH,)
+    if grid[0] > _GRID_X_MAX:
+        raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
+    return {"blocks": (bkv,), "grid": grid, "threads": THREADS, "smem_bytes": smem}
+
+
+def _decode_lib():
+    from ._build import load
+
+    lib = load("decode_attention")
+    if not getattr(lib, "_repro_typed", False):
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.repro_decode_attention.argtypes = [
+            P, P, P, P, P, I, I, I, I, I, I, Fl, Fl, P
+        ]
+        lib.repro_decode_attention.restype = I
+        lib.repro_paged_decode_attention.argtypes = [
+            P, P, P, P, P, P, I, I, I, I, I, I, I, Fl, Fl, P
+        ]
+        lib.repro_paged_decode_attention.restype = I
+        lib._repro_typed = True
+    return lib
+
+
+def decode_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    block_kv: int = 128,
+) -> torch.Tensor:
+    """K5. q: (B, KVH, G, D); k, v: (B, KVH, T, D); bias: (B, T) additive
+    mask (0 attendable, -1e30 masked) shared across heads.  Returns
+    (B, KVH, G, D).  ``block_kv`` snaps to the divisor of T nearest it."""
+    B, KVH, G, D = q.shape
+    T = k.shape[2]
+    if k.shape != (B, KVH, T, D) or v.shape != k.shape or bias.shape != (B, T):
+        raise ValueError(
+            f"decode_flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, bias {tuple(bias.shape)}"
+        )
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    bkv = best_divisor(T, min(block_kv, T))
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, bias, softcap=softcap, scale=scale)
+    _check_cuda_operands("decode_flash_attention", (q, k, v, bias),
+                         (torch.float32,) * 4)
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"decode_flash_attention: softcap must be > 0, got {softcap}")
+    cfg = decode_launch_config(B, KVH, G, T, D, bkv)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _decode_lib().repro_decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), B, KVH, G, T, D, bkv, float(scale),
+            float(softcap or 0.0), stream,
+        )
+    from ._build import check
+
+    check(err, f"decode_flash_attention ({bkv},) on {tuple(k.shape)}")
+    decode_flash_attention.launches += 1
+    decode_flash_attention.last_launch = cfg
+    return o
+
+
+decode_flash_attention.launches = 0
+decode_flash_attention.last_launch = None
+
+
+def paged_decode_flash_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K6. q: (B, KVH, G, D); k_pool, v_pool: (n_pages, KVH, ps, D);
+    page_table: (B, P) int32 physical page ids, the sentinel ``n_pages``
+    marking unallocated entries (clamped to the last page; the bias must
+    mask their positions); bias: (B, P·ps).  Returns (B, KVH, G, D), the
+    same as :func:`decode_flash_attention` over the gathered view.  The kv
+    tile is the page."""
+    B, KVH, G, D = q.shape
+    n_pages, _, ps, _ = k_pool.shape
+    P = page_table.shape[1]
+    if (k_pool.shape != (n_pages, KVH, ps, D) or v_pool.shape != k_pool.shape
+            or page_table.shape != (B, P) or bias.shape != (B, P * ps)):
+        raise ValueError(
+            f"paged_decode_flash_attention: q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
+            f"{tuple(page_table.shape)}, bias {tuple(bias.shape)}"
+        )
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention(
+            q, k_pool, v_pool, page_table, bias, softcap=softcap, scale=scale
+        )
+    _check_cuda_operands(
+        "paged_decode_flash_attention", (q, k_pool, v_pool, page_table, bias),
+        (torch.float32, torch.float32, torch.float32, torch.int32, torch.float32),
+    )
+    if softcap is not None and softcap <= 0:
+        raise ValueError(
+            f"paged_decode_flash_attention: softcap must be > 0, got {softcap}"
+        )
+    cfg = decode_launch_config(B, KVH, G, P * ps, D, ps)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _decode_lib().repro_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), bias.data_ptr(), o.data_ptr(), B, KVH, G, D,
+            ps, P, n_pages, float(scale), float(softcap or 0.0), stream,
+        )
+    from ._build import check
+
+    check(err, f"paged_decode_flash_attention (ps {ps}) on {tuple(k_pool.shape)}")
+    paged_decode_flash_attention.launches += 1
+    paged_decode_flash_attention.last_launch = cfg
+    return o
+
+
+paged_decode_flash_attention.launches = 0
+paged_decode_flash_attention.last_launch = None

@@ -81,3 +81,45 @@ def flash_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.matmul(p.to(vv.dtype), vv)
     return out.to(q.dtype)
+
+
+def decode_attention(q, k, v, bias, softcap: Optional[float] = None,
+                     scale: Optional[float] = None):
+    """Single-token decode attention over a fixed-shape cache.
+
+    q: (B, KVH, G, D), one query token per sequence, GQA-grouped;
+    k, v: (B, KVH, T, D); bias: (B, T) additive mask (0 attendable, -1e30
+    masked), shared across heads.  The numerics of the JAX package's
+    Pallas decode body: scores in f32 scaled by 1/sqrt(D), the softcap
+    before the bias, the bias added as data, and the output divided by
+    the row sum clamped at 1e-30.  Returns (B, KVH, G, D) in q's dtype.
+    """
+    D = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias.float()[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v.float()) / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, bias,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None):
+    """:func:`decode_attention` read through a page table.
+
+    k_pool, v_pool: (n_pages, KVH, ps, D); table: (B, P) physical page ids,
+    where the sentinel ``n_pages`` marks an unallocated entry; bias:
+    (B, P·ps).  Sentinel entries are clamped to the last page, as the
+    Pallas kernel does; the bias must mask their positions.
+    """
+    n_pages, KVH, ps, D = k_pool.shape
+    B, P = table.shape
+    idx = torch.clamp(table.long(), max=n_pages - 1)
+    k = k_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D)
+    v = v_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D)
+    return decode_attention(q, k, v, bias, softcap=softcap, scale=scale)

@@ -15,6 +15,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 def _leaf(a, device) -> torch.Tensor:
     arr = np.asarray(a)
@@ -25,9 +27,14 @@ def _leaf(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device: str = "cpu") -> Dict[str, Any]:
-    """Port parameters from the reference's tree of numpy arrays."""
-    return {
-        k: (params_from_jax(v, device) if isinstance(v, dict) else _leaf(v, device))
-        for k, v in tree.items()
-    }
+def params_from_jax(tree: Dict[str, Any], device: str = "cuda") -> Dict[str, Any]:
+    """Port parameters from the reference's tree of numpy arrays onto
+    ``device`` (the card unless the caller asks for the CPU; asking for the
+    card without one raises)."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else _leaf(v, dev)
+                for k, v in t.items()}
+
+    return walk(tree)

@@ -3,7 +3,8 @@
 Parameters are nested dicts of tensors, under the JAX package's names and
 shapes (``models/convert.py`` carries the reference's parameters across).
 The tuned-kernel hooks keep the reference's names — ``dense_op``,
-``bmm_op``, ``rmsnorm``, ``chunked_attention``, ``unembed`` — and find the
+``bmm_op``, ``rmsnorm``, ``chunked_attention``, ``decode_attention``,
+``unembed`` — and find the
 active :class:`~repro_torch.integration.dispatch.DispatchContext` (or the
 extraction recorder) through ``sys.modules`` under ``repro_torch.…``.
 Attention is the chunked online-softmax over kv blocks, whose score and
@@ -227,6 +228,82 @@ def chunked_attention(
         acc = acc * alpha + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def _record_cache_contractions(rec, B, KVH, G, S, T, D) -> None:
+    """Report the two cache contractions of :func:`decode_attention`'s
+    plain path to the extraction recorder as ``batch_matmul`` sites, with
+    the JAX package's layout rule for ``dispatchable``: its einsums trace
+    to ``dot_general`` equations that its jaxpr walk extracts, and only the
+    single-token value contraction has the canonical (…, m, k) @ (…, k, n)
+    layout.  Neither runs through :func:`bmm_op` in either package."""
+    m = G * S
+    rec.add_dot("batch_matmul", dispatchable=False, b=B * KVH, m=m, n=T, k=D)
+    rec.add_dot("batch_matmul", dispatchable=(S == 1), b=B * KVH, m=m, n=D, k=T)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, S, D) — S = 1 (decode) or a prefill chunk
+    k: torch.Tensor,  # (B, KVH, T, D) — full cache
+    v: torch.Tensor,
+    *,
+    length: torch.Tensor,  # valid cache length: scalar or per-slot (B,)
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention against a KV cache (serving decode / chunked prefill).
+
+    ``length`` may be a scalar (every lane at the same position) or a
+    per-slot ``(B,)`` vector (continuous-batching arena: each slot at its
+    own position).  It is the valid cache length for the *first* query
+    position; when ``S > 1`` (an in-tick prefill chunk whose keys were just
+    written to the cache) query ``c`` sees one more cache position than
+    query ``c - 1`` — the causal staircase of a chunk, capped at ``T``.
+    Under an active DispatchContext the single-token case can swap to a
+    tuned ``attention_decode`` kernel: its key is static in the cache
+    length ``T``, and the per-slot lengths enter the kernel as an additive
+    bias, so one tuned kernel serves every decode step.  ``window`` <= 0
+    or None means global attention."""
+    B, H, S, D = q.shape
+    KVH, T = k.shape[1], k.shape[2]
+    G = H // KVH
+    rec = _site_recorder()
+    if rec is not None:
+        rec.add(
+            q_shape=tuple(q.shape), kvh=int(KVH), kv_seq=int(T),
+            causal=True, window=window, softcap=softcap, scale=scale,
+            q_offset=0, kind="decode",
+        )
+    ctx = _dispatch_ctx()
+    if ctx is not None:
+        tuned = ctx.decode_attention(
+            q, k, v, length=length, window=window, softcap=softcap,
+            scale=scale,
+        )
+        if tuned is not None:
+            return tuned
+    if rec is not None:
+        _record_cache_contractions(rec, B, KVH, G, S, T, D)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    pos = torch.arange(T, device=dev)
+    lv = torch.as_tensor(length, device=dev).expand(B)
+    w = int(window or 0)
+    qg = q.reshape(B, KVH, G, S, D).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    # per-row valid lengths: a single token sees ``length`` positions, a
+    # chunk's rows walk the causal staircase
+    lens = torch.clamp(lv[:, None] + torch.arange(S, device=dev)[None, :], max=T)
+    mask = pos[None, None, :] < lens[:, :, None]  # (B, S, T)
+    if w > 0:
+        mask = mask & (pos[None, None, :] > lens[:, :, None] - 1 - w)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p.to(v.dtype), v[:, :, None])
     return out.reshape(B, H, S, D).to(q.dtype)
 
 

@@ -1,10 +1,12 @@
 """Decoder LM of the dense family (smollm, stablelm, qwen1.5, gemma-2).
 
 The port of the JAX package's ``models/transformer.py`` for the dense
-family: parameters have the reference's names, shapes and dtypes, with
-layers stacked along a leading L axis; the reference's ``lax.scan`` over
-the stack becomes a Python loop over it, and the per-layer window reaches
-each layer as a Python int.  There is one card, so the reference's
+family — ``forward`` and the serving functions ``init_cache``,
+``prefill``, ``decode_step``, ``serve_step`` and ``page_view``: parameters
+have the reference's names, shapes and dtypes, with layers stacked along a
+leading L axis; the reference's ``lax.scan`` over the stack becomes a
+Python loop over it, and the per-layer window reaches each layer as a
+Python int.  There is one card, so the reference's
 sharding constraints have no counterpart.  Mixture-of-experts, state-space,
 encoder-decoder and multimodal families belong to later slices and raise.
 """
@@ -12,10 +14,11 @@ encoder-decoder and multimodal families belong to later slices and raise.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -154,16 +157,11 @@ def _attn_full(cfg, p, x, pos, window: Optional[int], chunk=1024):
         chunk=min(chunk, S),
     )
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return L.dense_op(out, p["wo"])
+    return L.dense_op(out, p["wo"]), (k, v)
 
 
-def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int]):
-    """One decoder layer: attention → FFN, each with a residual."""
-    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a = _attn_full(cfg, p["attn"], h, pos, window)
-    if cfg.post_norms:
-        a = L.rmsnorm(a, p["post_ln1"], cfg.norm_eps)
-    x = x + a
+def _ffn(cfg: ModelConfig, p: Params, x):
+    """The FFN half of a layer, with its residual."""
     if cfg.d_ff:
         h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
         f = L.mlp(p["mlp"], h2, cfg.act)
@@ -171,6 +169,16 @@ def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int]):
             f = L.rmsnorm(f, p["post_ln2"], cfg.norm_eps)
         x = x + f
     return x
+
+
+def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int]):
+    """One decoder layer: attention → FFN, each with a residual.  Returns
+    the new residual and the layer's post-rope (k, v), (B, KVH, S, D)."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, kv = _attn_full(cfg, p["attn"], h, pos, window)
+    if cfg.post_norms:
+        a = L.rmsnorm(a, p["post_ln1"], cfg.norm_eps)
+    return _ffn(cfg, p, x + a), kv
 
 
 def forward(
@@ -181,11 +189,254 @@ def forward(
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B, S, _ = x.shape
     pos = _positions(B, S, x.device)
-    windows: List[Optional[int]] = [int(w) or None for w in layer_windows(cfg)]
+    windows = _windows(cfg)
     for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i])
+        x, _ = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i])
+    return _logits(cfg, params, x)
+
+
+def _logits(cfg: ModelConfig, params: Params, x):
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = L.unembed(x, params["embed"])
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _windows(cfg: ModelConfig) -> List[Optional[int]]:
+    return [int(w) or None for w in layer_windows(cfg)]
+
+
+# ---------------------------------------------------------------------------
+# KV cache (serving)
+# ---------------------------------------------------------------------------
+#
+# The reference's serving functions are pure and return new cache arrays.
+# Here ``decode_step`` and ``serve_step`` write each token's K/V into the
+# cache tensors in place (one (L, B, KVH, kv_len, D) copy per tick saved);
+# the cache dict they return holds the same tensors and the new positions.
+
+
+def cache_max_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Per-layer cache length: a sliding-window layer needs only its window
+    (a ring buffer), a global layer the full context; the stacked cache
+    takes the longest."""
+    windows = np.asarray(layer_windows(cfg))
+    return int(max(np.where(windows > 0, np.minimum(windows, max_seq), max_seq)))
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, max_seq: int, device: str = "cuda"
+) -> Params:
+    """Decode cache: ``k``/``v`` of (L, batch, KVH, kv_len, D) in the
+    config's dtype, and the scalar position ``pos``.  ``device="meta"``
+    allocates nothing."""
+    _check_family(cfg)
+    dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    kv_len = cache_max_len(cfg, max_seq)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, kv_len, cfg.head_dim)
+    return {
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
+    }
+
+
+def prefill(
+    cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor
+) -> Tuple[torch.Tensor, Params]:
+    """Process the prompt, fill the cache, return last-position logits
+    (B, 1, V) and the new cache (positions ``0..S-1`` written, ``pos = S``)."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    B, S, _ = x.shape
+    pos = _positions(B, S, x.device)
+    windows = _windows(cfg)
+    kv_len = cache["k"].shape[3]
+    if kv_len < S and S % kv_len:
+        # the ring-buffer handoff assumes slot p % kv_len alignment
+        raise ValueError(
+            f"prefill of {S} tokens into a ring cache of {kv_len}: S must be "
+            "a multiple of the cache length"
+        )
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i])
+        if kv_len < S:
+            k, v = k[:, :, -kv_len:], v[:, :, -kv_len:]
+        elif kv_len > S:
+            k = F.pad(k, (0, 0, 0, kv_len - S))
+            v = F.pad(v, (0, 0, 0, kv_len - S))
+        ks.append(k)
+        vs.append(v)
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    logits = L.unembed(x[:, -1:], params["embed"])
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    new_cache = dict(cache)
+    new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+    new_cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return logits, new_cache
+
+
+def page_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Gather one layer's page pool through the page table.
+
+    ``pool`` is ``(n_pages, KVH, page_size, D)``; ``table`` is ``(B, P)``
+    physical page ids, where the sentinel ``n_pages`` (one past the pool)
+    marks unallocated entries.  JAX's gather clamps that index to the last
+    page and PyTorch indexing would raise, so it is clamped here; the page
+    is never attended to, because the per-slot length mask only exposes
+    positions the slot wrote.  Returns a ``(B, KVH, P * page_size, D)``
+    contiguous-looking cache view, so attention (and its ``attention_decode``
+    key, static in ``T = P * page_size``) is the slot-pool layout's."""
+    B, P = table.shape
+    n_pages, KVH, ps, D = pool.shape
+    g = pool[torch.clamp(table.long(), max=n_pages - 1)]  # (B, P, KVH, ps, D)
+    return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D)
+
+
+def _live_columns(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lane, column) index pairs where ``keep`` (B, C) is true.  On meta
+    tensors (task extraction) the mask has no data: every column counts."""
+    if keep.device.type == "meta":
+        B, C = keep.shape
+        lanes = torch.arange(B, device=keep.device).repeat_interleave(C)
+        return lanes, torch.arange(C, device=keep.device).repeat(B)
+    return keep.nonzero(as_tuple=True)
+
+
+def _decode_layer(cfg, p, x, pos, window, write_kv, length):
+    """One layer of a cache step: project, rope, ``write_kv(k1, v1)`` into
+    the cache (which returns the (K, V) view to attend), attention against
+    the cache, FFN."""
+    B, C, _ = x.shape
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k1, v1 = L.qkv_proj(p["attn"], h, cfg)
+    q = L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
+    k1 = L.apply_rope(k1, pos[:, None], theta=cfg.rope_theta)
+    k_view, v_view = write_kv(k1, v1)
+    a = L.decode_attention(
+        q, k_view, v_view, length=length, window=window, softcap=cfg.attn_softcap,
+    )
+    a = a.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
+    a = L.dense_op(a, p["attn"]["wo"])
+    if cfg.post_norms:
+        a = L.rmsnorm(a, p["post_ln1"], cfg.norm_eps)
+    return _ffn(cfg, p, x + a)
+
+
+def serve_step(
+    cfg: ModelConfig,
+    params: Params,
+    cache: Params,
+    tokens: torch.Tensor,
+    valid: torch.Tensor,
+) -> Tuple[torch.Tensor, Params]:
+    """One serving tick: decode lanes and prefill chunks in one program.
+
+    ``tokens`` is ``(B, C)`` — lane ``b`` contributes its next ``valid[b]``
+    tokens this tick (a decode lane has ``valid == 1`` with its sampled
+    token in column 0; a prefilling lane carries up to ``C`` prompt tokens;
+    an idle lane has ``valid == 0`` and touches nothing).  Returns logits
+    ``(B, 1, V)`` taken at each lane's last valid position plus the cache,
+    with ``cache["pos"]`` advanced by ``valid``.
+
+    The cache may be contiguous (``(L, B, KVH, kv_len, D)`` lanes, the
+    ``KVArena`` layout) or paged (``(L, n_pages, KVH, page_size, D)`` pools
+    plus ``cache["page_table"]`` ``(B, P)``, the ``PagedKVArena`` layout).
+    The reference scatters every column and lets JAX drop the invalid ones
+    (``mode="drop"``); PyTorch would raise on such an index, so only the
+    valid columns are written — and, paged, only those whose page-table
+    entry is a real page — so an idle lane can never touch a page owned by
+    a live request."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    B, C = tokens.shape
+    dev = x.device
+    pos_vec = cache["pos"].to(torch.int32)  # (B,)
+    valid = torch.as_tensor(valid, device=dev).to(torch.int32)
+    cols = torch.arange(C, dtype=torch.int32, device=dev)
+    pos_mat = pos_vec[:, None] + cols[None, :]  # (B, C)
+    paged = "page_table" in cache
+    if paged:
+        table = cache["page_table"]
+        n_pages, _, ps, _ = cache["k"].shape[1:]
+        kv_len = table.shape[1] * ps
+    else:
+        kv_len = cache["k"].shape[3]
+    wp = (pos_mat % kv_len).long()  # (B, C) ring write positions
+    keep = cols[None, :] < valid[:, None]
+    if paged:
+        phys = torch.gather(table.long(), 1, wp // ps)  # (B, C)
+        keep = keep & (phys < n_pages)
+        lanes, cs = _live_columns(keep)
+        rows, offs = phys[lanes, cs], (wp % ps)[lanes, cs]
+    else:
+        lanes, cs = _live_columns(keep)
+        rows, offs = lanes, wp[lanes, cs]
+    length = torch.clamp(pos_vec + 1, max=kv_len)
+    windows = _windows(cfg)
+    for i in range(cfg.n_layers):
+        K, V = cache["k"][i], cache["v"][i]
+
+        def write_kv(k1, v1, K=K, V=V):
+            # (B, KVH, C, D) -> the live (lane, column) rows, (N, KVH, D)
+            K[rows, :, offs] = k1.transpose(1, 2)[lanes, cs].to(K.dtype)
+            V[rows, :, offs] = v1.transpose(1, 2)[lanes, cs].to(V.dtype)
+            if paged:
+                return page_view(K, table), page_view(V, table)
+            return K, V
+
+        x = _decode_layer(cfg, _layer(params["layers"], i), x, pos_mat,
+                          windows[i], write_kv, length)
+    # sample each lane at its last valid position; the gather before the
+    # unembed keeps the dense workload key at m = B
+    idx = torch.clamp(valid - 1, 0, C - 1).long()
+    x_last = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
+    logits = _logits(cfg, params, x_last)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos_vec + valid
+    return logits, new_cache
+
+
+def decode_step(
+    cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor
+) -> Tuple[torch.Tensor, Params]:
+    """One decode step.  tokens: (B, 1) -> logits (B, 1, V), cache.
+
+    ``cache["pos"]`` is either a scalar — every lane at the same position,
+    the batch-engine layout — or a per-slot ``(B,)`` vector, the
+    continuous-batching arena layout where each slot advances on its own
+    (writes land at per-lane ring slots, attention masks to per-lane
+    lengths)."""
+    _check_family(cfg)
+    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    B = x.shape[0]
+    p_now = cache["pos"]
+    per_slot = p_now.ndim > 0
+    pos_vec = (p_now if per_slot else p_now.expand(B)).to(torch.int32)
+    kv_len = cache["k"].shape[3]
+    slots = (pos_vec % kv_len).long()
+    lanes = torch.arange(B, device=x.device)
+    length = torch.clamp(pos_vec + 1, max=kv_len)
+    windows = _windows(cfg)
+    for i in range(cfg.n_layers):
+        K, V = cache["k"][i], cache["v"][i]
+
+        def write_kv(k1, v1, K=K, V=V):
+            if per_slot:  # each arena slot writes at its own ring position
+                K[lanes, :, slots] = k1[:, :, 0].to(K.dtype)
+                V[lanes, :, slots] = v1[:, :, 0].to(V.dtype)
+            else:
+                K.index_copy_(2, slots[:1], k1.to(K.dtype))
+                V.index_copy_(2, slots[:1], v1.to(V.dtype))
+            return K, V
+
+        x = _decode_layer(cfg, _layer(params["layers"], i), x, pos_vec[:, None],
+                          windows[i], write_kv, length)
+    logits = _logits(cfg, params, x)
+    new_cache = dict(cache)
+    new_cache["pos"] = p_now + 1
+    return logits, new_cache

@@ -114,7 +114,7 @@ def test_registry_has_only_cuda_and_its_meta_names_the_backend():
 
 @pytest.mark.parametrize("name,kw", [
     ("sfm", dict(m=16, n=16)),
-    ("attention_decode", dict(b=1, h=2, kvh=1, t=16, d=8)),
+    ("rmsnorm", dict(tokens=16, d=16)),
     ("gmm", dict(n=16, m=16, k=16)),
 ])
 def test_other_workloads_raise_instead_of_falling_back(name, kw):

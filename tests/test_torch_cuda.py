@@ -96,3 +96,57 @@ def test_cuda_tune_workload_times_the_kernel():
     assert math.isfinite(r.best_latency_s) and r.best_latency_s > 0
     assert math.isfinite(r.baseline_latency_s)
     assert mm.matmul.launches > n
+
+
+def _bias(lengths, T, dev, window=0):
+    pos = torch.arange(T, device=dev)[None, :]
+    lv = torch.tensor(lengths, device=dev)[:, None]
+    ok = pos < lv
+    if window:
+        ok &= pos > lv - 1 - window
+    return torch.where(ok, 0.0, -1e30).float()
+
+
+@pytest.mark.parametrize("T,block_kv,softcap,window", [
+    (256, 64, None, 0), (192, 48, 50.0, 0), (192, 96, None, 40), (256, 256, None, 0),
+])
+def test_cuda_decode_attention_against_plain(T, block_kv, softcap, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(T + block_kv)
+    q = torch.randn(4, 3, 3, 64, generator=g, device=dev)
+    k = torch.randn(4, 3, T, 64, generator=g, device=dev)
+    v = torch.randn(4, 3, T, 64, generator=g, device=dev)
+    bias = _bias([T, 1, 77, T - 5], T, dev, window)  # ragged per-slot lengths
+    n = fa.decode_flash_attention.launches
+    got = fa.decode_flash_attention(q, k, v, bias, softcap=softcap, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert fa.decode_flash_attention.launches == n + 1
+    assert fa.decode_flash_attention.last_launch["blocks"] == (block_kv,)
+    assert fa.decode_flash_attention.last_launch["grid"] == (12,)
+    want = tref.decode_attention(q, k, v, bias, softcap=softcap)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def test_cuda_paged_decode_attention_against_decode_on_the_gathered_view():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, KVH, G, D, ps, P = 4, 3, 3, 64, 16, 16
+    n_pages = B * P + 3
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    kp = torch.randn(n_pages, KVH, ps, D, generator=g, device=dev)
+    vp = torch.randn(n_pages, KVH, ps, D, generator=g, device=dev)
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[: B * P]
+    table = table.reshape(B, P).to(torch.int32)
+    table[1, 10:] = n_pages  # sentinel tail, masked by the bias
+    bias = _bias([P * ps, 10 * ps - 3, 1, 100], P * ps, dev)
+    n = fa.paged_decode_flash_attention.launches
+    got = fa.paged_decode_flash_attention(q, kp, vp, table, bias)
+    torch.cuda.synchronize()
+    assert fa.paged_decode_flash_attention.launches == n + 1
+    idx = torch.clamp(table.long(), max=n_pages - 1)
+    gk = kp[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D).contiguous()
+    gv = vp[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D).contiguous()
+    want = fa.decode_flash_attention(q, gk, gv, bias, block_kv=ps)
+    assert float((got - want).abs().max()) < 1e-4
+    assert float((got - tref.paged_decode_attention(q, kp, vp, table, bias))
+                 .abs().max()) < 1e-4

@@ -54,6 +54,14 @@ MODULES = [
     "repro_torch.integration",
     "repro_torch.integration.extract",
     "repro_torch.integration.dispatch",
+    "repro_torch.serving",
+    "repro_torch.serving.config",
+    "repro_torch.serving.request",
+    "repro_torch.serving.kv",
+    "repro_torch.serving.engine",
+    "repro_torch.serving.scheduler",
+    "repro_torch.launch",
+    "repro_torch.launch.serve",
 ]
 
 _PROBE = """
@@ -91,7 +99,8 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
 @pytest.mark.parametrize(
     "name",
     ["tune_workload", "TuneConfig", "TaskScheduler", "extract_tasks",
-     "DispatchContext", "Database"],
+     "DispatchContext", "Database", "extract_decode_tasks", "ServeConfig",
+     "ServingEngine", "ContinuousBatchingScheduler"],
 )
 def test_public_surface_is_lazy_and_resolves(name):
     import repro_torch

@@ -36,7 +36,7 @@ def _f32(tree):
 def test_smoke_forward_logits_match_in_f32(arch):
     jc, tc = jcfg(arch, smoke=True), tcfg(arch, smoke=True)
     jparams = _f32(JT.init_params(jc, jax.random.PRNGKey(0)))
-    tparams = params_from_jax(_np_tree(jparams))
+    tparams = params_from_jax(_np_tree(jparams), device="cpu")
     toks = np.random.default_rng(1).integers(0, jc.vocab, (2, 32)).astype(np.int32)
     want = np.asarray(JT.forward(jc, jparams, tokens=jnp.asarray(toks)))
     got = build_model(tc).forward(tparams, torch.from_numpy(toks))
@@ -64,7 +64,7 @@ def test_init_params_have_the_reference_shapes_and_dtypes():
 
 def test_bf16_parameters_convert_exactly():
     jparams = JT.init_params(jcfg("smollm-135m", smoke=True), jax.random.PRNGKey(0))
-    tparams = params_from_jax(_np_tree(jparams))
+    tparams = params_from_jax(_np_tree(jparams), device="cpu")
     w = tparams["layers"]["attn"]["wq"]
     assert w.dtype == torch.bfloat16
     back = w.float().numpy()
