@@ -11,27 +11,37 @@ Phases, in order; a failing phase makes the run exit non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, in float32,
-   at the smollm-135m shapes with tiles that are not powers of two;
+   at the smollm-135m shapes with tiles that are not powers of two (K4,
+   the row softmax, also in bfloat16, and a row block too large for shared
+   memory must be rejected);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window;
-4. the forward path, part one: extract smollm-135m's dense, batch_matmul
-   and attention tasks (batch 1, seq 256) and tune them on the ``cuda``
-   backend through ``cached+local`` with a small budget;
+4. the forward path, part one: extract every task the reference extracts
+   from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
+   and attention, non-dispatchable sites included) and tune them on the
+   ``cuda`` backend through ``cached+local`` with a small budget; rmsnorm
+   goes through the structural lowering (``torch-fallback``), sfm through
+   K4;
 5. the forward path, part two: the full-width 30-layer bf16 forward under
-   ``DispatchContext`` against the same forward with no context;
+   ``DispatchContext`` (rmsnorm dispatched at all 61 sites) against the
+   same forward with no context;
 7. the serving path: extract smollm-135m's decode tasks (4 slots, max_seq
    256, paged, 32-token prefill chunks), tune them the same way, serve 8
    requests through ``ContinuousBatchingScheduler`` on the paged arena
    under the tuned context, then the same requests with no context; one
    decode-only tick is run both ways and compared;
+8. the operator path: ``tune_workload`` on the ``cuda`` backend for each
+   of the paper's 12 operators at their reduced shapes and for ``sfm`` at
+   256x256 (13 runs, small budget): sfm through K4, the others through the
+   structural lowering;
 6. each kernel's time at its main-path shapes with the tuned tiles, beside
    its plain version, the one PyTorch call that computes the same function
    (where there is one), and the least time the card could take.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the two paths (forward: phases 4-5; serving: phase 7) and read just
-after it.  TF32 is off for float32 matmuls in
+each of the three paths (forward: phases 4-5; serving: phase 7; operators:
+phase 8) and read just after it.  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -64,6 +74,13 @@ BATCH = 1
 TOL_MATMUL = 2e-3  # f32, K <= 1536, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
 TOL_LOGITS_REL = 5e-2  # bf16 plain forward vs f32 kernels cast to bf16
+TOL_SOFTMAX_F32 = 1e-5  # f32 softmax values lie in [0, 1]
+TOL_SOFTMAX_BF16 = 8e-3  # two bf16 ulps at 1
+
+# the same dispatched forward and decode-only tick measured before rmsnorm
+# was dispatched (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+NO_NORM_FORWARD_MS = 82.39
+NO_NORM_TICK_MS = 100.25
 
 # the serving path (phase 7)
 SERVE_SLOTS = 4
@@ -84,6 +101,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the busy time the profiler sees
+    over ``reps`` back-to-back calls, divided by ``reps`` (None when the
+    profiler sees no device event)."""
+    prof = profile_device(lambda: [fn() for _ in range(reps)])
+    return prof["busy_ms"] / reps if prof else None
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -232,6 +257,36 @@ def phase_kernels(gen) -> dict:
                    median_ms(lambda: fa.flash_attention(
                        q, k, v, block_q=bq, block_kv=bkv, **kw)),
                    median_ms(lambda: ref.flash_attention(q, k, v, **kw)), lib_ms)
+
+    # K4: the attention softmax rows of one kv chunk (M = B·H·S, N = chunk),
+    # at row blocks that divide 2304 = 2^8·3^2 and are not powers of two
+    from repro_torch.kernels import ScheduleRejected
+    from repro_torch.kernels import softmax as sm
+
+    errs["row_softmax"] = 0.0
+    M, N = BATCH * H * SEQ, SEQ
+    x = randn(M, N) * 4.0
+    for dtype, tol in ((torch.float32, TOL_SOFTMAX_F32),
+                       (torch.bfloat16, TOL_SOFTMAX_BF16)):
+        xx = x.to(dtype)
+        want = ref.row_softmax(xx)
+        for bm in (36, 72, 144):
+            got = sm.row_softmax(xx, block_rows=bm)
+            if sm.row_softmax.last_launch["blocks"] != (bm,):
+                fail(f"row_softmax launched {sm.row_softmax.last_launch}, asked ({bm},)")
+            report("row_softmax", f"({M},{N}) {str(dtype)[6:]} block_rows {bm}",
+                   got, want, tol,
+                   median_ms(lambda: sm.row_softmax(xx, block_rows=bm)),
+                   median_ms(lambda: ref.row_softmax(xx)),
+                   median_ms(lambda: torch.softmax(xx, -1)))
+    try:
+        sm.row_softmax(x, block_rows=288)
+    except ScheduleRejected as e:
+        print(f"[kernels] row_softmax block_rows 288 at N={N}: rejected ({e.reason})")
+        if e.reason != "shared_memory":
+            fail(f"row_softmax 288 rejected for {e.reason}, not shared_memory")
+    else:
+        fail("row_softmax block_rows 288 was not rejected")
     return errs
 
 
@@ -334,16 +389,20 @@ def phase_decode_kernels(gen, errs: dict) -> None:
 # phases 4-5: the forward path
 # ---------------------------------------------------------------------------
 
-FORWARD_KERNELS = ("matmul", "batch_matmul", "flash_attention")
+FORWARD_KERNELS = ("matmul", "batch_matmul", "flash_attention", "row_softmax")
 KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_attention")
+# workloads of the path with no hand-written kernel: the structural lowering
+STRUCTURAL_OPS = ("rmsnorm",)
 
 
 def _wrappers():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import softmax as sm
 
     return {"matmul": mm.matmul, "batch_matmul": mm.batch_matmul,
             "flash_attention": fa.flash_attention,
+            "row_softmax": sm.row_softmax,
             "decode_flash_attention": fa.decode_flash_attention,
             "paged_decode_flash_attention": fa.paged_decode_flash_attention}
 
@@ -363,10 +422,12 @@ def phase_tune(cfg, db, extract=None, tag="tune"):
 
     t0 = time.perf_counter()
     if extract is None:
-        tasks = repro_torch.extract_tasks(
-            cfg, batch=BATCH, seq=SEQ, dispatchable_only=True,
-            ops=("dense", "batch_matmul", "attention"),
-        )
+        # every site the reference extracts, non-dispatchable ones included
+        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
+        keys = {t.key for t in tasks}
+        if len(tasks) != 10 or f"sfm/m={BATCH * cfg.n_heads * SEQ}/n={SEQ}" not in keys:
+            fail(f"forward extraction gave {sorted(keys)}; want the reference's 10 "
+                 "tasks with the sfm site")
     else:
         tasks = extract()
     print(f"[{tag}] extracted {len(tasks)} tasks in {time.perf_counter() - t0:.1f} s")
@@ -425,11 +486,24 @@ def check_tiles(tasks, db) -> dict:
     from repro_torch.search.measure.local import device_inputs
     from repro_torch.search.tune import apply_trace
 
+    from repro_torch.kernels import softmax as sm
+
     runs = {}
     for t in tasks:
         rec = db.best(t.key)
         meta = rec.meta
-        snapped = tuple(meta["pallas_blocks_snapped"])
+        if t.key.split("/")[0] in STRUCTURAL_OPS:
+            # no kernel: the best record went through the structural lowering
+            print(f"[tiles] {t.key}: {meta}; best {rec.latency_s * 1e3:.4f} ms")
+            if meta.get("lowered_with") != "torch-fallback" or meta.get("backend") != "cuda":
+                fail(f"{t.key}: record meta {meta}, want cuda torch-fallback")
+            continue
+        if meta.get("pallas_kernel") == "row_softmax":
+            snapped = (meta["pallas_rows_snapped"],)
+            sampled = meta["pallas_rows_sampled"]
+        else:
+            snapped = tuple(meta["pallas_blocks_snapped"])
+            sampled = meta.get("pallas_blocks_sampled")
         _, lowered = apply_trace(t.func, rec.trace(), backend="cuda")
         ins = device_inputs(t.func, torch.device("cuda"))
         lowered.fn(ins)
@@ -447,6 +521,11 @@ def check_tiles(tasks, db) -> dict:
             (bkv,) = snapped
             want = dict(grid=(b * kvh,), threads=fa.THREADS,
                         smem_bytes=fa.decode_smem_bytes(g, bkv, d))
+        elif kern == "row_softmax":
+            M, N = shapes[0]
+            (bm,) = snapped
+            want = dict(grid=(M // bm,), threads=32 * min(bm, sm.WARPS),
+                        smem_bytes=sm.smem_bytes(bm, N))
         else:
             if kern == "matmul":
                 (M, K), (_, N), B = shapes[0], shapes[1], 1
@@ -457,7 +536,7 @@ def check_tiles(tasks, db) -> dict:
                         threads=mm.micro_tile(bm, bn)[1],
                         smem_bytes=4 * (bm * bk + bk * bn))
         got = {k: last[k] for k in want}
-        print(f"[tiles] {t.key}: sampled {meta.get('pallas_blocks_sampled')} "
+        print(f"[tiles] {t.key}: sampled {sampled} "
               f"snapped {list(snapped)} -> grid {last['grid']} threads "
               f"{last['threads']} smem {last['smem_bytes']} B; best "
               f"{rec.latency_s * 1e3:.4f} ms")
@@ -472,6 +551,7 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
 
     import repro_torch
     from repro_torch.models import transformer as T
+    from repro_torch.search.database import workload_key
 
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
     g = torch.Generator(device="cuda")
@@ -506,7 +586,8 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
     print(f"[forward] logits {tuple(tuned.shape)} {tuned.dtype}; max_abs_err "
           f"{max_abs:.4e} max_rel_err {rel:.4e} (tol {TOL_LOGITS_REL:g})")
     print(f"[forward] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms "
-          f"(median of 3, batch {BATCH} seq {SEQ})")
+          f"(median of 3, batch {BATCH} seq {SEQ}; before rmsnorm was dispatched: "
+          f"{NO_NORM_FORWARD_MS} ms)")
     print(f"[forward] dispatch stats of one forward {stats}")
     reasons = {}
     for key, row in by_key.items():
@@ -528,8 +609,15 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
     for k in ("matmul", "flash_attention"):
         if fwd_counts[k] <= 0:
             fail(f"{k} was not launched in the dispatched forward")
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
+                            tokens=BATCH * SEQ)
+    norm_hits = by_key.get(norm_key, {}).get("hits", 0)
+    print(f"[forward] {norm_key}: {norm_hits} hits in one forward")
+    if norm_hits != 2 * cfg.n_layers + 1 or reasons.get("not_in_slice"):
+        fail(f"forward: {norm_hits} rmsnorm hits, reasons {reasons}; want "
+             f"{2 * cfg.n_layers + 1} and no not_in_slice")
     return dict(max_abs_err=max_abs, max_rel_err=rel, plain_ms=plain_ms,
-                dispatched_ms=tuned_ms, stats=stats,
+                dispatched_ms=tuned_ms, stats=stats, rmsnorm_hits=norm_hits,
                 reasons=reasons), fwd_counts
 
 
@@ -544,9 +632,12 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import softmax as sm
 
     rows = {}
     for t in tasks:
+        if t.key not in runs:
+            continue  # no kernel: the structural lowering (check_tiles)
         kern, snapped, shapes = runs[t.key]
         if kern == "matmul":
             (M, K), (_, N) = shapes[0], shapes[1]
@@ -554,7 +645,9 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             w = torch.randn(K, N, generator=gen, device="cuda")
             if N == vocab:  # the tied unembed reads the table transposed
                 w = torch.randn(N, K, generator=gen, device="cuda").t()
-            k_ms = median_ms(lambda: mm.matmul(x, w, block_sizes=snapped))
+            def launch():
+                return mm.matmul(x, w, block_sizes=snapped)
+            k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.matmul(x, w))
             l_ms = median_ms(lambda: torch.matmul(x, w))
             flops, nbytes = 2 * M * N * K, 4 * (M * K + K * N + M * N)
@@ -562,11 +655,25 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             (B, M, K), N = shapes[0], shapes[1][2]
             a = torch.randn(B, M, K, generator=gen, device="cuda")
             b = torch.randn(B, K, N, generator=gen, device="cuda")
-            k_ms = median_ms(lambda: mm.batch_matmul(a, b, block_sizes=snapped))
+            def launch():
+                return mm.batch_matmul(a, b, block_sizes=snapped)
+            k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.batch_matmul(a, b))
             l_ms = median_ms(lambda: torch.bmm(a, b))
             flops = 2 * B * M * N * K
             nbytes = 4 * B * (M * K + K * N + M * N)
+        elif kern == "row_softmax":
+            M, N = shapes[0]
+            (bm,) = snapped
+            x = torch.randn(M, N, generator=gen, device="cuda")
+            def launch():
+                return sm.row_softmax(x, block_rows=bm)
+            k_ms = median_ms(launch)
+            p_ms = median_ms(lambda: ref.row_softmax(x))
+            l_ms = median_ms(lambda: torch.softmax(x, -1))
+            # max, subtract, exp, sum and divide an element; x read once and
+            # y written once
+            flops, nbytes = 5 * M * N, 2 * 4 * M * N
         elif kern == "decode_flash_attention":
             (b, kvh, g, d), t_len = shapes[0], shapes[1][2]
             (bkv,) = snapped
@@ -574,8 +681,9 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             k = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
             v = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
             bias = decode_bias([t_len] * b, t_len)
-            k_ms = median_ms(lambda: fa.decode_flash_attention(
-                q, k, v, bias, block_kv=bkv))
+            def launch():
+                return fa.decode_flash_attention(q, k, v, bias, block_kv=bkv)
+            k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias))
             l_ms = median_ms(lambda: sdpa_decode(q, k, v, bias))
             flops, nbytes = decode_work(b, kvh, g, t_len, d)
@@ -586,20 +694,54 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             k = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             v = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             bq, bkv = snapped
-            k_ms = median_ms(lambda: fa.flash_attention(
-                q, k, v, causal=True, block_q=bq, block_kv=bkv))
+            def launch():
+                return fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                                          block_kv=bkv)
+            k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=True))
             l_ms = median_ms(lambda: sdpa(q, k, v, True))
             # causal: only the s(s+1)/2 unmasked pairs need work
             flops = 4 * b * h * d * (s * (s + 1) // 2)
             nbytes = 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
         b_ms, b_by = bound(flops, nbytes)
+        d_ms = device_ms(launch)
         rows[t.key] = dict(kernel=kern, blocks=list(snapped), ms=k_ms,
-                           plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                           bound_by=b_by, weight=t.weight, flops=flops)
+                           device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=b_ms, bound_by=b_by, weight=t.weight,
+                           flops=flops)
         print(f"[time] {t.key} {kern} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
-              f"plain {p_ms:.4f} ms library {l_ms:.4f} ms bound {b_ms:.4f} ms "
-              f"({b_by})")
+              f"(device {d_ms} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def structural_timings(tasks, db) -> dict:
+    """The host cost of the structural lowering: each no-kernel task's best
+    record replayed on the card (CUDA-event median of 20 calls, which
+    include the host's Python loop) beside the one-call plain version and
+    the record's iterated-loop trip count."""
+    import torch
+
+    from repro_torch.backends.gpu_backend import plain
+    from repro_torch.core.validator import validate_trace
+    from repro_torch.search.measure.local import device_inputs
+    from repro_torch.search.tune import apply_trace
+
+    rows = {}
+    for t in tasks:
+        if t.key.split("/")[0] not in STRUCTURAL_OPS:
+            continue
+        rec = db.best(t.key)
+        iters = validate_trace(t.func, rec.trace()).iterations
+        _, lowered = apply_trace(t.func, rec.trace(), backend="cuda")
+        ins = device_inputs(t.func, torch.device("cuda"))
+        base = plain(t.func)
+        s_ms = median_ms(lambda: lowered.fn(ins))
+        p_ms = median_ms(lambda: base(ins))
+        rows[t.key] = dict(structural_ms=s_ms, plain_ms=p_ms, iterations=iters,
+                           weight=t.weight)
+        print(f"[time] {t.key} structural ({iters} iterated trips): {s_ms:.4f} ms "
+              f"a call, plain {p_ms:.4f} ms; {t.weight:g} sites")
     return rows
 
 
@@ -631,12 +773,15 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
     table = torch.randperm(n_pages, generator=gen, device="cuda").reshape(b, P)
     table = table.to(torch.int32)
     bias = decode_bias([t_len] * b, t_len)
-    k_ms = median_ms(lambda: fa.paged_decode_flash_attention(q, kp, vp, table, bias))
+    def launch():
+        return fa.paged_decode_flash_attention(q, kp, vp, table, bias)
+    k_ms = median_ms(launch)
+    d_ms = device_ms(launch)
     p_ms = median_ms(lambda: ref.paged_decode_attention(q, kp, vp, table, bias))
     flops, nbytes = decode_work(b, kvh, g, t_len, d, table_entries=b * P)
     b_ms, b_by = bound(flops, nbytes)
     row = dict(kernel="paged_decode_flash_attention", blocks=[ps], ms=k_ms,
-               plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                flops=flops, weight=0)
     print(f"[time] paged decode ({b},{kvh},{g},{t_len},{d}) page {ps}: kernel "
           f"{k_ms:.4f} ms plain {p_ms:.4f} ms library - (no single PyTorch call "
@@ -715,7 +860,8 @@ def snapshot_tick(sched) -> dict:
                 cache={k: v.clone() for k, v in sched.arena.cache.items()})
 
 
-def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str) -> dict:
+def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
+                     norm_key: str) -> dict:
     """Run a snapshotted decode-only tick on copies of its arena, under
     ``ctx`` and with no context, and compare the logits; then time the same
     tick both ways on the host clock (median of 3, each on a fresh copy,
@@ -744,12 +890,14 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str) -> dict:
         return sorted(ts)[1] * 1e3
 
     hits0 = ctx.hits_by_key.get(attn_key, 0)
+    norm0 = ctx.hits_by_key.get(norm_key, 0)
     counts0 = read_counts()
     reasons0 = Counter(r for row in ctx.stats_by_key().values()
                        for r, n in row["reasons"].items() for _ in range(n))
     tuned = run(ctx, copy())
     torch.cuda.synchronize()
     hits = ctx.hits_by_key.get(attn_key, 0) - hits0
+    norm_hits = ctx.hits_by_key.get(norm_key, 0) - norm0
     launches = {k: n - counts0[k] for k, n in read_counts().items()}
     reasons = Counter(r for row in ctx.stats_by_key().values()
                       for r, n in row["reasons"].items() for _ in range(n))
@@ -762,7 +910,8 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str) -> dict:
     traced = profile_device(lambda: run(timing_ctx, caches[0]))
     traced_plain = profile_device(lambda: run(None, caches[1]))
     return dict(lanes=int(live.sum()), attention_decode_hits=hits,
-                launches=launches, new_reasons=dict(reasons - reasons0),
+                rmsnorm_hits=norm_hits, launches=launches,
+                new_reasons=dict(reasons - reasons0),
                 max_rel_err=rel, finite=bool(torch.isfinite(d).all()),
                 dispatched_ms=dispatched_ms, plain_ms=plain_ms,
                 profile=traced, profile_plain=traced_plain)
@@ -774,6 +923,7 @@ def phase_serve(cfg, db, gen_seed: int = 0):
 
     import repro_torch
     from repro_torch.models import transformer as T
+    from repro_torch.search.database import workload_key
 
     def extract():
         return repro_torch.extract_decode_tasks(
@@ -784,6 +934,10 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     tasks, best = phase_tune(cfg, db, extract=extract, tag="serve-tune")
     tune_counts = read_counts()
     attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
+                            tokens=SERVE_SLOTS)
+    if norm_key not in {t.key for t in tasks}:
+        fail(f"decode extraction has no {norm_key} task")
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 97, SERVE_REQUESTS)
@@ -810,7 +964,7 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     # the check runs after both serving runs, so it perturbs neither their
     # times (its profiler trace included) nor the path's launch counts
     timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
-    check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key)
+    check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key)
     done = sum(r.done for r in reqs)
     tokens = sum(len(r.generated) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
@@ -866,7 +1020,8 @@ def phase_serve(cfg, db, gen_seed: int = 0):
             print(f"[serve]   {ms:8.3f} ms  {name}")
     print(f"[serve] one decode-only tick ({check['lanes']} lanes, host clock, median "
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
-          f"{check['plain_ms']:.2f} ms")
+          f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
+          f"{NO_NORM_TICK_MS} ms)")
     print(f"[serve] greedy tokens agreeing with the plain run: {agree}/{total} "
           f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
           f"f32 kernels)")
@@ -883,11 +1038,63 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
              f"hits, {k5_tick} K5 launches; want {cfg.n_layers}")
-    if check["new_reasons"].get("lowering_failed"):
-        fail("lowering_failed in the decode-only tick")
+    if check["rmsnorm_hits"] != 2 * cfg.n_layers + 1:
+        fail(f"decode-only tick: {check['rmsnorm_hits']} {norm_key} hits; want "
+             f"{2 * cfg.n_layers + 1}")
+    if check["new_reasons"].get("lowering_failed") or check["new_reasons"].get("not_in_slice"):
+        fail(f"decode-only tick reasons {check['new_reasons']}")
     if not check["finite"] or check["max_rel_err"] > TOL_LOGITS_REL:
         fail(f"decode-only tick logits rel err {check['max_rel_err']} > {TOL_LOGITS_REL}")
     return tasks, best, res, tune_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the operator path
+# ---------------------------------------------------------------------------
+
+
+def phase_operators() -> dict:
+    """``tune_workload`` on the ``cuda`` backend for each paper operator at
+    its reduced shape, and for ``sfm`` at its default 256x256: each must
+    reach a finite best, sfm through K4 and the others through the
+    structural lowering (``torch-fallback`` in the best record's meta)."""
+    import repro_torch
+    from repro_torch.core.workloads import PAPER_OPERATORS, REDUCED_KWARGS
+    from repro_torch.search.database import Database, workload_key
+    from repro_torch.search.evolutionary import SearchConfig
+
+    runs = [(n, REDUCED_KWARGS[n]) for n in PAPER_OPERATORS] + [("sfm", dict(m=256, n=256))]
+    search = SearchConfig(max_trials=8, init_random=4, population=8,
+                          measure_per_round=4)
+    rows = {}
+    for name, kw in runs:
+        db = Database()
+        config = repro_torch.TuneConfig(
+            search=search, runner_spec="cached+local", backend="cuda",
+            device="cuda", warm_start=False,
+        )
+        t0 = time.perf_counter()
+        res = repro_torch.tune_workload(name, kw, config=config, database=db)
+        wall = time.perf_counter() - t0
+        key = workload_key(name, **kw)
+        rec = db.best(key)
+        meta = rec.meta if rec is not None else {}
+        lowered = meta.get("pallas_kernel") or meta.get("lowered_with")
+        rows[key] = dict(best_ms=res.best_latency_s * 1e3,
+                         plain_ms=res.baseline_latency_s * 1e3,
+                         default_ms=res.default_latency_s * 1e3,
+                         trials=res.trials, failures=res.measure_failures,
+                         lowered=lowered, wall_s=wall)
+        print(f"[operators] {key}: best {res.best_latency_s * 1e3:.4f} ms, plain "
+              f"{res.baseline_latency_s * 1e3:.4f} ms, untuned "
+              f"{res.default_latency_s * 1e3:.4f} ms; {res.trials} trials, "
+              f"{res.measure_failures} failed; {lowered}; {wall:.1f} s")
+        if not math.isfinite(res.best_latency_s):
+            fail(f"{key} has no finite best latency")
+        want = "row_softmax" if name == "sfm" else "torch-fallback"
+        if lowered != want:
+            fail(f"{key}: best record lowered with {lowered}, want {want}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -920,12 +1127,16 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.search.database import Database
 
+    def clock(phase: str) -> None:
+        print(f"[clock] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     build_s = phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs = phase_kernels(gen)
 
     phase_decode_kernels(gen, errs)
+    clock("phases 2-3b")
 
     cfg = get_config("smollm-135m")
     db = Database()
@@ -936,23 +1147,37 @@ def main(argv=None) -> int:
     for k in FORWARD_KERNELS:
         if tune_counts[k] <= 0:
             fail(f"{k} was not launched while tuning")
+    clock("phase 4")
     runs = check_tiles(tasks, db)
     fwd, fwd_counts = phase_forward(cfg, tasks, db)
+    clock("phase 5")
 
     serve_db = Database()
     reset_counts()  # the serving path starts here
     serve_tasks, serve_best, serve, serve_tune_counts = phase_serve(cfg, serve_db)
     runs.update(check_tiles(serve_tasks, serve_db))
+    clock("phase 7")
+
+    reset_counts()  # the operator path starts here
+    operators = phase_operators()
+    op_counts = read_counts()
+    clock("phase 8")
+    print(f"[operators] kernel launches: {op_counts}")
+    if op_counts["row_softmax"] <= 0:
+        fail("row_softmax was not launched on the operator path")
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
+        "operators": op_counts,
     }
-    launches = {k: paths["forward"][k] + paths["serving"][k] for k in KERNELS}
+    launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
 
     rows = phase_timings(tasks, runs, gen, cfg.vocab)
     rows.update(phase_timings(serve_tasks, runs, gen, cfg.vocab))
     rows["paged_decode"] = paged_timing(gen, SERVE_MAX_SEQ, SERVE_PAGE)
+    structural = structural_timings(tasks, db)
+    structural.update(structural_timings(serve_tasks, serve_db))
     sources = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:46"),
@@ -966,6 +1191,8 @@ def main(argv=None) -> int:
         "paged_decode_flash_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/flash_attention.py:337"),
+        "row_softmax": ("src/repro_torch/kernels/csrc/softmax.cu",
+                        "src/repro/kernels/softmax.py:26"),
     }
     entries = []
     for k in KERNELS:
@@ -977,7 +1204,8 @@ def main(argv=None) -> int:
             name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
             launches=launches[k], forward_launches=fwd_counts[k],
             launches_by_path={p: paths[p][k] for p in paths},
-            max_abs_err=errs[k], ms=r["ms"], plain_ms=r["plain_ms"],
+            max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
         ))
@@ -991,7 +1219,8 @@ def main(argv=None) -> int:
                            total_s=total_s, kernels=entries, timings=rows,
                            forward=fwd, tune_best=best,
                            tune_launches=tune_counts, serve=serve,
-                           serve_tune_best=serve_best,
+                           serve_tune_best=serve_best, operators=operators,
+                           structural=structural,
                            launches_by_path=paths), f, indent=1)
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -6,8 +6,9 @@ the (bm, bn, bk) of :mod:`repro_torch.kernels.matmul` (dense and batched);
 the (i, j) tiles of an attention schedule's ``scores`` block become the
 (block_q, block_kv) of :mod:`repro_torch.kernels.flash_attention`, and the
 j tile of an ``attention_decode`` schedule's ``scores`` block its decode
-kernel's block_kv.  Inlined/attached elementwise consumers of a dense become the kernel's fused
-epilogue.
+kernel's block_kv; the largest row tile of an ``sfm`` schedule becomes
+the row block of :mod:`repro_torch.kernels.softmax`.  Inlined/attached
+elementwise consumers of a dense become the kernel's fused epilogue.
 
 The kernels tile exactly, so sampled tile extents are *snapped* to the
 nearest divisor of the problem shape at lower time.  Snapping is part of
@@ -19,8 +20,9 @@ A tile the card cannot run (grid, shared memory or thread caps) raises
 rejected candidate; every other failure propagates.
 
 Workloads covered: ``dense_*`` (+fused epilogues), ``batch_matmul``,
-``attention_*`` (prefill) and ``attention_decode*``.  ``sfm`` belongs to a
-later slice and raises here.
+``attention_*`` (prefill), ``attention_decode*`` and ``sfm``.  Every other
+workload goes through the structural lowering
+(:mod:`repro_torch.backends.torch_backend`), chosen by the registry.
 """
 
 from __future__ import annotations
@@ -35,14 +37,11 @@ from ..kernels.matmul import DEFAULT_BLOCKS
 # PrimFunc names this backend can lower natively (dense_* covers every
 # epilogue variant; attention_* covers the causal/window/softcap variants)
 _LOWERABLE_PREFIXES = ("dense_", "attention_")
-_LOWERABLE_NAMES = ("batch_matmul",)
-_LATER_SLICES = ("sfm",)
+_LOWERABLE_NAMES = ("batch_matmul", "sfm")
 
 
 def supports(func: PrimFunc) -> bool:
     """True if this backend has a CUDA lowering for ``func``."""
-    if func.name.startswith(_LATER_SLICES):
-        return False
     return func.name in _LOWERABLE_NAMES or func.name.startswith(
         _LOWERABLE_PREFIXES
     )
@@ -93,6 +92,18 @@ def extract_matmul_blocks(sch: Schedule) -> Optional[Tuple[int, int, int]]:
     bn = per_axis[s_axes[-1].name]
     bk = per_axis[r_axes[0].name]
     return (max(bm, 1), max(bn, 1), max(bk, 1))
+
+
+def extract_row_block(sch: Schedule) -> Optional[int]:
+    """Row-tile extent (first spatial axis) for row-wise workloads (sfm):
+    the max tile extent any block gives its leading spatial axis."""
+    best = 0
+    for n in iter_nodes(sch.root):
+        if not isinstance(n, BlockNode) or not n.block.spatial_axes:
+            continue
+        per_axis = _per_axis_tile(sch, n)
+        best = max(best, per_axis.get(n.block.spatial_axes[0].name, 1))
+    return best if best > 1 else None
 
 
 def snap_blocks(
@@ -175,6 +186,34 @@ def lower_batch_matmul(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
 
     def fn(inputs: Dict):
         out = mm.batch_matmul(inputs["A"], inputs["B"], block_sizes=blocks)
+        return {func.outputs[0].name: out}
+
+    return fn, meta
+
+
+def lower_sfm(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
+    """Tuned row softmax via the CUDA row-softmax kernel (K4).
+
+    The largest row tile the schedule gives any block becomes the kernel's
+    row block, snapped to a divisor of M; the meta keys are the JAX
+    package's.
+    """
+    from ..kernels import softmax as sm
+
+    func = sch.func
+    M, N = func.inputs[0].shape
+    sampled = extract_row_block(sch)
+    (bm,) = snap_blocks((M,), (sampled or sm.DEFAULT_ROW_BLOCK,))
+    _check_grid(M // bm, (bm,))
+    sm.launch_config(M, N, bm)
+    meta = {
+        "pallas_kernel": "row_softmax",
+        "pallas_rows_sampled": sampled,
+        "pallas_rows_snapped": bm,
+    }
+
+    def fn(inputs: Dict):
+        out = sm.row_softmax(inputs["A"].contiguous(), block_rows=bm)
         return {func.outputs[0].name: out}
 
     return fn, meta
@@ -327,14 +366,10 @@ def lower_to_cuda(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
 
     Returns ``(fn, meta)`` where ``fn`` is ``callable(dict) -> dict`` and
     ``meta`` records the kernel used plus sampled/snapped tile provenance.
-    Raises ``NotImplementedError`` for workloads of later slices and
+    Raises ``NotImplementedError`` for a workload without a kernel and
     ``ScheduleRejected`` for a tile the card cannot run.
     """
     name = sch.func.name
-    if name.startswith(_LATER_SLICES):
-        raise NotImplementedError(
-            f"no CUDA lowering for workload {name!r}: not in this slice"
-        )
     if name.startswith("dense_"):
         return lower_dense(sch)
     if name.startswith("attention_decode"):
@@ -345,12 +380,16 @@ def lower_to_cuda(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
         return lower_attention(sch)
     if name == "batch_matmul":
         return lower_batch_matmul(sch)
+    if name == "sfm":
+        return lower_sfm(sch)
     raise NotImplementedError(f"no CUDA lowering for workload {name!r}")
 
 
 def plain(func: PrimFunc) -> Callable[[Dict], Dict]:
     """The workload's plain PyTorch version, ``callable(dict) -> dict``:
-    what ``tune_workload`` times as the baseline on the same device."""
+    what ``tune_workload`` times as the baseline on the same device.  A
+    workload without a kernel gets the structural oracle
+    (``torch_backend.build_oracle``)."""
     from ..kernels import ref
 
     out_name = func.outputs[0].name
@@ -384,4 +423,8 @@ def plain(func: PrimFunc) -> Callable[[Dict], Dict]:
             return {out_name: out.reshape(b, kvh, g, s, d)}
 
         return attn
-    raise NotImplementedError(f"no plain version for workload {name!r}")
+    if name == "sfm":
+        return lambda ins: {out_name: ref.row_softmax(ins["A"])}
+    from .torch_backend import build_oracle
+
+    return build_oracle(func)

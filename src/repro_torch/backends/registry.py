@@ -7,13 +7,17 @@ candidates, and the dispatch layer serves models, through the *same*
 selected lowering::
 
     "cuda"   the hand-written CUDA kernels (dense, batch_matmul, prefill
-             attention, single-token decode attention); tensors on the CPU
-             run the kernels' plain versions
+             attention, single-token decode attention, row softmax);
+             tensors on the CPU run the kernels' plain versions.  Every
+             other workload falls back to the structural lowering, and the
+             fallback is recorded as ``lowered_with: "torch-fallback"``
+    "torch"  the structural PyTorch lowering of any schedule (the port of
+             the JAX package's ``jnp`` backend), on the inputs' device
 
 Selection is explicit (``backend="cuda"`` through ``tune_workload`` /
 ``TaskScheduler`` / ``DispatchContext``); ``None`` means
-``DEFAULT_BACKEND``.  A workload without a CUDA lowering raises: there is
-no structural fallback in this package yet.
+``DEFAULT_BACKEND``.  A workload that has a kernel never falls back: a
+failure to lower or launch it propagates.
 """
 
 from __future__ import annotations
@@ -92,10 +96,23 @@ def get_backend(spec: Optional[str] = None) -> Backend:
 # ---------------------------------------------------------------------------
 
 
+class TorchBackend(Backend):
+    """The structural PyTorch lowering: every schedule, as its loop tree."""
+
+    name = "torch"
+
+    def lower(self, sch: Schedule, workload_key: str = "") -> Lowered:
+        from . import torch_backend
+
+        return Lowered(torch_backend.build(sch).fn, {"backend": self.name})
+
+
 class CudaBackend(Backend):
     """Hand-written CUDA kernels for tuned schedules (dense, batch_matmul,
-    prefill attention, decode attention) plus the untuned fused attention the dispatch layer
-    serves.  Any other workload raises ``NotImplementedError``."""
+    prefill attention, decode attention, row softmax) plus the untuned
+    fused attention the dispatch layer serves.  A workload without a
+    kernel goes through the structural lowering instead, recorded in the
+    meta as ``lowered_with: "torch-fallback"``."""
 
     name = "cuda"
 
@@ -105,10 +122,15 @@ class CudaBackend(Backend):
         return gpu_backend.supports(func)
 
     def lower(self, sch: Schedule, workload_key: str = "") -> Lowered:
-        from . import gpu_backend
+        from . import gpu_backend, torch_backend
 
-        fn, meta = gpu_backend.lower_to_cuda(sch)
-        return Lowered(fn, {"backend": self.name, **meta})
+        if gpu_backend.supports(sch.func):
+            fn, meta = gpu_backend.lower_to_cuda(sch)
+            return Lowered(fn, {"backend": self.name, **meta})
+        return Lowered(
+            torch_backend.build(sch).fn,
+            {"backend": self.name, "lowered_with": "torch-fallback"},
+        )
 
     def prepare(self, device) -> None:
         import torch
@@ -139,3 +161,8 @@ class CudaBackend(Backend):
 @register_backend("cuda")
 def _make_cuda() -> Backend:
     return CudaBackend()
+
+
+@register_backend("torch")
+def _make_torch() -> Backend:
+    return TorchBackend()

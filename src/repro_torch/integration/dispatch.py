@@ -3,11 +3,12 @@
 ``DispatchContext`` is the consumer side of the end-to-end loop: given a
 tuning :class:`~repro_torch.search.database.Database`, it looks up the best
 record per workload key, replays the stored trace through the validator,
-lowers the schedule with the selected backend (the CUDA kernels), and
+lowers the schedule with the selected backend (the CUDA kernels, or the
+structural lowering for a workload without one), and
 serves the lowered callable to the model layers — which call in through
 the hooks in :mod:`repro_torch.models.layers` (``dense_op`` / ``bmm_op`` /
-``unembed`` / ``chunked_attention`` / ``decode_attention``) while the
-context is active::
+``unembed`` / ``chunked_attention`` / ``decode_attention`` / ``rmsnorm``)
+while the context is active::
 
     db = Database("results/tuning_db.json")
     with DispatchContext(db, tasks=extract_tasks(cfg)) as ctx:
@@ -495,11 +496,39 @@ class DispatchContext:
         out = kern.grad_fn(q4, k.float(), v.float(), bias)
         return out.reshape(B, H, 1, D).to(q.dtype)
 
-    def rmsnorm(self, x, w, eps: float) -> None:
-        """The rmsnorm workload is not in this slice: always a miss."""
-        self.stats["misses"] += 1
-        self._note("miss", None, "rmsnorm", "not_in_slice")
-        return None
+    def rmsnorm(
+        self, x: torch.Tensor, w: torch.Tensor, eps: float
+    ) -> Optional[torch.Tensor]:
+        """Tuned RMS norm over the last axis; None -> caller falls back.
+
+        Serves ``rmsnorm`` records keyed ``(d, eps, tokens)``.  The workload
+        has no hand-written kernel: the backend lowers its schedule
+        structurally (``lowered_with: "torch-fallback"`` in the meta).
+        Runs in f32 and returns ``x.dtype``."""
+        if x.ndim < 1 or w.ndim != 1 or x.shape[-1] != w.shape[0]:
+            self._note("fallback", None, "rmsnorm", "shape_mismatch")
+            return None
+        tokens = 1
+        for s in x.shape[:-1]:
+            tokens *= int(s)
+        d = int(x.shape[-1])
+        kern = self._lookup(
+            workload_key("rmsnorm", d=d, eps=eps, tokens=tokens), "rmsnorm"
+        )
+        if kern is None:
+            return None
+        if kern.grad_fn is None:
+            def ref(x2, w2):
+                var = torch.mean(x2 * x2, dim=-1, keepdim=True)
+                return x2 * torch.rsqrt(var + eps) * w2
+
+            def fwd_kernel(x2, w2):
+                return kern.fn({"X": x2, "W": w2})[kern.out_name]
+
+            kern.grad_fn = _with_reference_grad(fwd_kernel, ref)
+        x2 = x.reshape(tokens, d).float()
+        out = kern.grad_fn(x2, w.float())
+        return out.reshape(x.shape).to(x.dtype)
 
 
 def maybe_dispatch(ctx: Optional[DispatchContext]):

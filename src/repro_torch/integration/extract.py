@@ -14,7 +14,13 @@ to it, mapped to registered tensor-program workloads:
 * ``decode_attention``       -> ``attention_decode`` (see
   :func:`decode_attention_sites`), plus its plain path's two cache
   contractions as ``batch_matmul`` sites, which the reference's jaxpr walk
-  also finds.
+  also finds;
+* ``rmsnorm``                -> ``rmsnorm`` over (tokens, d), where the
+  reference finds the norm's one ``rsqrt``;
+* ``chunked_attention``'s plain path -> ``sfm`` (row softmax) over the
+  scores of one kv chunk, once per chunk step, where the reference finds
+  the ``exp`` of its online softmax.  Not dispatchable: the site is a
+  tuning target only, as in the reference.
 
 Decode extraction (:func:`extract_decode_tasks`) records one
 ``decode_step`` in the continuous-batching arena layout and, for the paged
@@ -23,8 +29,7 @@ or chunked serving tier, one ``serve_step`` tick.
 The weight of a site is the number of times its hook ran: 30 layers give
 weight 30, as the reference's scan trip count does.  Tasks dedup by the
 structural hash of the instantiated workload PrimFunc, summing weights,
-so the keys and weights equal the reference's.  ``rmsnorm`` and ``sfm``
-sites belong to a later slice.
+so the keys and weights equal the reference's.
 """
 
 from __future__ import annotations
@@ -42,13 +47,15 @@ from ..search.task_scheduler import TuneTask
 
 TOKEN_TILE = 128  # default representative token block (batch=1 x seq=128)
 
-# ops the extractor understands in this slice
-EXTRACTABLE_OPS = ("dense", "batch_matmul", "attention")
-# ops extracted from the decode trace (serving): dense/bmm keyed on
+# ops the extractor understands; everything else is skipped
+EXTRACTABLE_OPS = ("dense", "batch_matmul", "rmsnorm", "sfm", "attention")
+# ops extracted from the decode trace (serving): dense/bmm/rmsnorm keyed on
 # m = batch (or batch x chunk in a serve tick), plus the single-token
-# cache-attention workload
-DECODE_EXTRACTABLE_OPS = ("dense", "batch_matmul", "attention_decode")
-_LATER_SLICE_OPS = ("rmsnorm", "sfm")
+# cache-attention workload.  sfm is omitted — decode softmax rows ride
+# inside attention_decode.
+DECODE_EXTRACTABLE_OPS = (
+    "dense", "batch_matmul", "rmsnorm", "attention_decode",
+)
 
 
 def _skip(site: str, reason: str) -> None:
@@ -63,9 +70,10 @@ def _skip(site: str, reason: str) -> None:
 class TaskSite:
     """One hook call site mapped to a workload, pre-dedup.
 
-    ``dispatchable`` marks sites the dispatch layer can serve; every site a
-    hook reports is (``x @ w`` with w stored (k, n) or read transposed,
-    canonical-layout ``batch_matmul``, static-shape attention).
+    ``dispatchable`` marks sites the dispatch layer can serve (``x @ w``
+    with w stored (k, n) or read transposed, canonical-layout
+    ``batch_matmul``, static-shape attention, rmsnorm); an ``sfm`` site is
+    a tuning target only.
     """
 
     op: str
@@ -110,14 +118,14 @@ def current_recorder() -> Optional["SiteRecorder"]:
 @dataclass
 class SiteRecorder:
     """Collects hook call sites while the model runs on meta tensors:
-    matrix products as ready :class:`TaskSite`\\ s, attention calls as raw
-    records for :func:`attention_sites`."""
+    matrix products, norms and softmax rows as ready :class:`TaskSite`\\ s,
+    attention calls as raw records for :func:`attention_sites`."""
 
-    dots: List[TaskSite] = field(default_factory=list)
+    op_sites: List[TaskSite] = field(default_factory=list)
     sites: List[Dict[str, Any]] = field(default_factory=list)
 
-    def add_dot(self, op: str, dispatchable: bool = True, **kwargs: int) -> None:
-        self.dots.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=dispatchable))
+    def add_site(self, op: str, dispatchable: bool = True, **kwargs: Any) -> None:
+        self.op_sites.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=dispatchable))
 
     def add(
         self, *, q_shape, kvh, kv_seq, causal, window, softcap, scale,
@@ -376,9 +384,8 @@ def extract_task_specs(
     dispatchable_only: bool = False,
 ) -> List[ExtractedTask]:
     """Like :func:`extract_tasks` but returns the rich task records."""
-    _check_ops(ops, EXTRACTABLE_OPS)
     rec = record_forward_sites(cfg, batch=batch, seq=seq)
-    sites = rec.dots + attention_sites(cfg, rec.sites)
+    sites = rec.op_sites + attention_sites(cfg, rec.sites)
     sites = [s for s in sites if s.op in ops]
     if dispatchable_only:
         sites = [s for s in sites if s.dispatchable]
@@ -421,15 +428,6 @@ def _apply_max_tasks(
 # ---------------------------------------------------------------------------
 # Decode (serving) entry point
 # ---------------------------------------------------------------------------
-
-
-def _check_ops(ops: Tuple[str, ...], supported: Tuple[str, ...]) -> None:
-    later = sorted(set(ops) & set(_LATER_SLICE_OPS))
-    if later:
-        raise NotImplementedError(
-            f"extracting {later} sites is not in this slice; "
-            f"supported ops: {supported}"
-        )
 
 
 def _meta_arena(cfg: ModelConfig, batch: int, max_seq: int):
@@ -520,19 +518,19 @@ def extract_decode_task_specs(
     every generated token.
 
     ``chunk > 0`` / ``paged`` additionally record one ``serve_step`` tick
-    of that chunk width, merging its matrix-product sites (its chunk
+    of that chunk width, merging its dense, batch_matmul and rmsnorm sites (its chunk
     attention has no tuned shape, so its attention records are dropped):
-    the mixed prefill+decode tick runs dense at ``m = batch * chunk``.
+    the mixed prefill+decode tick runs dense and rmsnorm at
+    ``m = batch * chunk``.
     """
-    _check_ops(ops, DECODE_EXTRACTABLE_OPS)
     rec = record_decode_sites(cfg, batch=batch, max_seq=max_seq)
-    sites = rec.dots + decode_attention_sites(cfg, rec.sites)
+    sites = rec.op_sites + decode_attention_sites(cfg, rec.sites)
     if chunk > 0 or paged:
         srec = record_serve_sites(
             cfg, batch=batch, max_seq=max_seq, chunk=max(1, chunk),
             paged=paged, page_size=page_size,
         )
-        sites += srec.dots
+        sites += srec.op_sites
     sites = [s for s in sites if s.op in ops]
     if dispatchable_only:
         sites = [s for s in sites if s.dispatchable]

@@ -28,6 +28,7 @@ SOURCES = {
     "matmul": CSRC / "matmul.cu",
     "flash_attention": CSRC / "flash_attention.cu",
     "decode_attention": CSRC / "decode_attention.cu",
+    "softmax": CSRC / "softmax.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

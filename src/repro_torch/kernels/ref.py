@@ -44,6 +44,14 @@ def batch_matmul(x, w):
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+def row_softmax(x):
+    """Softmax over the last axis: the row max subtracted, exponentiated and
+    divided by the row sum, all in f32; returned in ``x.dtype``."""
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
 def flash_attention(
     q,
     k,

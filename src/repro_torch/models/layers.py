@@ -63,7 +63,7 @@ def dense_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     rec = _site_recorder()
     if rec is not None:
-        rec.add_dot("dense", m=_rows(x), n=int(w.shape[1]), k=int(w.shape[0]))
+        rec.add_site("dense", m=_rows(x), n=int(w.shape[1]), k=int(w.shape[0]))
     ctx = _dispatch_ctx()
     if ctx is not None:
         out = ctx.dense(x, w)
@@ -86,7 +86,7 @@ def bmm_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         bsz = 1
         for s in a.shape[:-2]:
             bsz *= int(s)
-        rec.add_dot(
+        rec.add_site(
             "batch_matmul", b=bsz, m=int(a.shape[-2]), n=int(b.shape[-1]),
             k=int(a.shape[-1]),
         )
@@ -112,6 +112,11 @@ def _init(gen, shape, scale=None, dtype=torch.bfloat16, device="cpu"):
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis — the ``rmsnorm`` dispatch point, keyed
+    (tokens = rows of x, d, eps)."""
+    rec = _site_recorder()
+    if rec is not None:
+        rec.add_site("rmsnorm", tokens=_rows(x), d=int(x.shape[-1]), eps=eps)
     ctx = _dispatch_ctx()
     if ctx is not None:
         out = ctx.rmsnorm(x, w, eps)
@@ -218,6 +223,9 @@ def chunked_attention(
             mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
         s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        if rec is not None:
+            # the softmax rows of this chunk step: a tuning-only sfm site
+            rec.add_site("sfm", dispatchable=False, m=_rows(s), n=chunk)
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
@@ -239,8 +247,8 @@ def _record_cache_contractions(rec, B, KVH, G, S, T, D) -> None:
     single-token value contraction has the canonical (…, m, k) @ (…, k, n)
     layout.  Neither runs through :func:`bmm_op` in either package."""
     m = G * S
-    rec.add_dot("batch_matmul", dispatchable=False, b=B * KVH, m=m, n=T, k=D)
-    rec.add_dot("batch_matmul", dispatchable=(S == 1), b=B * KVH, m=m, n=D, k=T)
+    rec.add_site("batch_matmul", dispatchable=False, b=B * KVH, m=m, n=T, k=D)
+    rec.add_site("batch_matmul", dispatchable=(S == 1), b=B * KVH, m=m, n=D, k=T)
 
 
 def decode_attention(
@@ -399,7 +407,7 @@ def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     transposed."""
     rec = _site_recorder()
     if rec is not None:
-        rec.add_dot(
+        rec.add_site(
             "dense", m=_rows(x), n=int(table.shape[0]), k=int(table.shape[1])
         )
     ctx = _dispatch_ctx()

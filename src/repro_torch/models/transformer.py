@@ -196,7 +196,10 @@ def forward(
 
 
 def _logits(cfg: ModelConfig, params: Params, x):
-    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return _unembed(cfg, params, L.rmsnorm(x, params["final_ln"], cfg.norm_eps))
+
+
+def _unembed(cfg: ModelConfig, params: Params, x):
     logits = L.unembed(x, params["embed"])
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -391,11 +394,13 @@ def serve_step(
 
         x = _decode_layer(cfg, _layer(params["layers"], i), x, pos_mat,
                           windows[i], write_kv, length)
-    # sample each lane at its last valid position; the gather before the
-    # unembed keeps the dense workload key at m = B
+    # the final norm over every column (the reference's order: its rmsnorm
+    # key is at tokens = B·C), then each lane's last valid position; the
+    # gather before the unembed keeps the dense workload key at m = B
+    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     idx = torch.clamp(valid - 1, 0, C - 1).long()
     x_last = torch.gather(x, 1, idx[:, None, None].expand(B, 1, x.shape[-1]))
-    logits = _logits(cfg, params, x_last)
+    logits = _unembed(cfg, params, x_last)
     new_cache = dict(cache)
     new_cache["pos"] = pos_vec + valid
     return logits, new_cache

@@ -190,8 +190,9 @@ def tune_workload(
     ``<db>.dists.json``) before the search and saved back after it.
 
     ``baseline_latency_s`` is the median time, on the same device, of the
-    workload's plain PyTorch version (the reference package's baseline is
-    its whole-domain jnp oracle instead); ``default_latency_s`` is the
+    workload's plain PyTorch version (``gpu_backend.plain``: the kernel's
+    plain version, or for a workload without a kernel the whole-domain
+    structural oracle, as the reference package's jnp oracle); ``default_latency_s`` is the
     canonical untuned schedule measured through the same backend.
     """
     import time

@@ -101,7 +101,8 @@ def test_block_meta_matches_pallas_backend(sampled, snapped):
 
 
 def test_registry_has_only_cuda_and_its_meta_names_the_backend():
-    assert backend_names() == ["cuda"]
+    """The kernels' backend, and the structural one it falls back to."""
+    assert backend_names() == ["cuda", "torch"]
     func = tget("dense", m=16, n=16, k=16)
     tr = SpaceGenerator(default_modules(use_mxu=True)).generate(
         jget("dense", m=16, n=16, k=16), seed=0
@@ -118,13 +119,42 @@ def test_registry_has_only_cuda_and_its_meta_names_the_backend():
     ("gmm", dict(n=16, m=16, k=16)),
 ])
 def test_other_workloads_raise_instead_of_falling_back(name, kw):
+    """sfm lowers to K4 now; a workload without a kernel falls back to the
+    structural lowering and says so in the meta."""
     from repro_torch.core.schedule import Schedule
 
     func = tget(name, **kw)
     sch = Schedule(func, seed=None)  # the untransformed program
+    meta = get_backend("cuda").lower(sch).meta
+    if name == "sfm":
+        assert gb.supports(func) and meta["pallas_kernel"] == "row_softmax"
+        return
     assert not gb.supports(func)
+    assert meta == {"backend": "cuda", "lowered_with": "torch-fallback"}
     with pytest.raises(NotImplementedError):
-        get_backend("cuda").lower(sch)
+        gb.lower_to_cuda(sch)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("use_mxu", [False, True])
+def test_sfm_row_block_meta_and_outputs_match_pallas_backend(seed, use_mxu):
+    kw = dict(m=48, n=32)
+    jfunc, tfunc = jget("sfm", **kw), tget("sfm", **kw)
+    tr = SpaceGenerator(default_modules(use_mxu=use_mxu)).generate(jfunc, seed=seed).trace
+    jv = jvalidate(jfunc, tr)
+    tv = tvalidate(tfunc, TTrace.from_json(tr.to_json()))
+    assert jv.ok == tv.ok
+    if not jv.ok:
+        pytest.skip(f"seed {seed} samples an invalid trace")
+    assert gb.extract_row_block(tv.schedule) == pb.extract_row_block(jv.schedule)
+    jfn, jmeta = pb.lower_sfm(jv.schedule, interpret=True)
+    tfn, tmeta = gb.lower_sfm(tv.schedule)
+    assert tmeta == jmeta
+    assert get_backend("cuda").lower(tv.schedule).meta == {"backend": "cuda", **jmeta}
+    ins = random_inputs(jfunc, 0)
+    want = np.asarray(jfn(ins)["Y"])
+    got = tfn({"A": torch.from_numpy(ins["A"])})["Y"]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 def test_untuned_fused_attention_uses_divisor_blocks():

@@ -20,7 +20,9 @@ import torch
 import repro_torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import ScheduleRejected
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import softmax as sm
 from repro_torch.search.evolutionary import SearchConfig
 
 pytestmark = pytest.mark.cuda
@@ -150,3 +152,31 @@ def test_cuda_paged_decode_attention_against_decode_on_the_gathered_view():
     assert float((got - want).abs().max()) < 1e-4
     assert float((got - tref.paged_decode_attention(q, kp, vp, table, bias))
                  .abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("bm", [36, 72, 144])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
+def test_cuda_row_softmax_against_plain(bm, dtype, tol):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(2304, 256, generator=g, device=dev) * 4).to(dtype)
+    n = sm.row_softmax.launches
+    got = sm.row_softmax(x, block_rows=bm)
+    torch.cuda.synchronize()
+    assert sm.row_softmax.launches == n + 1
+    assert sm.row_softmax.last_launch["blocks"] == (bm,)
+    assert sm.row_softmax.last_launch["grid"] == (2304 // bm,)
+    assert got.dtype == dtype
+    assert float((got.float() - tref.row_softmax(x).float()).abs().max()) <= tol
+
+
+def test_cuda_row_softmax_refuses_what_the_kernel_does_not_take():
+    dev = _cuda()
+    x = torch.randn(2304, 256, device=dev)
+    with pytest.raises(ScheduleRejected) as e:
+        sm.row_softmax(x, block_rows=288)
+    assert e.value.reason == "shared_memory"
+    with pytest.raises(TypeError):
+        sm.row_softmax(x.half())
+    with pytest.raises(ValueError):
+        sm.row_softmax(x.t())

@@ -25,6 +25,7 @@ from repro.core.modules import SpaceGenerator, default_modules
 from repro.core.tir import random_inputs
 from repro.core.validator import validate_trace as jvalidate
 from repro.core.workloads import get_workload as jget
+from repro.integration.extract import DECODE_EXTRACTABLE_OPS as JOPS
 from repro.integration.extract import extract_decode_task_specs as jextract
 from repro.kernels.flash_attention import decode_flash_attention as pallas_decode
 from repro.kernels.flash_attention import (
@@ -260,7 +261,7 @@ def test_decode_dispatch_gradient_is_the_plain_versions(tuned_decode):
 # decode-task extraction
 # ---------------------------------------------------------------------------
 
-OPS = ("dense", "batch_matmul", "attention_decode")
+OPS = JOPS  # every op the reference extracts from the decode trace
 
 
 @pytest.mark.parametrize("arch,smoke,kw", [
@@ -280,11 +281,21 @@ def test_decode_extraction_keys_and_weights_match_reference(arch, smoke, kw,
         key = "attention_decode/b=4/d=64/h=9/kvh=3/softcap=0.0/t=256"
         assert got[key] == 30
         assert got["dense/k=576/m=128/n=1536"] == 60  # the 32-wide serve tick
+        # the norm of every decode tick, and of every 32-wide serve tick
+        assert got["rmsnorm/d=576/eps=1e-06/tokens=4"] == 61
+        assert got["rmsnorm/d=576/eps=1e-06/tokens=128"] == 61
 
 
 def test_decode_extraction_refuses_ops_of_later_slices():
-    with pytest.raises(NotImplementedError):
-        textract(tcfg("smollm-135m", smoke=True), ops=("dense", "rmsnorm"))
+    """rmsnorm is extracted from the decode trace now, as in the reference."""
+    from repro_torch.integration.extract import DECODE_EXTRACTABLE_OPS
+
+    assert DECODE_EXTRACTABLE_OPS == JOPS
+    specs = textract(tcfg("smollm-135m", smoke=True), ops=("dense", "rmsnorm"),
+                     min_task_elems=0)
+    norm = [t for t in specs if t.op == "rmsnorm"]
+    assert [t.key for t in norm] == ["rmsnorm/d=48/eps=1e-06/tokens=4"]
+    assert norm[0].weight == 5 and norm[0].dispatchable
 
 
 def test_decode_task_flops_are_the_references():

@@ -41,10 +41,12 @@ MODULES = [
     "repro_torch.backends.loops",
     "repro_torch.backends.registry",
     "repro_torch.backends.gpu_backend",
+    "repro_torch.backends.torch_backend",
     "repro_torch.kernels",
     "repro_torch.kernels.ref",
     "repro_torch.kernels.matmul",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.softmax",
     "repro_torch.kernels._build",
     "repro_torch.models",
     "repro_torch.models.layers",

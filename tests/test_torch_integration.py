@@ -5,7 +5,10 @@ records hook calls on meta tensors where the reference walks a jaxpr).
 Dispatch over a database the port tuned on the CPU must hit, and the
 dispatched forward must equal the plain one: in float32 on the CPU both
 run the same plain PyTorch products, up to the online-vs-full softmax of
-attention (rtol/atol 1e-4).
+attention (rtol/atol 1e-4).  The rmsnorm sites dispatch through the
+structural lowering; with the same stored trace in both packages' databases
+the dispatched smoke forward and its gradient equal the reference's
+(float32, rtol/atol 1e-4 on logits of order 1, 1e-4 on gradients).
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 
 import repro_torch
 from repro.configs.base import get_config as jcfg
+from repro.integration.extract import EXTRACTABLE_OPS as JOPS
 from repro.integration.extract import extract_task_specs as jextract
 from repro_torch.configs.base import get_config as tcfg
 from repro_torch.integration.dispatch import DispatchContext
@@ -22,12 +26,14 @@ from repro_torch.models import transformer as TT
 from repro_torch.search.database import Database, TuningRecord
 from repro_torch.search.evolutionary import SearchConfig
 
-OPS = ("dense", "batch_matmul", "attention")
+OPS = JOPS  # every op the reference extracts
 
 
 @pytest.mark.parametrize("arch,smoke,seq", [
     ("smollm-135m", False, 32),
+    ("smollm-135m", False, 256),
     ("gemma2-2b", True, 32),
+    ("gemma2-2b", True, 1100),  # seq > the 1024 kv chunk: two chunk steps
     ("qwen1.5-110b", True, 16),
 ])
 @pytest.mark.parametrize("dispatchable_only", [False, True])
@@ -37,14 +43,27 @@ def test_extracted_keys_and_weights_match_reference(arch, smoke, seq,
     want = {t.key: t.weight for t in jextract(jcfg(arch, smoke=smoke), mesh=None, **kw)}
     got = {t.key: t.weight for t in textract(tcfg(arch, smoke=smoke), **kw)}
     assert got == want
-    if arch == "smollm-135m":
+    if arch == "smollm-135m" and seq == 32:
         assert got["dense/k=576/m=32/n=1536"] == 60
         assert got["attention/b=1/causal=1/d=64/h=9/kvh=3/s=32/softcap=0.0/window=0"] == 30
+    if arch == "smollm-135m" and seq == 256:
+        assert len(got) == (9 if dispatchable_only else 10)
+        assert got["rmsnorm/d=576/eps=1e-06/tokens=256"] == 61
+        assert got.get("sfm/m=2304/n=256") == (None if dispatchable_only else 30)
+    if seq == 1100:
+        assert got.get("sfm/m=4400/n=1024") == (None if dispatchable_only else 4)
 
 
 def test_extraction_refuses_ops_of_later_slices():
-    with pytest.raises(NotImplementedError):
-        textract(tcfg("smollm-135m", smoke=True), ops=("dense", "rmsnorm"))
+    """Every op the reference extracts is extracted now: rmsnorm sites are
+    dispatchable, sfm sites a tuning target only, as in the reference."""
+    from repro_torch.integration.extract import EXTRACTABLE_OPS
+
+    assert EXTRACTABLE_OPS == JOPS
+    specs = textract(tcfg("smollm-135m", smoke=True), ops=("dense", "rmsnorm", "sfm"))
+    by_op = {t.op: t for t in specs}
+    assert by_op["rmsnorm"].dispatchable and by_op["rmsnorm"].weight == 5
+    assert not by_op["sfm"].dispatchable
 
 
 @pytest.fixture(scope="module")
@@ -95,10 +114,15 @@ def test_dispatched_forward_hits_and_equals_plain(tuned):
     assert ctx.stats["hits"] > 0
     assert ctx.stats["attention_tuned"] == cfg.n_layers
     reasons = {r for row in ctx.stats_by_key().values() for r in row["reasons"]}
-    assert "lowering_failed" not in reasons
-    assert ctx.stats_by_key()["site:rmsnorm"]["reasons"] == {
-        "not_in_slice": 2 * cfg.n_layers + 1
-    }
+    assert "lowering_failed" not in reasons and "not_in_slice" not in reasons
+    # the smoke norm (32 x 48) is below min_task_elems, so extraction made
+    # no task for it: its sites look the key up and miss, as in the
+    # reference; test_rmsnorm_dispatch_... serves one
+    norm_rows = [row for row in ctx.stats_by_key().values()
+                 if row["site"] == "rmsnorm"]
+    assert [row["reasons"] for row in norm_rows] == [
+        {"unknown_key": 2 * cfg.n_layers + 1}
+    ]
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-4, atol=1e-4)
 
 
@@ -166,8 +190,10 @@ def test_a_lowering_bug_propagates_and_is_no_miss(tuned, monkeypatch):
 
 
 def test_a_record_for_a_workload_of_a_later_slice_raises():
+    """An sfm record lowers to K4 now (its plain version on the CPU)."""
     from repro_torch.core.modules import SpaceGenerator, default_modules
     from repro_torch.core.workloads import get_workload
+    from repro_torch.kernels import ref as kref
     from repro_torch.search.database import workload_key
 
     func = get_workload("sfm", m=16, n=16)
@@ -176,7 +202,67 @@ def test_a_record_for_a_workload_of_a_later_slice_raises():
     db = Database()
     db.put(TuningRecord(key, tr.to_json(), 1e-5))
     ctx = DispatchContext(db)
-    if ctx._schedule_for(key, func)[0] is None:
-        pytest.skip("seed 0 samples an invalid sfm trace")
-    with pytest.raises(NotImplementedError):
-        ctx.kernel(key)
+    assert ctx._schedule_for(key, func)[0] is not None
+    kern = ctx.kernel(key)
+    assert kern.meta["pallas_kernel"] == "row_softmax"
+    assert "lowered_with" not in kern.meta
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((16, 16),
+                                                                  dtype=np.float32))
+    torch.testing.assert_close(kern.fn({"A": x})["Y"], kref.row_softmax(x))
+
+
+def test_rmsnorm_dispatch_matches_the_reference_forward_and_gradient():
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.modules import SpaceGenerator, default_modules
+    from repro.core.workloads import get_workload as jget
+    from repro.integration.dispatch import DispatchContext as JDispatch
+    from repro.models import transformer as JT
+    from repro.search.database import Database as JDatabase
+    from repro.search.database import TuningRecord as JRecord
+    from repro_torch.core.workloads import get_workload as tget
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.search.database import workload_key
+
+    jc, tc = jcfg("smollm-135m", smoke=True), tcfg("smollm-135m", smoke=True)
+    S = 16
+    kw = dict(tokens=S, d=jc.d_model, eps=jc.norm_eps)
+    key = workload_key("rmsnorm", **kw)
+    tr = SpaceGenerator(default_modules()).generate(jget("rmsnorm", **kw), seed=2).trace
+    jdb, tdb = JDatabase(), Database()
+    jdb.put(JRecord(key, tr.to_json(), 1e-5))
+    tdb.put(TuningRecord(key, tr.to_json(), 1e-5))
+    jtask = type("T", (), dict(key=key, func=jget("rmsnorm", **kw)))
+    ttask = type("T", (), dict(key=key, func=tget("rmsnorm", **kw)))
+
+    jparams = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32), JT.init_params(jc, jax.random.PRNGKey(0))
+    )
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
+    r = np.random.default_rng(1)
+    toks = r.integers(0, jc.vocab, (1, S)).astype(np.int32)
+    proj = r.standard_normal((1, S, jc.vocab)).astype(np.float32)
+
+    def jloss(p):
+        with JDispatch(jdb, tasks=[jtask], backend="jnp"):
+            logits = JT.forward(jc, p, tokens=jnp.asarray(toks))
+        return (logits * proj).sum(), logits
+
+    (_, jlogits), jgrad = jax.value_and_grad(jloss, has_aux=True)(jparams)
+
+    ln = [tparams["final_ln"], tparams["layers"]["ln1"], tparams["layers"]["ln2"]]
+    for t in ln:
+        t.requires_grad_(True)
+    with DispatchContext(tdb, tasks=[ttask]) as ctx:
+        logits = TT.forward(tc, tparams, torch.from_numpy(toks).long())
+    (logits * torch.from_numpy(proj)).sum().backward()
+    assert ctx.hits_by_key[key] == 2 * tc.n_layers + 1
+    assert ctx.kernel(key).meta == {"backend": "cuda", "lowered_with": "torch-fallback"}
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-4)
+    want = [jgrad["final_ln"], jgrad["layers"]["ln1"], jgrad["layers"]["ln2"]]
+    for t, g in zip(ln, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4,
+                                   atol=1e-4)

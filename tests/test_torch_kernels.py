@@ -1,4 +1,4 @@
-"""The port's kernels K1-K3 against the JAX package's, on the CPU.
+"""The port's kernels K1-K4 against the JAX package's, on the CPU.
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against ``repro.kernels.ref`` and against the Pallas kernels in interpret
@@ -18,9 +18,12 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.matmul import batch_matmul as pallas_bmm
 from repro.kernels.matmul import matmul as pallas_matmul
+from repro.kernels.softmax import row_softmax as pallas_softmax
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import ScheduleRejected
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import softmax as sm
 
 RTOL = ATOL = 2e-4
 
@@ -166,3 +169,43 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         LocalRunner(device="cuda")
 
+
+
+# K4: the row softmax of the sfm task.  f32: the same max/exp/sum/divide,
+# values in [0, 1], atol 1e-6; bf16: both round the f32 result to bf16 once,
+# so they may differ by one bf16 ulp at the value (at most 2^-7 relative).
+@pytest.mark.parametrize("M,N,bm", [(48, 32, 16), (72, 40, 36), (96, 64, 96),
+                                    (2304, 256, 144)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_softmax_plain_matches_pallas(M, N, bm, dtype):
+    import jax.numpy as jnp
+
+    x = (_rng(M).standard_normal((M, N)) * 4).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    want = np.asarray(pallas_softmax(jx, block_rows=bm, interpret=True)
+                      .astype(jnp.float32))
+    tx = _t(x).to(getattr(torch, dtype))
+    launches = sm.row_softmax.launches
+    got = sm.row_softmax(tx, block_rows=bm)
+    assert sm.row_softmax.launches == launches  # CPU tensor: plain version
+    assert got.dtype == tx.dtype and tuple(got.shape) == (M, N)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2**-7, atol=1e-6)
+    np.testing.assert_allclose(tref.row_softmax(tx).float().numpy(), got)
+
+
+def test_row_softmax_launch_config_follows_the_row_block():
+    cfg = sm.launch_config(2304, 256, 72)
+    assert cfg == {"blocks": (72,), "grid": (32,), "threads": 256,
+                   "smem_bytes": 72 * 256 * 4}
+    assert sm.launch_config(2304, 256, 4)["threads"] == 128
+
+
+@pytest.mark.parametrize("bm,reason", [(288, "shared_memory"), (100, "divide")])
+def test_row_softmax_launch_config_rejects_what_the_card_cannot_run(bm, reason):
+    with pytest.raises(ScheduleRejected) as e:
+        sm.launch_config(2304, 256, bm)
+    assert e.value.reason == reason

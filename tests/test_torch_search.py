@@ -67,6 +67,68 @@ def test_tune_workload_on_cpu_finishes_with_a_finite_best():
     assert r.trials > 0
 
 
+def test_tune_workload_gmm_64_cubed_on_cpu_goes_through_the_structural_lowering():
+    """ROADMAP's M3 acceptance run: a paper operator with no kernel tunes on
+    the ``cuda`` backend through the structural fallback."""
+    db = TDatabase()
+    r = repro_torch.tune_workload(
+        "gmm", dict(n=64, m=64, k=64), database=db, device="cpu",
+        config=repro_torch.TuneConfig(
+            search=SearchConfig(max_trials=4, init_random=4, population=4,
+                                measure_per_round=4),
+            runner_spec="cached+local", warm_start=False,
+        ),
+    )
+    assert r.workload_key == "gmm/k=64/m=64/n=64"
+    assert math.isfinite(r.best_latency_s) and math.isfinite(r.baseline_latency_s)
+    assert db.best(r.workload_key).meta["lowered_with"] == "torch-fallback"
+
+
+@pytest.mark.parametrize("name,kw,kernel", [
+    ("rmsnorm", dict(tokens=16, d=32), None),
+    ("sfm", dict(m=32, n=32), "row_softmax"),
+])
+def test_rmsnorm_and_sfm_records_load_in_both_packages(name, kw, kernel, tmp_path):
+    from repro.core.validator import validate_trace
+    from repro_torch.backends.torch_backend import build_oracle
+    from repro_torch.core.tir import random_inputs
+
+    # the port's records in the reference
+    path = str(tmp_path / "port_db.json")
+    db = TDatabase(path)
+    repro_torch.tune_workload(
+        name, kw, database=db, device="cpu",
+        config=repro_torch.TuneConfig(search=SMALL, runner_spec="cached+local",
+                                      warm_start=False),
+    )
+    db.save()
+    key = workload_key(name, **kw)
+    ref = JDatabase(path)
+    rb = ref.best(key)
+    assert rb.trace_json == db.best(key).trace_json
+    assert rb.meta.get("pallas_kernel") == kernel
+    assert kernel or rb.meta["lowered_with"] == "torch-fallback"
+    assert validate_trace(jget(name, **kw), rb.trace()).ok
+    # the reference's records in the port
+    path = str(tmp_path / "ref_db.json")
+    jdb = JDatabase(path)
+    jfunc = jget(name, **kw)
+    for seed, lat in ((0, 3e-5), (1, 2e-5)):
+        tr = JSpace(jmodules()).generate(jfunc, seed=seed).trace
+        jdb.put(JRecord(key, tr.to_json(), lat, meta={"backend": "jnp"}))
+    jdb.save()
+    tdb = TDatabase(path)
+    assert tdb.best(key).latency_s == 2e-5
+    _, lowered = repro_torch.apply_best(name, tdb, kw)
+    import torch
+
+    ins = {k: torch.from_numpy(v) for k, v in random_inputs(tget(name, **kw), 0).items()}
+    out, want = lowered.fn(ins), build_oracle(tget(name, **kw))(ins)
+    for k in want:
+        np.testing.assert_allclose(out[k].numpy(), want[k].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_port_database_loads_in_the_reference(tmp_path):
     path = str(tmp_path / "port_db.json")
     db = TDatabase(path)
@@ -135,10 +197,19 @@ def test_schedule_rejection_is_inf_and_other_failures_propagate(monkeypatch):
         res = runner.run([MeasureInput("k", func, sch.trace, sch)])[0]
     assert not res.ok and "shared memory" in res.error
     assert res.error.startswith("rejected (shared_memory): ")
+    # a workload without a kernel is measured through the structural lowering
     gmm = tget("gmm", n=16, m=16, k=16)
     gs = Schedule(gmm, seed=None)
-    with pytest.raises(NotImplementedError):
-        runner.run([MeasureInput("g", gmm, gs.trace, gs)])
+    res = runner.run([MeasureInput("g", gmm, gs.trace, gs)])[0]
+    assert res.ok and math.isfinite(res.latency_s)
+    assert res.meta == {"backend": "cuda", "lowered_with": "torch-fallback"}
+    # ... and a failure inside it propagates like any other
+    from repro_torch.backends import torch_backend as tb
+
+    with monkeypatch.context() as mp:
+        mp.setattr(tb, "build", lambda s: 1 / 0)
+        with pytest.raises(ZeroDivisionError):
+            runner.run([MeasureInput("g", gmm, gs.trace, gs)])
 
 
 @pytest.mark.parametrize("reason,blocks", [
