@@ -17,6 +17,11 @@ Phases, in order; a failing phase makes the run exit non-zero:
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window;
+3c. K7, the chunked SSD scan, against its plain version on the card, in
+   float32 and with bfloat16 x/B/C, with and without the final state, at
+   mamba2-370m's and hymba-1.5b's forward shapes, at a 48-token chunk and
+   with a decay whose exp overflows above the diagonal; a chunk that does
+   not divide S and one too large for shared memory must be rejected;
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -35,13 +40,26 @@ Phases, in order; a failing phase makes the run exit non-zero:
    of the paper's 12 operators at their reduced shapes and for ``sfm`` at
    256x256 (13 runs, small budget): sfm through K4, the others through the
    structural lowering;
-6. each kernel's time at its main-path shapes with the tuned tiles, beside
-   its plain version, the one PyTorch call that computes the same function
-   (where there is one), and the least time the card could take.
+6. each kernel's time at its smollm main-path shapes with the tuned tiles
+   (K7's at mamba2's forward shape is phase 3c's), beside its plain
+   version, the one PyTorch call that computes the same function (where
+   there is one), and the least time the card could take;
+9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
+   seq 256), tune them the same way, then the full-width 48-layer bf16
+   forward under ``DispatchContext`` (49 rmsnorm hits, the unembed, K7 at
+   every layer), then held against the same forward with no context whose
+   scan runs the plain version, both on the parameters cast to f32 (in
+   bf16 the random 48-layer model amplifies one-ulp differences; the bf16
+   difference is reported);
+10. the mamba2-370m serving path: extract its decode tasks (4 slots,
+   max_seq 256: the slot arena, whole-prompt prefill), tune them, serve 8
+   requests through ``ContinuousBatchingScheduler`` under the tuned context
+   (K7 in every admitted prompt's prefill), then with no context.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the three paths (forward: phases 4-5; serving: phase 7; operators:
-phase 8) and read just after it.  TF32 is off for float32 matmuls in
+each of the five paths (forward: phases 4-5; serving: phase 7; operators:
+phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10) and read just
+after it.  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -76,6 +94,11 @@ TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
 TOL_LOGITS_REL = 5e-2  # bf16 plain forward vs f32 kernels cast to bf16
 TOL_SOFTMAX_F32 = 1e-5  # f32 softmax values lie in [0, 1]
 TOL_SOFTMAX_BF16 = 8e-3  # two bf16 ulps at 1
+# K7 against its plain version, relative to the output's largest magnitude:
+# f32 sums of N + L terms in another order; with bf16 x/B/C both round y
+# to bf16 once (one ulp is 2^-8 of |y|); the f32 state like f32 y
+TOL_SSD_F32 = 1e-5
+TOL_SSD_BF16 = 8e-3
 
 # the same dispatched forward and decode-only tick measured before rmsnorm
 # was dispatched (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
@@ -89,6 +112,12 @@ SERVE_PAGE = 16
 SERVE_CHUNK = 32
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
+
+# the mamba2-370m paths (phases 9 and 10): the slot arena, whole prompts
+SSM_ARCH = "mamba2-370m"
+SSM_CHUNK = 64
+SSM_FORWARD_TASKS = 14
+SSM_DECODE_TASKS = 7
 
 
 def fail(msg: str) -> None:
@@ -385,12 +414,105 @@ def phase_decode_kernels(gen, errs: dict) -> None:
                ref.paged_decode_attention(q, kp, vp, table, bias, softcap=cap))
 
 
+def ssd_work(b, S, H, P, N, L, state_out: bool = False):
+    """(flops, bytes) of one K7 call: per (batch, head) and chunk, C·Bᵀ and
+    scores·x over the L(L+1)/2 pairs the causal mask keeps, C·h and the
+    state update's Bᵀx over all L rows; x, log_a, B and C read once, y
+    written once (and the f32 state, when asked for).  Inputs in bf16."""
+    pairs = L * (L + 1) // 2
+    per_chunk = 2 * pairs * N + 2 * pairs * P + 4 * L * N * P
+    flops = b * H * (S // L) * per_chunk
+    nbytes = 2 * (2 * b * S * H * P + 2 * b * S * N) + 4 * b * S * H
+    if state_out:
+        nbytes += 4 * b * H * N * P
+    return flops, nbytes
+
+
+def phase_ssd_kernel(gen, errs: dict) -> dict:
+    """Phase 3c: K7 against its plain version; returns its timing row at
+    mamba2-370m's forward shape (bf16 x/B/C, chunk 64, no state out)."""
+    import torch
+
+    from repro_torch.kernels import ScheduleRejected
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_k
+
+    errs["ssd"] = 0.0
+
+    def inputs(b, S, H, P, N, decay=0.3):
+        x = torch.randn(b, S, H, P, generator=gen, device="cuda")
+        la = -torch.rand(b, S, H, generator=gen, device="cuda") * decay
+        B = torch.randn(b, S, N, generator=gen, device="cuda") * 0.3
+        C = torch.randn(b, S, N, generator=gen, device="cuda") * 0.3
+        return x, la, B, C
+
+    cases = (
+        ("mamba2-370m forward", (1, 256, 32, 64, 128), 0.3),
+        ("hymba-1.5b forward", (1, 256, 25, 64, 16), 0.3),
+        ("48-token prompt", (1, 48, 32, 64, 128), 0.3),
+        ("decay 20/step: exp overflows above the diagonal", (1, 256, 32, 64, 128), 20.0),
+    )
+    for label, (b, S, H, P, N), decay in cases:
+        x, la, B, C = inputs(b, S, H, P, N, decay)
+        L = min(SSM_CHUNK, S)
+        for dtype, tol in ((torch.float32, TOL_SSD_F32), (torch.bfloat16, TOL_SSD_BF16)):
+            xx, BB, CC = x.to(dtype), B.to(dtype), C.to(dtype)
+            want, want_h = ref.ssd_chunked(xx, la, BB, CC, chunk=L, return_state=True)
+            got = ssd_k.ssd(xx, la, BB, CC, chunk=SSM_CHUNK)
+            got2, h = ssd_k.ssd(xx, la, BB, CC, chunk=SSM_CHUNK, return_state=True)
+            torch.cuda.synchronize()
+            if ssd_k.ssd.last_launch["blocks"] != (L,):
+                fail(f"ssd launched {ssd_k.ssd.last_launch}, want chunk {L}")
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            rel_h = float((h - want_h).abs().max() / want_h.abs().max())
+            errs["ssd"] = max(errs["ssd"], err)
+            print(f"[ssd] {label} ({b},{S},{H},{P}) N {N} chunk {L} {str(dtype)[6:]}: "
+                  f"max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol:g}); state rel "
+                  f"{rel_h:.3e} (tol {TOL_SSD_F32:g})")
+            finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(h).all())
+            if not finite or rel > tol or rel_h > TOL_SSD_F32 or not torch.equal(got, got2):
+                fail(f"ssd {label} {dtype}: rel err {rel}, state {rel_h}, finite {finite}")
+    for S, N, chunk, reason in ((80, 128, 64, "divide"), (256, 128, 256, "shared_memory")):
+        x, la, B, C = inputs(1, S, 32, 64, N)
+        try:
+            ssd_k.ssd(x, la, B, C, chunk=chunk)
+        except ScheduleRejected as e:
+            print(f"[ssd] chunk {chunk} at S={S}, N={N}: rejected ({e.reason})")
+            if e.reason != reason:
+                fail(f"ssd chunk {chunk} at S={S} rejected for {e.reason}, not {reason}")
+        else:
+            fail(f"ssd chunk {chunk} at S={S}, N={N} was not rejected")
+
+    # the main path's shape: mamba2-370m's forward, bf16 x/B/C, chunk 64
+    b, S, H, P, N = 1, 256, 32, 64, 128
+    x, la, B, C = inputs(b, S, H, P, N)
+    x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+
+    def launch():
+        return ssd_k.ssd(x, la, B, C, chunk=SSM_CHUNK)
+
+    k_ms = median_ms(launch)
+    d_ms = device_ms(launch)
+    p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK))
+    flops, nbytes = ssd_work(b, S, H, P, N, SSM_CHUNK)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"[time] ssd ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} bf16: kernel "
+          f"{k_ms:.4f} ms (device {d_ms} ms) plain {p_ms:.4f} ms library - (no single "
+          f"PyTorch call computes the SSD scan) bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(kernel="ssd", blocks=[SSM_CHUNK], ms=k_ms, device_ms=d_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                flops=flops, weight=0)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the forward path
 # ---------------------------------------------------------------------------
 
 FORWARD_KERNELS = ("matmul", "batch_matmul", "flash_attention", "row_softmax")
-KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_attention")
+KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_attention",
+                             "ssd")
 # workloads of the path with no hand-written kernel: the structural lowering
 STRUCTURAL_OPS = ("rmsnorm",)
 
@@ -399,12 +521,14 @@ def _wrappers():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import softmax as sm
+    from repro_torch.kernels import ssd as ssd_k
 
     return {"matmul": mm.matmul, "batch_matmul": mm.batch_matmul,
             "flash_attention": fa.flash_attention,
             "row_softmax": sm.row_softmax,
             "decode_flash_attention": fa.decode_flash_attention,
-            "paged_decode_flash_attention": fa.paged_decode_flash_attention}
+            "paged_decode_flash_attention": fa.paged_decode_flash_attention,
+            "ssd": ssd_k.ssd}
 
 
 def reset_counts() -> None:
@@ -1049,6 +1173,243 @@ def phase_serve(cfg, db, gen_seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phases 9-10: the mamba2-370m paths
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def dispatch_reasons(by_key) -> Counter:
+    return Counter({r: n for row in by_key.values() for r, n in row["reasons"].items()})
+
+
+def phase_ssm_forward(cfg, db, gen_seed: int = 0):
+    """Phase 9: the reference's forward tasks of mamba2-370m tuned, then the
+    full-width forward under the tuned context against the plain one."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as T
+    from repro_torch.search.database import workload_key
+
+    def extract():
+        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
+        if len(tasks) != SSM_FORWARD_TASKS:
+            fail(f"{cfg.name} forward extraction gave {len(tasks)} tasks, want "
+                 f"the reference's {SSM_FORWARD_TASKS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="ssm-tune")
+    tune_counts = read_counts()
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed + 1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
+
+    def timed(fn, n=3):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return out, sorted(ts)[len(ts) // 2] * 1e3
+
+    with torch.no_grad():
+        def plain_fwd(p):
+            return T.forward(cfg, p, toks, ssd_backend="torch")
+
+        plain_fwd(params)  # warm the plain path
+        plain, plain_ms = timed(lambda: plain_fwd(params))
+        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        counts0 = read_counts()
+        with ctx:
+            tuned = T.forward(cfg, params, toks)
+        torch.cuda.synchronize()
+        fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+        stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
+        with ctx:
+            _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+
+        def traced_fwd():
+            with timing_ctx:
+                T.forward(cfg, params, toks)
+
+        profiles = dict(dispatched=profile_device(traced_fwd),
+                        plain=profile_device(lambda: plain_fwd(params)))
+        # the numerical check, after the path's counts are read: in bf16 a
+        # one-ulp difference in the scan's output grows through 48 layers of
+        # random weights to tens of percent of the logits (PERF.md, section 6),
+        # so the kernels are held against the plain path on the same
+        # parameters in f32, where the kernels' own error is ~1e-7
+        params32 = _tree_map(lambda t: t.float(), params)
+        plain32 = plain_fwd(params32)
+        with repro_torch.DispatchContext(db, tasks=tasks, backend="cuda"):
+            tuned32 = T.forward(cfg, params32, toks)
+        del params32
+    bf16_rel = float((tuned.float() - plain.float()).abs().max() / plain.float().abs().max())
+    # the yardstick for the line above: how far bf16 rounding alone moves
+    # the plain forward from the same forward in f32
+    bf16_floor = float((plain.float() - plain32).abs().max() / plain32.abs().max())
+    diff = (tuned32 - plain32).abs()
+    max_abs = float(diff.max())
+    rel = max_abs / float(plain32.abs().max())
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps, tokens=BATCH * SEQ)
+    unembed_key = workload_key("dense", k=cfg.d_model, m=BATCH * SEQ, n=cfg.vocab)
+    norm_hits = by_key.get(norm_key, {}).get("hits", 0)
+    unembed_hits = by_key.get(unembed_key, {}).get("hits", 0)
+    reasons = dispatch_reasons(by_key)
+    print(f"[ssm-forward] logits {tuple(tuned.shape)} {tuned.dtype}: max_rel_err "
+          f"{bf16_rel:.4e} against the plain bf16 forward (reported, not gated; the "
+          f"plain bf16 forward is {bf16_floor:.4e} from the plain f32 one); "
+          f"in f32 max_abs_err {max_abs:.4e} max_rel_err {rel:.4e} (tol "
+          f"{TOL_LOGITS_REL:g}; the plain forward's scan is the plain version)")
+    print(f"[ssm-forward] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms "
+          f"(median of 3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers)")
+    for key, row in by_key.items():
+        print(f"[ssm-forward]   {key}: hits {row['hits']} misses {row['misses']} "
+              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[ssm-forward] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[ssm-forward] profile of one {label} forward: {prof['events']} device "
+              f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+              f"span, idle share {prof['idle_share']:.3f}")
+        for name, ms in prof["top_ms"].items():
+            print(f"[ssm-forward]   {ms:8.3f} ms  {name}")
+    print(f"[ssm-forward] {norm_key}: {norm_hits} hits, {unembed_key}: {unembed_hits} "
+          f"hits; kernel launches in one dispatched forward: {fwd_counts}")
+    if not torch.isfinite(tuned.float()).all() or tuned.shape != (BATCH, SEQ, cfg.vocab):
+        fail(f"{cfg.name} dispatched logits not finite or of shape {tuple(tuned.shape)}")
+    if rel > TOL_LOGITS_REL:
+        fail(f"{cfg.name} logits rel err {rel} > {TOL_LOGITS_REL}")
+    if norm_hits != cfg.n_layers + 1 or unembed_hits != 1:
+        fail(f"{cfg.name} forward: {norm_hits} rmsnorm and {unembed_hits} unembed "
+             f"hits; want {cfg.n_layers + 1} and 1")
+    if reasons.get("lowering_failed"):
+        fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
+    if fwd_counts["ssd"] != cfg.n_layers:
+        fail(f"{cfg.name} forward launched ssd {fwd_counts['ssd']} times, want "
+             f"{cfg.n_layers}")
+    res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
+               plain_bf16_vs_f32_rel=bf16_floor,
+               plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
+               rmsnorm_hits=norm_hits,
+               unembed_hits=unembed_hits, reasons=dict(reasons), profiles=profiles,
+               launches=fwd_counts, tasks=len(tasks))
+    return tasks, best, res, tune_counts, fwd_counts
+
+
+def phase_ssm_serve(cfg, db, gen_seed: int = 0):
+    """Phase 10: mamba2-370m's decode tasks tuned, then 8 requests served on
+    the slot arena under the tuned context and with no context."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as T
+    from repro_torch.search.database import workload_key
+    from repro_torch.serving import ContinuousBatchingScheduler, KVArena, ServeConfig
+
+    def extract():
+        tasks = repro_torch.extract_decode_tasks(cfg, batch=SERVE_SLOTS,
+                                                 max_seq=SERVE_MAX_SEQ)
+        if len(tasks) != SSM_DECODE_TASKS:
+            fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want "
+                 f"the reference's {SSM_DECODE_TASKS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="ssm-serve-tune")
+    tune_counts = read_counts()
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    rng = np.random.default_rng(0)
+    # prompt lengths the reference can prefill: one chunk of at most 64
+    # tokens, or whole chunks of 64
+    lens = rng.integers(16, 65, SERVE_REQUESTS - 1).tolist() + [128]
+    rng.shuffle(lens)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
+    print(f"[ssm-serve] {SERVE_REQUESTS} requests, prompt lengths {lens}, "
+          f"{SERVE_NEW_TOKENS} new tokens each, greedy")
+
+    def serve(dispatch):
+        sched = ContinuousBatchingScheduler(cfg, params, config=ServeConfig(
+            max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, dispatch=dispatch))
+        if not isinstance(sched.arena, KVArena) or sched.config.prefill_chunk:
+            fail(f"{cfg.name} is not served on the slot arena with whole prompts")
+        reqs = [sched.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        return sched, reqs, time.perf_counter() - t0
+
+    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    counts0 = read_counts()
+    sched, reqs, wall = serve(ctx)
+    serve_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    stats, by_key = dict(ctx.stats), ctx.stats_by_key()
+    plain_sched, plain_reqs, plain_wall = serve(None)
+    done = sum(r.done and len(r.generated) == SERVE_NEW_TOKENS for r in reqs)
+    agree = total = 0
+    for r, pr in zip(reqs, plain_reqs):
+        for a, b in zip(r.generated, pr.generated):
+            agree, total = agree + (a == b), total + 1
+    ttft = [r.ttft_s for r in reqs]
+    plain_ttft = [r.ttft_s for r in plain_reqs]
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps, tokens=SERVE_SLOTS)
+    norm_hits = by_key.get(norm_key, {}).get("hits", 0)
+    reasons = dispatch_reasons(by_key)
+    s = sched.stats
+    res = dict(
+        requests=len(reqs), completed=done, prompt_lens=lens, wall_s=wall,
+        plain_wall_s=plain_wall, decode_steps=s["decode_steps"],
+        decode_tok_s=sched.decode_tok_s, prefill_tok_s=sched.prefill_tok_s,
+        plain_decode_tok_s=plain_sched.decode_tok_s,
+        plain_prefill_tok_s=plain_sched.prefill_tok_s,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p95_s=float(np.percentile(ttft, 95)),
+        plain_ttft_p50_s=float(np.percentile(plain_ttft, 50)),
+        plain_ttft_p95_s=float(np.percentile(plain_ttft, 95)),
+        greedy_equal=agree, greedy_total=total, rmsnorm_hits=norm_hits,
+        stats=stats, launches=serve_counts,
+    )
+    print(f"[ssm-serve] completed {done}/{len(reqs)} requests in {wall:.2f} s "
+          f"({s['decode_steps']} decode ticks on the slot arena)")
+    print(f"[ssm-serve] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
+          f"{sched.prefill_tok_s:.1f} tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms "
+          f"p95 {res['ttft_p95_s'] * 1e3:.1f} ms")
+    print(f"[ssm-serve] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
+          f"{plain_sched.prefill_tok_s:.1f} tok/s, TTFT p50 "
+          f"{res['plain_ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{res['plain_ttft_p95_s'] * 1e3:.1f} ms, wall {plain_wall:.2f} s")
+    for key, row in by_key.items():
+        print(f"[ssm-serve]   {key}: hits {row['hits']} misses {row['misses']} "
+              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
+    print(f"[ssm-serve] greedy tokens equal to the plain run: {agree}/{total} "
+          "(reported, not gated: bf16 plain vs f32 kernels)")
+    print(f"[ssm-serve] kernel launches while serving: {serve_counts} (ssd: "
+          f"{cfg.n_layers} a prefill x {len(reqs)} requests = "
+          f"{cfg.n_layers * len(reqs)} expected)")
+    if done != len(reqs):
+        fail(f"{cfg.name}: {done} of {len(reqs)} requests finished with "
+             f"{SERVE_NEW_TOKENS} tokens")
+    if serve_counts["ssd"] != cfg.n_layers * len(reqs):
+        fail(f"{cfg.name} serving launched ssd {serve_counts['ssd']} times")
+    if serve_counts["matmul"] <= 0 or norm_hits <= 0:
+        fail(f"{cfg.name} serving: matmul launches {serve_counts['matmul']}, "
+             f"{norm_hits} rmsnorm hits")
+    if reasons.get("lowering_failed"):
+        fail(f"{cfg.name} serving: {reasons['lowering_failed']} lowering_failed misses")
+    return tasks, best, res, tune_counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the operator path
 # ---------------------------------------------------------------------------
 
@@ -1136,7 +1497,8 @@ def main(argv=None) -> int:
     errs = phase_kernels(gen)
 
     phase_decode_kernels(gen, errs)
-    clock("phases 2-3b")
+    ssd_row = phase_ssd_kernel(gen, errs)
+    clock("phases 2-3c")
 
     cfg = get_config("smollm-135m")
     db = Database()
@@ -1165,19 +1527,41 @@ def main(argv=None) -> int:
     print(f"[operators] kernel launches: {op_counts}")
     if op_counts["row_softmax"] <= 0:
         fail("row_softmax was not launched on the operator path")
+    # phase 6 for the smollm paths, before the mamba2 ones
+    rows = phase_timings(tasks, runs, gen, cfg.vocab)
+    rows.update(phase_timings(serve_tasks, runs, gen, cfg.vocab))
+    rows["paged_decode"] = paged_timing(gen, SERVE_MAX_SEQ, SERVE_PAGE)
+    rows["ssd"] = ssd_row
+    structural = structural_timings(tasks, db)
+    structural.update(structural_timings(serve_tasks, serve_db))
+    clock("phase 6")
+
+    ssm_cfg = get_config(SSM_ARCH)
+    ssm_db = Database()
+    reset_counts()  # the mamba2 forward path starts here
+    ssm_tasks, ssm_best, ssm_fwd, ssm_tune_counts, ssm_fwd_counts = phase_ssm_forward(
+        ssm_cfg, ssm_db)
+    check_tiles(ssm_tasks, ssm_db)
+    clock("phase 9")
+
+    ssm_serve_db = Database()
+    reset_counts()  # the mamba2 serving path starts here
+    ssm_serve_tasks, ssm_serve_best, ssm_serve, ssm_serve_tune_counts = phase_ssm_serve(
+        ssm_cfg, ssm_serve_db)
+    check_tiles(ssm_serve_tasks, ssm_serve_db)
+    clock("phase 10")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
         "operators": op_counts,
+        "mamba2_forward": {k: ssm_tune_counts[k] + ssm_fwd_counts[k] for k in KERNELS},
+        "mamba2_serving": {k: ssm_serve_tune_counts[k] + ssm_serve["launches"][k]
+                           for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
 
-    rows = phase_timings(tasks, runs, gen, cfg.vocab)
-    rows.update(phase_timings(serve_tasks, runs, gen, cfg.vocab))
-    rows["paged_decode"] = paged_timing(gen, SERVE_MAX_SEQ, SERVE_PAGE)
-    structural = structural_timings(tasks, db)
-    structural.update(structural_timings(serve_tasks, serve_db))
     sources = {
         "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:46"),
@@ -1193,6 +1577,7 @@ def main(argv=None) -> int:
             "src/repro/kernels/flash_attention.py:337"),
         "row_softmax": ("src/repro_torch/kernels/csrc/softmax.cu",
                         "src/repro/kernels/softmax.py:26"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:60"),
     }
     entries = []
     for k in KERNELS:
@@ -1220,7 +1605,9 @@ def main(argv=None) -> int:
                            forward=fwd, tune_best=best,
                            tune_launches=tune_counts, serve=serve,
                            serve_tune_best=serve_best, operators=operators,
-                           structural=structural,
+                           structural=structural, ssm_forward=ssm_fwd,
+                           ssm_tune_best=ssm_best, ssm_serve=ssm_serve,
+                           ssm_serve_tune_best=ssm_serve_best,
                            launches_by_path=paths), f, indent=1)
     print(card)
     print(json.dumps({"kernels": entries}))

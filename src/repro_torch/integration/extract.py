@@ -20,7 +20,13 @@ to it, mapped to registered tensor-program workloads:
 * ``chunked_attention``'s plain path -> ``sfm`` (row softmax) over the
   scores of one kv chunk, once per chunk step, where the reference finds
   the ``exp`` of its online softmax.  Not dispatchable: the site is a
-  tuning target only, as in the reference.
+  tuning target only, as in the reference;
+* the Mamba-2 SSD mixer's plain einsums and exps (its projections, its
+  chunked scan, its decode recurrence), which the reference writes as
+  ``jnp.einsum`` and ``jnp.exp`` and whose jaxpr its walk reads: the
+  mixer reports each with its operand shapes, and :func:`einsum_sites` /
+  :func:`exp_site` derive the same ``dense`` / ``batch_matmul`` / ``sfm``
+  sites.
 
 Decode extraction (:func:`extract_decode_tasks`) records one
 ``decode_step`` in the continuous-batching arena layout and, for the paged
@@ -34,6 +40,8 @@ so the keys and weights equal the reference's.
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -127,6 +135,18 @@ class SiteRecorder:
     def add_site(self, op: str, dispatchable: bool = True, **kwargs: Any) -> None:
         self.op_sites.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=dispatchable))
 
+    def add_einsum(self, spec: str, *shapes) -> None:
+        """The sites of a plain ``einsum`` the reference writes as
+        ``jnp.einsum`` (see :func:`einsum_sites`)."""
+        self.op_sites.extend(einsum_sites(spec, *shapes))
+
+    def add_exp(self, shape) -> None:
+        """The ``sfm`` site of an elementwise ``exp`` the reference's jaxpr
+        walk finds (see :func:`exp_site`)."""
+        site = exp_site(shape)
+        if site is not None:
+            self.op_sites.append(site)
+
     def add(
         self, *, q_shape, kvh, kv_seq, causal, window, softcap, scale,
         q_offset, kind: str = "prefill",
@@ -156,6 +176,173 @@ class SiteRecorder:
         _REC_TLS.stack.pop()
 
 
+# ---------------------------------------------------------------------------
+# Sites of plain einsums and exps (the reference's jaxpr walk)
+# ---------------------------------------------------------------------------
+#
+# The reference finds a ``dot_general`` site for every pairwise contraction
+# ``jnp.einsum`` traces to and an ``sfm`` site for every ``exp`` over at
+# least two axes.  Where the reference computes with plain ``jnp.einsum``
+# (the SSD mixer and its chunked scan), the port reports the same sites
+# from the operand shapes: the contraction order opt_einsum's "optimal"
+# path picks for JAX (``optimize="auto"``, at most four operands), each
+# pair's operands in the order JAX's ``_einsum`` hands them to
+# ``lax.dot_general``, and the reference's rule for what a dot_general
+# site is.
+
+
+def _prod(xs: Iterable[int]) -> int:
+    out = 1
+    for x in xs:
+        out *= int(x)
+    return out
+
+
+def _optimal_path(terms: List[str], out: str, sizes: Dict[str, int]) -> List[Tuple[int, int]]:
+    """opt_einsum's ``optimal`` pairwise order (no memory limit), as a
+    linear path: the contraction of least flop count, ties to the first
+    found.  Like opt_einsum it caches each pair's result and cost by the
+    pair's index sets alone, whatever else remains to be contracted, so a
+    later step may reuse a cost computed for an earlier one; the order it
+    picks follows from that, and so does JAX's."""
+    inputs = tuple(frozenset(t) for t in terms)
+    output = frozenset(out)
+    best = {"flops": float("inf"), "path": ()}
+    cache: Dict[Tuple[frozenset, frozenset], Tuple[frozenset, int]] = {}
+
+    def walk(path, remaining, inputs, flops):
+        if len(remaining) == 1:
+            best["flops"], best["path"] = flops, path
+            return
+        for i, j in itertools.combinations(sorted(remaining), 2):
+            key = (inputs[i], inputs[j])
+            if key not in cache:
+                k1, k2 = key
+                keep = output.union(*(inputs[r] for r in remaining - {i, j}))
+                either = k1 | k2
+                inner = bool((k1 & k2) - keep)
+                cache[key] = (either & keep,
+                              _prod(sizes[c] for c in either) * (2 if inner else 1))
+            k12, cost = cache[key]
+            if flops + cost >= best["flops"]:
+                continue
+            walk(path + ((i, j),), remaining - {i, j} | {len(inputs)},
+                 inputs + (k12,), flops + cost)
+
+    walk((), set(range(len(inputs))), inputs, 0)
+    # static single assignment ids -> positions in the shrinking list
+    ids = list(range(len(terms)))
+    linear = []
+    ssa = len(terms)
+    for pair in best["path"]:
+        con = sorted(bisect.bisect_left(ids, s) for s in pair)
+        for j in reversed(con):
+            ids.pop(j)
+        ids.append(ssa)
+        ssa += 1
+        linear.append(tuple(con))
+    return linear
+
+
+def _dot_site(lhs, rhs, lc, rc, lb, rb) -> TaskSite:
+    """The reference's site of one ``dot_general`` (its
+    ``integration/extract.py:_dot_site``): ``batch_matmul`` when the batch
+    dims multiply past 1, else ``dense``; dispatchable in the layouts its
+    hooks serve."""
+    b = _prod(lhs[i] for i in lb)
+    k = _prod(lhs[i] for i in lc)
+    m = _prod(lhs[i] for i in range(len(lhs)) if i not in set(lb) | set(lc))
+    n = _prod(rhs[i] for i in range(len(rhs)) if i not in set(rb) | set(rc))
+    if b > 1:
+        r = len(lhs)
+        disp = (
+            len(rhs) == r
+            and tuple(lb) == tuple(range(r - 2))
+            and tuple(rb) == tuple(range(r - 2))
+            and tuple(lc) == (r - 1,)
+            and tuple(rc) == (r - 2,)
+        )
+        return TaskSite("batch_matmul", dict(b=b, m=m, n=n, k=k), 1.0,
+                        dispatchable=disp)
+    disp = (
+        len(rhs) == 2
+        and tuple(rc) in ((0,), (1,))
+        and tuple(lc) == tuple(range(len(lhs) - len(lc), len(lhs)))
+    )
+    return TaskSite("dense", dict(m=m, n=n, k=k), 1.0, dispatchable=disp)
+
+
+def _pair_site(lhs_names, lhs, rhs_names, rhs, contracted, result) -> TaskSite:
+    """The dot_general JAX's ``_einsum`` emits for one pair: indices
+    contracted on one side only summed out first, batch dims in result
+    order, and the operands swapped when that spares a transpose."""
+
+    def drop(names, shape, gone):
+        return ("".join(c for c in names if c not in gone),
+                tuple(s for c, s in zip(names, shape) if c not in gone))
+
+    contracted = sorted(contracted)
+    lhs_names, lhs = drop(lhs_names, lhs, {c for c in contracted if c not in rhs_names})
+    rhs_names, rhs = drop(rhs_names, rhs, {c for c in contracted if c not in lhs_names})
+    contracted = [c for c in contracted if c in lhs_names or c in rhs_names]
+    batch = [c for c in result if c in lhs_names and c in rhs_names]
+    lb = tuple(lhs_names.index(c) for c in batch)
+    rb = tuple(rhs_names.index(c) for c in batch)
+    lc = tuple(lhs_names.index(c) for c in contracted)
+    rc = tuple(rhs_names.index(c) for c in contracted)
+    gone = set(batch) | set(contracted)
+    rest_l = "".join(c for c in lhs_names if c not in gone)
+    rest_r = "".join(c for c in rhs_names if c not in gone)
+    if "".join(batch) + rest_r + rest_l == result:
+        return _dot_site(rhs, lhs, rc, lc, rb, lb)
+    return _dot_site(lhs, rhs, lc, rc, lb, rb)
+
+
+def einsum_sites(spec: str, *shapes) -> List[TaskSite]:
+    """The ``dense`` / ``batch_matmul`` sites the reference's jaxpr walk
+    finds in ``jnp.einsum(spec, *operands)`` with operands of ``shapes``."""
+    ins, out = spec.replace(" ", "").split("->")
+    names = ins.split(",")
+    if len(names) != len(shapes) or not 2 <= len(names) <= 4:
+        raise ValueError(f"einsum_sites: {spec!r} with {len(shapes)} operands")
+    sizes: Dict[str, int] = {}
+    for t, shape in zip(names, shapes):
+        if len(set(t)) != len(t):
+            raise ValueError(f"einsum_sites: repeated index in {t!r}")
+        for c, n in zip(t, shape):
+            if sizes.setdefault(c, int(n)) != int(n):
+                raise ValueError(f"einsum_sites: index {c!r} of sizes "
+                                 f"{sizes[c]} and {n} (no broadcasting)")
+    path = ([(0, 1)] if len(names) == 2
+            else _optimal_path(names, out, sizes))
+    ops = [(t, tuple(int(n) for n in s)) for t, s in zip(names, shapes)]
+    sites: List[TaskSite] = []
+    for step, pair in enumerate(path):
+        # the higher position first, as opt_einsum and JAX pop them
+        (lhs_names, lhs), (rhs_names, rhs) = [ops.pop(i) for i in sorted(pair, reverse=True)]
+        keep = set(out).union(*(set(t) for t, _ in ops))
+        either = set(lhs_names) | set(rhs_names)
+        removed = either - keep
+        if step == len(path) - 1:
+            result = out
+        else:
+            joined = lhs_names + rhs_names
+            result = "".join(sorted(either & keep, key=joined.find))
+        sites.append(_pair_site(lhs_names, lhs, rhs_names, rhs, removed, result))
+        ops.append((result, tuple(sizes[c] for c in result)))
+    return sites
+
+
+def exp_site(shape) -> Optional[TaskSite]:
+    """The reference's site of an elementwise ``exp``: a row softmax over
+    the last axis (``sfm``, not dispatchable) when it has at least two axes
+    and rows of at least two; a scalar or per-column exp is none."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) < 2 or shape[-1] < 2:
+        return None
+    return TaskSite("sfm", dict(m=_prod(shape[:-1]), n=shape[-1]), 1.0)
+
+
 def attention_sites(
     cfg: ModelConfig, recorded: List[Dict[str, Any]]
 ) -> List[TaskSite]:
@@ -165,14 +352,20 @@ def attention_sites(
     window ``w`` is the number of layers carrying that window, split
     across the records that share it (one record per layer here, so each
     carries weight 1 and dedup sums them).  Records the workload cannot
-    express — decode offsets, non-square kv, non-default scale — are
-    skipped: those sites keep the chunked path, whose contractions are
-    extracted as ``batch_matmul`` tasks anyway.
+    express — decode offsets, non-square kv, non-default scale, and every
+    call of a model whose window pattern is aperiodic (hymba), whose window
+    the reference traces through its layer scan — are skipped: those sites
+    keep the chunked path, whose contractions are extracted as
+    ``batch_matmul`` tasks anyway.
     """
-    from ..models.transformer import layer_windows
+    from ..models.transformer import layer_windows, window_period
 
     recorded = [r for r in recorded if r.get("kind", "prefill") == "prefill"]
     windows = layer_windows(cfg)
+    if window_period(windows) is None:
+        for _ in recorded:
+            _skip("attention", "traced_window")
+        return []
     rec_by_window: Dict[int, int] = {}
     for r in recorded:
         if r["causal"]:
@@ -238,11 +431,18 @@ def decode_attention_sites(
     layers differing only in window share one tuned kernel.  Each record
     sharing a shape carries ``n_layers / n_records`` layers (one record per
     layer here, so each weighs 1 and dedup sums them to the layer count,
-    as the reference's scan trip count does).
+    as the reference's scan trip count does).  A model whose window
+    pattern is aperiodic gives none: the reference traces its window.
     """
+    from ..models.transformer import layer_windows, window_period
+
+    traced = window_period(layer_windows(cfg)) is None
     kept: List[Dict[str, Any]] = []
     for r in recorded:
         if r.get("kind") != "decode":
+            continue
+        if traced:
+            _skip("attention_decode", "traced_window")
             continue
         B, H, S, D = r["q_shape"]
         if S != 1:

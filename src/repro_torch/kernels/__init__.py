@@ -2,10 +2,11 @@
 # the tunable-tile matmul and batched matmul (matmul.py, csrc/matmul.cu),
 # prefill flash attention (flash_attention.py, csrc/flash_attention.cu),
 # single-token decode attention, contiguous and paged (flash_attention.py,
-# csrc/decode_attention.cu), and the row softmax of the ``sfm`` task
-# (softmax.py, csrc/softmax.cu).
+# csrc/decode_attention.cu), the row softmax of the ``sfm`` task
+# (softmax.py, csrc/softmax.cu) and the Mamba-2 chunked SSD scan (ssd.py,
+# csrc/ssd.cu).
 # ref.py holds their plain PyTorch versions; _build.py compiles the sources
-# at first use.
+# at first use; ops.py is the models' entry to them.
 
 
 class ScheduleRejected(ValueError):

@@ -29,6 +29,7 @@ SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "decode_attention": CSRC / "decode_attention.cu",
     "softmax": CSRC / "softmax.cu",
+    "ssd": CSRC / "ssd.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -131,3 +131,83 @@ def paged_decode_attention(q, k_pool, v_pool, table, bias,
     k = k_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D)
     v = v_pool[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D)
     return decode_attention(q, k, v, bias, softcap=softcap, scale=scale)
+
+
+def ssd_scan(x, log_a, B, C):
+    """Mamba-2 SSD by its naive recurrence (the ground truth of
+    :func:`ssd_chunked`).
+
+    x: (batch, S, H, P) inputs, log_a: (batch, S, H) log decay,
+    B, C: (batch, S, N), shared across heads.  Returns y: (batch, S, H, P)
+    in x's dtype::
+
+        h_t = exp(log_a_t) * h_{t-1} + B_t ⊗ x_t       (h: (H, N, P), f32)
+        y_t = C_t · h_t
+    """
+    batch, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(log_a[:, t].float())[:, :, None, None]
+        h = a * h + Bf[:, t, None, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked(x, log_a, B, C, chunk: int = 16, return_state: bool = False):
+    """Chunked (state-space duality) SSD — the algorithm K7 implements,
+    mathematically equal to :func:`ssd_scan`.
+
+    Within a chunk of L steps the recurrence is a decay-masked quadratic
+    form, ``y_i = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) x_j`` with
+    ``cum = cumsum(log_a)``; across chunks an (N, P) f32 state per
+    (batch, head) carries ``h = exp(cum_L) h + Σ_j exp(cum_L - cum_j)
+    B_j x_jᵀ``, and ``y_i += exp(cum_i) C_i·h`` reads the state from
+    before the chunk.  x, B and C are computed in f32; y is returned in
+    x's dtype.  ``return_state=True`` also returns the final state
+    (batch, H, N, P) in f32, the prefill -> decode handoff.  ``chunk``
+    must divide S.
+    """
+    batch, S, H, P = x.shape
+    N = B.shape[-1]
+    if chunk < 1 or S % chunk:
+        raise ValueError(
+            f"ssd_chunked: chunk {chunk} must divide the sequence length {S}"
+        )
+    nc = S // chunk
+    xc = x.reshape(batch, nc, chunk, H, P).float()
+    lac = log_a.reshape(batch, nc, chunk, H)
+    Bc = B.reshape(batch, nc, chunk, N).float()
+    Cc = C.reshape(batch, nc, chunk, N).float()
+    cum = torch.cumsum(lac, dim=2)  # (b, nc, L, H)
+
+    # intra-chunk: the decay-masked quadratic form; exp is taken where the
+    # mask keeps it (cum_i - cum_j > 0 above the diagonal may overflow)
+    idx = torch.arange(chunk, device=x.device)
+    tri = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, L, L, H)
+    dec = torch.where(tri, torch.exp(diff), torch.zeros_like(diff))
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, dec, xc)
+
+    # each chunk's own contribution to the state at its end
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (b, nc, L, H)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, decay_to_end, xc)
+
+    # inter-chunk recurrence over the chunk index: the state before each
+    # chunk, and the final one
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, H)
+    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # (b, nc, H, N, P)
+
+    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum), h_prev)
+    y = (y_intra + y_inter).reshape(batch, S, H, P).to(x.dtype)
+    if return_state:
+        return y, h
+    return y

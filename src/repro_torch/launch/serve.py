@@ -4,7 +4,9 @@
         --requests 8 --prompt-len 32 --new-tokens 16 [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given; asking for the card
-without one raises.
+without one raises.  ``--arch mamba2-370m`` serves the state-space model
+(its SSD state in the cache; the prompt length must be at most 64 or a
+multiple of 64, the scan's chunk rule).
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 ``params_from_jax`` maps the reference's stacked-layer parameter tree, with
 numpy arrays at the leaves (``np.asarray`` of each JAX array), to the
-port's parameter dict under the same names.  numpy itself has no bf16, so a
+port's parameter dict under the same names, every subtree included (the
+SSD mixer's ``ssd``: its weight matrices bf16, ``wdt``, ``A_log`` and
+``dt_bias`` f32, as in the reference).  numpy itself has no bf16, so a
 bf16 leaf (whose dtype JAX registers with numpy as ``bfloat16``) goes
 through float32, which holds every bf16 value exactly, and back to
 ``torch.bfloat16``.  This module imports no JAX.

@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoder family, as plain functions on tensors.
+"""Building blocks of the decoder families, as plain functions on tensors.
 
 Parameters are nested dicts of tensors, under the JAX package's names and
 shapes (``models/convert.py`` carries the reference's parameters across).
@@ -8,7 +8,8 @@ The tuned-kernel hooks keep the reference's names — ``dense_op``,
 active :class:`~repro_torch.integration.dispatch.DispatchContext` (or the
 extraction recorder) through ``sys.modules`` under ``repro_torch.…``.
 Attention is the chunked online-softmax over kv blocks, whose score and
-value contractions go through :func:`bmm_op`.
+value contractions go through :func:`bmm_op`.  The Mamba-2 SSD mixer runs
+its chunked scan through ``kernels/ops.py:ssd`` (K7 on the card).
 """
 
 from __future__ import annotations
@@ -383,6 +384,155 @@ def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = actf(h)
     return dense_op(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD mixer
+# ---------------------------------------------------------------------------
+#
+# The reference writes the mixer's projections and its chunked scan as plain
+# ``jnp.einsum`` (no ``dense_op`` hook), so nothing here dispatches; its
+# jaxpr walk still extracts their contractions and exps as tuning tasks.
+# ``_einsum`` / ``_exp`` / ``_softplus`` report the same sites to the
+# extraction recorder from the operand shapes, and ``_record_ssd_scan``
+# those of the reference's ``ssd_chunked``, which its mixer runs.
+
+
+def _einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    rec = _site_recorder()
+    if rec is not None:
+        rec.add_einsum(spec, *(tuple(o.shape) for o in ops))
+    return torch.einsum(spec, *ops)
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    rec = _site_recorder()
+    if rec is not None:
+        rec.add_exp(tuple(x.shape))
+    return torch.exp(x)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``: one exp over x's shape)."""
+    rec = _site_recorder()
+    if rec is not None:
+        rec.add_exp(tuple(x.shape))
+    return F.softplus(x)
+
+
+def _record_ssd_scan(rec, b: int, S: int, H: int, P: int, N: int, L: int) -> None:
+    """The sites of the reference's ``kernels/ref.py:ssd_chunked`` at
+    chunk L, the scan its SSD mixer runs: four exps and four einsums."""
+    nc = S // L
+    bl, lh = (b, nc, L, N), (b, nc, L, H)
+    dec, xc = (b, nc, L, L, H), (b, nc, L, H, P)
+    rec.add_exp(dec)  # the decay of each (i, j) pair
+    rec.add_einsum("bcin,bcjn->bcij", bl, bl)
+    rec.add_einsum("bcij,bcijh,bcjhp->bcihp", (b, nc, L, L), dec, xc)
+    rec.add_exp(lh)  # the decay to the chunk's end
+    rec.add_einsum("bcjn,bcjh,bcjhp->bchnp", bl, lh, xc)
+    rec.add_exp((b, nc, H))  # each chunk's total decay
+    rec.add_exp(lh)  # exp(cum), the state's decay into the chunk
+    rec.add_einsum("bcin,bcih,bchnp->bcihp", bl, lh, (b, nc, H, N, P))
+
+
+def ssd_init(gen, cfg, device="cpu", layers: int = 1) -> Dict:
+    D = cfg.d_model
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    inner = H * P
+    L = (layers,)
+    return {
+        "wx": _init(gen, L + (D, inner), device=device),
+        "wz": _init(gen, L + (D, inner), device=device),
+        "wB": _init(gen, L + (D, N), device=device),
+        "wC": _init(gen, L + (D, N), device=device),
+        "wdt": _init(gen, L + (D, H), dtype=torch.float32, device=device),
+        "A_log": torch.zeros(L + (H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.full(L + (H,), -2.0, dtype=torch.float32, device=device),
+        "wo": _init(gen, L + (inner, D), scale=1.0 / math.sqrt(inner),
+                    device=device),
+    }
+
+
+def _ssd_common(p: Dict, x: torch.Tensor, cfg):
+    """Projections of the SSD mixer: the scan input ``xin`` (x's dtype:
+    ``dt`` is cast to it), the gate ``z``, B and C shared across heads, and
+    the f32 log decay ``log_a = -exp(A_log)·dt`` (negative)."""
+    B, S, D = x.shape
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    xv = _einsum("bsd,di->bsi", x, p["wx"]).reshape(B, S, H, P)
+    z = _einsum("bsd,di->bsi", x, p["wz"]).reshape(B, S, H, P)
+    Bm = _einsum("bsd,dn->bsn", x, p["wB"])
+    Cm = _einsum("bsd,dn->bsn", x, p["wC"])
+    dt = _softplus(_einsum("bsd,dh->bsh", x.float(), p["wdt"]) + p["dt_bias"])
+    log_a = -_exp(p["A_log"])[None, None, :] * dt  # (B, S, H)
+    xin = xv * dt[..., None].to(xv.dtype)  # ZOH-ish input scaling
+    return xin, z, Bm, Cm, log_a
+
+
+def _ssd_scan(xin, log_a, Bm, Cm, chunk: int, backend: str, return_state: bool):
+    """The scan through ``kernels/ops.py:ssd``: K7 for CUDA tensors, its
+    plain version for CPU ones (or everywhere with ``backend="torch"``).
+    Task extraction runs on meta tensors, which carry shapes only: there
+    the plain version computes the shapes and the reference's scan sites
+    are recorded."""
+    from ..kernels import ops
+
+    if xin.device.type == "meta":
+        backend = "torch"
+    out = ops.ssd(xin, log_a, Bm, Cm, chunk=chunk, backend=backend,
+                  return_state=return_state)
+    rec = _site_recorder()
+    if rec is not None:
+        b, S, H, P = xin.shape
+        _record_ssd_scan(rec, b, S, H, P, int(Bm.shape[-1]), chunk)
+    return out
+
+
+def _ssd_out(p: Dict, y: torch.Tensor, z: torch.Tensor, cfg) -> torch.Tensor:
+    B, S = y.shape[:2]
+    y = y * F.silu(z.float()).to(y.dtype)
+    inner = cfg.ssm_heads * cfg.ssm_head_dim
+    return _einsum("bsi,id->bsd", y.reshape(B, S, inner), p["wo"])
+
+
+def ssd_mixer(p: Dict, x: torch.Tensor, cfg, chunk: int = 64,
+              backend: str = "cuda") -> torch.Tensor:
+    """Mamba-2 SSD sequence mixer (forward / prefill path), chunk
+    ``min(chunk, S)``, which must divide S (as in the reference)."""
+    xin, z, Bm, Cm, log_a = _ssd_common(p, x, cfg)
+    y = _ssd_scan(xin, log_a, Bm, Cm, min(chunk, x.shape[1]), backend, False)
+    return _ssd_out(p, y, z, cfg)
+
+
+def ssd_mixer_with_state(p: Dict, x: torch.Tensor, cfg, chunk: int = 64,
+                         backend: str = "cuda"):
+    """Like :func:`ssd_mixer` but also returns the final SSM state
+    (B, H, N, P) in f32 — the prefill → decode handoff."""
+    xin, z, Bm, Cm, log_a = _ssd_common(p, x, cfg)
+    y, state = _ssd_scan(xin, log_a, Bm, Cm, min(chunk, x.shape[1]), backend,
+                         True)
+    return _ssd_out(p, y, z, cfg), state
+
+
+def ssd_decode_step(p: Dict, x: torch.Tensor, state: torch.Tensor, cfg):
+    """Single-token SSD recurrence in plain tensor ops.  x: (B, 1, D);
+    state: (B, H, N, P) f32.  Returns the mixer output (B, 1, D) and the
+    new state."""
+    B = x.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    xv = _einsum("bsd,di->bsi", x, p["wx"]).reshape(B, H, P)
+    z = _einsum("bsd,di->bsi", x, p["wz"]).reshape(B, H, P)
+    Bm = _einsum("bsd,dn->bn", x, p["wB"])
+    Cm = _einsum("bsd,dn->bn", x, p["wC"])
+    dt = _softplus(_einsum("bsd,dh->bh", x.float(), p["wdt"]) + p["dt_bias"])
+    a = _exp(-_exp(p["A_log"])[None] * dt)  # (B, H)
+    xin = (xv * dt[..., None]).float()
+    state = a[:, :, None, None] * state + Bm[:, None, :, None] * xin[:, :, None, :]
+    y = _einsum("bn,bhnp->bhp", Cm.float(), state)
+    y = y * F.silu(z.float())
+    y = y.reshape(B, 1, H * P).to(x.dtype)
+    return _einsum("bsi,id->bsd", y, p["wo"]), state
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
-"""Decoder LM of the dense family (smollm, stablelm, qwen1.5, gemma-2).
+"""Decoder LM of the dense (smollm, stablelm, qwen1.5, gemma-2), state-space
+(mamba2) and hybrid (hymba) families.
 
-The port of the JAX package's ``models/transformer.py`` for the dense
-family — ``forward`` and the serving functions ``init_cache``,
-``prefill``, ``decode_step``, ``serve_step`` and ``page_view``: parameters
-have the reference's names, shapes and dtypes, with layers stacked along a
-leading L axis; the reference's ``lax.scan`` over the stack becomes a
-Python loop over it, and the per-layer window reaches each layer as a
-Python int.  There is one card, so the reference's
-sharding constraints have no counterpart.  Mixture-of-experts, state-space,
-encoder-decoder and multimodal families belong to later slices and raise.
+The port of the JAX package's ``models/transformer.py`` for those families
+— ``forward`` and the serving functions ``init_cache``, ``prefill``,
+``decode_step``, ``serve_step`` and ``page_view``: parameters have the
+reference's names, shapes and dtypes, with layers stacked along a leading L
+axis; the reference's ``lax.scan`` over the stack becomes a Python loop over
+it, and the per-layer window reaches each layer as a Python int.  A layer
+mixes with attention, the Mamba-2 SSD mixer, or both summed (hymba); an
+attention-free model has no KV cache, only the (L, B, H, N, P) f32 SSD
+state.  There is one card, so the reference's sharding constraints have no
+counterpart.  Mixture-of-experts, encoder-decoder and multimodal families
+belong to later slices and raise.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ def _check_family(cfg: ModelConfig) -> None:
         name
         for name, on in (
             ("moe", cfg.moe_experts),
-            ("ssm", cfg.ssm_state or cfg.attn_free),
             ("encoder-decoder", cfg.enc_layers),
             ("mrope", cfg.mrope),
             ("embedding inputs", cfg.embedding_inputs),
@@ -42,7 +44,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not in this slice "
-            "(dense family only)"
+            "(dense, state-space and hybrid families only)"
         )
 
 
@@ -71,9 +73,12 @@ def init_params(
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
     layers: Params = {"ln1": ones(Ln, D)}
-    layers["attn"] = L.attention_init(gen, cfg, device=dev, layers=Ln)
-    if cfg.post_norms:
-        layers["post_ln1"] = ones(Ln, D)
+    if not cfg.attn_free:
+        layers["attn"] = L.attention_init(gen, cfg, device=dev, layers=Ln)
+        if cfg.post_norms:
+            layers["post_ln1"] = ones(Ln, D)
+    if cfg.ssm_state:
+        layers["ssd"] = L.ssd_init(gen, cfg, device=dev, layers=Ln)
     if cfg.d_ff:
         layers["ln2"] = ones(Ln, D)
         layers["mlp"] = L.mlp_init(gen, D, cfg.d_ff, device=dev, layers=Ln)
@@ -171,27 +176,42 @@ def _ffn(cfg: ModelConfig, p: Params, x):
     return x
 
 
-def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int]):
-    """One decoder layer: attention → FFN, each with a residual.  Returns
-    the new residual and the layer's post-rope (k, v), (B, KVH, S, D)."""
+def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
+               collect_state: bool = False, ssd_backend: str = "cuda"):
+    """One decoder layer: mixer (attention and/or SSD, summed) → FFN, each
+    with a residual.  Returns the new residual, the layer's post-rope
+    (k, v), (B, KVH, S, D), or None without attention, and, with
+    ``collect_state``, the SSD state after the sequence (else None)."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, kv = _attn_full(cfg, p["attn"], h, pos, window)
-    if cfg.post_norms:
-        a = L.rmsnorm(a, p["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, p, x + a), kv
+    mix, kv, state = None, None, None
+    if not cfg.attn_free:
+        mix, kv = _attn_full(cfg, p["attn"], h, pos, window)
+        if cfg.post_norms:
+            mix = L.rmsnorm(mix, p["post_ln1"], cfg.norm_eps)
+    if cfg.ssm_state:
+        if collect_state:
+            s, state = L.ssd_mixer_with_state(p["ssd"], h, cfg, backend=ssd_backend)
+        else:
+            s = L.ssd_mixer(p["ssd"], h, cfg, backend=ssd_backend)
+        mix = s if mix is None else mix + s
+    return _ffn(cfg, p, x + mix), kv, state
 
 
 def forward(
-    cfg: ModelConfig, params: Params, tokens: torch.Tensor
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+    ssd_backend: str = "cuda",
 ) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
+    """Full-sequence forward -> logits (B, S, V).  ``ssd_backend`` is the
+    SSD scan's ``kernels/ops.py`` backend: ``cuda`` (K7 for CUDA tensors,
+    the plain version for CPU ones) or ``torch`` (the plain version)."""
     _check_family(cfg)
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B, S, _ = x.shape
     pos = _positions(B, S, x.device)
     windows = _windows(cfg)
     for i in range(cfg.n_layers):
-        x, _ = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i])
+        x, _, _ = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i],
+                             ssd_backend=ssd_backend)
     return _logits(cfg, params, x)
 
 
@@ -215,15 +235,18 @@ def _windows(cfg: ModelConfig) -> List[Optional[int]]:
 # ---------------------------------------------------------------------------
 #
 # The reference's serving functions are pure and return new cache arrays.
-# Here ``decode_step`` and ``serve_step`` write each token's K/V into the
-# cache tensors in place (one (L, B, KVH, kv_len, D) copy per tick saved);
-# the cache dict they return holds the same tensors and the new positions.
+# Here ``decode_step`` and ``serve_step`` write each token's K/V, and
+# ``decode_step`` the new SSD state, into the cache tensors in place (one
+# copy of the cache per tick saved); the cache dict they return holds the
+# same tensors and the new positions.
 
 
 def cache_max_len(cfg: ModelConfig, max_seq: int) -> int:
     """Per-layer cache length: a sliding-window layer needs only its window
     (a ring buffer), a global layer the full context; the stacked cache
-    takes the longest."""
+    takes the longest.  An attention-free model has none (0)."""
+    if cfg.attn_free:
+        return 0
     windows = np.asarray(layer_windows(cfg))
     return int(max(np.where(windows > 0, np.minimum(windows, max_seq), max_seq)))
 
@@ -231,54 +254,71 @@ def cache_max_len(cfg: ModelConfig, max_seq: int) -> int:
 def init_cache(
     cfg: ModelConfig, batch: int, max_seq: int, device: str = "cuda"
 ) -> Params:
-    """Decode cache: ``k``/``v`` of (L, batch, KVH, kv_len, D) in the
-    config's dtype, and the scalar position ``pos``.  ``device="meta"``
-    allocates nothing."""
+    """Decode cache: the scalar position ``pos``; with attention ``k``/``v``
+    of (L, batch, KVH, kv_len, D) in the config's dtype; with an SSD mixer
+    its ``state`` of (L, batch, H, N, P) in f32, whose size does not grow
+    with the context.  ``device="meta"`` allocates nothing."""
     _check_family(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    kv_len = cache_max_len(cfg, max_seq)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, kv_len, cfg.head_dim)
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-    }
+    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if not cfg.attn_free:
+        kv_len = cache_max_len(cfg, max_seq)
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, kv_len, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.ssm_state:
+        cache["state"] = torch.zeros(
+            (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+            dtype=torch.float32, device=dev,
+        )
+    return cache
 
 
 def prefill(
     cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor
 ) -> Tuple[torch.Tensor, Params]:
     """Process the prompt, fill the cache, return last-position logits
-    (B, 1, V) and the new cache (positions ``0..S-1`` written, ``pos = S``)."""
+    (B, 1, V) and the new cache (positions ``0..S-1`` written, the SSD
+    state after the prompt, ``pos = S``).  The SSD mixer scans in chunks of
+    ``min(64, S)``, which must divide S, as in the reference: a prompt
+    longer than 64 tokens must be a multiple of 64."""
     _check_family(cfg)
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B, S, _ = x.shape
     pos = _positions(B, S, x.device)
     windows = _windows(cfg)
-    kv_len = cache["k"].shape[3]
-    if kv_len < S and S % kv_len:
+    kv_len = cache["k"].shape[3] if "k" in cache else 0
+    if kv_len and kv_len < S and S % kv_len:
         # the ring-buffer handoff assumes slot p % kv_len alignment
         raise ValueError(
             f"prefill of {S} tokens into a ring cache of {kv_len}: S must be "
             "a multiple of the cache length"
         )
-    ks, vs = [], []
+    ks, vs, states = [], [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i])
-        if kv_len < S:
-            k, v = k[:, :, -kv_len:], v[:, :, -kv_len:]
-        elif kv_len > S:
-            k = F.pad(k, (0, 0, 0, kv_len - S))
-            v = F.pad(v, (0, 0, 0, kv_len - S))
-        ks.append(k)
-        vs.append(v)
+        x, kv, state = _layer_fwd(cfg, _layer(params["layers"], i), x, pos,
+                                  windows[i], collect_state=True)
+        if kv is not None:
+            k, v = kv
+            if kv_len < S:
+                k, v = k[:, :, -kv_len:], v[:, :, -kv_len:]
+            elif kv_len > S:
+                k = F.pad(k, (0, 0, 0, kv_len - S))
+                v = F.pad(v, (0, 0, 0, kv_len - S))
+            ks.append(k)
+            vs.append(v)
+        if state is not None:
+            states.append(state)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = L.unembed(x[:, -1:], params["embed"])
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     new_cache = dict(cache)
-    new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+    if ks:
+        new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+    if states:
+        new_cache["state"] = torch.stack(states)
     new_cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
     return logits, new_cache
 
@@ -310,24 +350,32 @@ def _live_columns(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return keep.nonzero(as_tuple=True)
 
 
-def _decode_layer(cfg, p, x, pos, window, write_kv, length):
-    """One layer of a cache step: project, rope, ``write_kv(k1, v1)`` into
-    the cache (which returns the (K, V) view to attend), attention against
-    the cache, FFN."""
+def _decode_layer(cfg, p, x, pos, window, write_kv, length, state=None):
+    """One layer of a cache step: with attention, project, rope,
+    ``write_kv(k1, v1)`` into the cache (which returns the (K, V) view to
+    attend) and attend against the cache; with an SSD mixer, one step of
+    its recurrence from ``state``; then the FFN.  Returns the new residual
+    and the new SSD state (None without one)."""
     B, C, _ = x.shape
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k1, v1 = L.qkv_proj(p["attn"], h, cfg)
-    q = L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
-    k1 = L.apply_rope(k1, pos[:, None], theta=cfg.rope_theta)
-    k_view, v_view = write_kv(k1, v1)
-    a = L.decode_attention(
-        q, k_view, v_view, length=length, window=window, softcap=cfg.attn_softcap,
-    )
-    a = a.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
-    a = L.dense_op(a, p["attn"]["wo"])
-    if cfg.post_norms:
-        a = L.rmsnorm(a, p["post_ln1"], cfg.norm_eps)
-    return _ffn(cfg, p, x + a)
+    mix = None
+    if not cfg.attn_free:
+        q, k1, v1 = L.qkv_proj(p["attn"], h, cfg)
+        q = L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
+        k1 = L.apply_rope(k1, pos[:, None], theta=cfg.rope_theta)
+        k_view, v_view = write_kv(k1, v1)
+        a = L.decode_attention(
+            q, k_view, v_view, length=length, window=window,
+            softcap=cfg.attn_softcap,
+        )
+        a = a.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
+        mix = L.dense_op(a, p["attn"]["wo"])
+        if cfg.post_norms:
+            mix = L.rmsnorm(mix, p["post_ln1"], cfg.norm_eps)
+    if cfg.ssm_state:
+        s, state = L.ssd_decode_step(p["ssd"], h, state, cfg)
+        mix = s if mix is None else mix + s
+    return _ffn(cfg, p, x + mix), state
 
 
 def serve_step(
@@ -353,8 +401,14 @@ def serve_step(
     (``mode="drop"``); PyTorch would raise on such an index, so only the
     valid columns are written — and, paged, only those whose page-table
     entry is a real page — so an idle lane can never touch a page owned by
-    a live request."""
+    a live request.  Only pure-attention decoders are supported, as in the
+    reference: an SSD state has no variable-width chunk step, and
+    ``ServeConfig.resolved_for`` routes those models to ``decode_step``."""
     _check_family(cfg)
+    if cfg.attn_free or cfg.ssm_state:
+        raise NotImplementedError(
+            "serve_step needs a pure-attention decoder; use decode_step"
+        )
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B, C = tokens.shape
     dev = x.device
@@ -392,8 +446,8 @@ def serve_step(
                 return page_view(K, table), page_view(V, table)
             return K, V
 
-        x = _decode_layer(cfg, _layer(params["layers"], i), x, pos_mat,
-                          windows[i], write_kv, length)
+        x, _ = _decode_layer(cfg, _layer(params["layers"], i), x, pos_mat,
+                             windows[i], write_kv, length)
     # the final norm over every column (the reference's order: its rmsnorm
     # key is at tokens = B·C), then each lane's last valid position; the
     # gather before the unembed keeps the dense workload key at m = B
@@ -415,32 +469,40 @@ def decode_step(
     the batch-engine layout — or a per-slot ``(B,)`` vector, the
     continuous-batching arena layout where each slot advances on its own
     (writes land at per-lane ring slots, attention masks to per-lane
-    lengths)."""
+    lengths).  An SSD layer advances its slice of ``cache["state"]`` by one
+    step of the recurrence, in place."""
     _check_family(cfg)
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B = x.shape[0]
     p_now = cache["pos"]
     per_slot = p_now.ndim > 0
     pos_vec = (p_now if per_slot else p_now.expand(B)).to(torch.int32)
-    kv_len = cache["k"].shape[3]
-    slots = (pos_vec % kv_len).long()
-    lanes = torch.arange(B, device=x.device)
-    length = torch.clamp(pos_vec + 1, max=kv_len)
+    kv_len = cache["k"].shape[3] if "k" in cache else 0
+    write_kv = length = None
+    if kv_len:
+        slots = (pos_vec % kv_len).long()
+        lanes = torch.arange(B, device=x.device)
+        length = torch.clamp(pos_vec + 1, max=kv_len)
     windows = _windows(cfg)
     for i in range(cfg.n_layers):
-        K, V = cache["k"][i], cache["v"][i]
+        if kv_len:
+            K, V = cache["k"][i], cache["v"][i]
 
-        def write_kv(k1, v1, K=K, V=V):
-            if per_slot:  # each arena slot writes at its own ring position
-                K[lanes, :, slots] = k1[:, :, 0].to(K.dtype)
-                V[lanes, :, slots] = v1[:, :, 0].to(V.dtype)
-            else:
-                K.index_copy_(2, slots[:1], k1.to(K.dtype))
-                V.index_copy_(2, slots[:1], v1.to(V.dtype))
-            return K, V
+            def write_kv(k1, v1, K=K, V=V):
+                if per_slot:  # each arena slot writes at its own ring position
+                    K[lanes, :, slots] = k1[:, :, 0].to(K.dtype)
+                    V[lanes, :, slots] = v1[:, :, 0].to(V.dtype)
+                else:
+                    K.index_copy_(2, slots[:1], k1.to(K.dtype))
+                    V.index_copy_(2, slots[:1], v1.to(V.dtype))
+                return K, V
 
-        x = _decode_layer(cfg, _layer(params["layers"], i), x, pos_vec[:, None],
-                          windows[i], write_kv, length)
+        state = cache["state"][i] if "state" in cache else None
+        x, state = _decode_layer(cfg, _layer(params["layers"], i), x,
+                                 pos_vec[:, None], windows[i], write_kv, length,
+                                 state)
+        if state is not None:
+            cache["state"][i].copy_(state)
     logits = _logits(cfg, params, x)
     new_cache = dict(cache)
     new_cache["pos"] = p_now + 1

@@ -27,6 +27,11 @@ import torch
 
 from ..device import resolve_device
 
+# cache entries with a (layers, batch/slot, ...) layout that admission copies
+# lane by lane, as in the reference; "pos" (per-slot scalar) is handled
+# separately
+_LANE_KEYS = ("k", "v", "state")
+
 
 def snap_page_size(kv_len: int, page_size: int) -> int:
     """Largest divisor of ``kv_len`` that is ``<= page_size``.
@@ -96,21 +101,25 @@ class KVArena:
         return self.cache["pos"]
 
     def load_slot(self, slot: int, req_cache: Dict[str, Any]) -> None:
-        """Copy a batch=1 prefill cache into a slot lane (admission).
-
-        The prefill cache's kv length matches the arena's by construction
-        (both derive from the same config + max_seq)."""
-        for key in ("k", "v"):
-            self.cache[key][:, slot] = req_cache[key][:, 0].to(self.cache[key].dtype)
+        """Copy a batch=1 prefill cache into a slot lane (admission): every
+        lane the model's cache has (``k``/``v``, the SSD ``state``) and the
+        slot's position.  The prefill cache's kv length matches the arena's
+        by construction (both derive from the same config + max_seq)."""
+        for key in _LANE_KEYS:
+            if key in self.cache:
+                self.cache[key][:, slot] = req_cache[key][:, 0].to(self.cache[key].dtype)
         self.cache["pos"][slot] = int(req_cache["pos"])
 
     def release_slot(self, slot: int, used: int = -1) -> None:
         """Zero a lane and reset its position (the slot goes back to the
         pool).  ``used`` — how many positions the request wrote (its final
-        ``pos``): only that prefix is zeroed, the rest of the lane is still
-        zero from the previous release."""
-        for key in ("k", "v"):
-            if used >= 0:
+        ``pos``): only that prefix of ``k``/``v`` is zeroed, the rest of the
+        lane is still zero from the previous release; the SSD ``state``,
+        which every decode tick rewrites, is zeroed whole."""
+        for key in _LANE_KEYS:
+            if key not in self.cache:
+                continue
+            if used >= 0 and key in ("k", "v"):
                 self.cache[key][:, slot, :, : min(used, self.cache[key].shape[3])] = 0
             else:
                 self.cache[key][:, slot] = 0

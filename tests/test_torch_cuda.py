@@ -9,7 +9,10 @@ installed.  TF32 is switched off for float32 matmuls
 ``torch.backends.cudnn.allow_tf32`` set to False), so the plain versions
 run in full float32.  Tolerances: 1e-3 for f32 matrix products with
 K <= 72 (different summation orders), 1e-4 for attention, whose outputs
-are convex combinations of v.
+are convex combinations of v.  K7 (ssd) against its plain version: 1e-5
+of the output's largest magnitude in f32 (sums of up to N + L terms in
+another order), 8e-3 of it with bf16 x/B/C (both round y to bf16 once: one
+ulp is 2^-8 of |y|); the f32 state within 1e-5 of its largest magnitude.
 """
 
 import math
@@ -23,6 +26,7 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ScheduleRejected
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import softmax as sm
+from repro_torch.kernels import ssd as ssd_k
 from repro_torch.search.evolutionary import SearchConfig
 
 pytestmark = pytest.mark.cuda
@@ -180,3 +184,68 @@ def test_cuda_row_softmax_refuses_what_the_kernel_does_not_take():
         sm.row_softmax(x.half())
     with pytest.raises(ValueError):
         sm.row_softmax(x.t())
+
+
+def _ssd_inputs(dev, batch, S, H, P, N, decay=0.3, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, S, H, P, generator=g, device=dev)
+    la = -torch.rand(batch, S, H, generator=g, device=dev) * decay
+    B = torch.randn(batch, S, N, generator=g, device=dev) * 0.3
+    C = torch.randn(batch, S, N, generator=g, device=dev) * 0.3
+    return x, la, B, C
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("shape,chunk,decay", [
+    ((1, 256, 32, 64, 128), 64, 0.3),   # mamba2-370m's forward
+    ((1, 256, 25, 64, 16), 64, 0.3),    # hymba-1.5b's
+    ((2, 48, 4, 32, 16), 64, 0.3),      # a 48-token prompt: chunk 48
+    ((1, 128, 4, 64, 128), 64, 20.0),   # exp overflows above the diagonal
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
+def test_cuda_ssd_against_plain(shape, chunk, decay, dtype, tol):
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, *shape, decay=decay)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    L = min(chunk, shape[1])
+    want, want_h = tref.ssd_chunked(x, la, B, C, chunk=L, return_state=True)
+    n = ssd_k.ssd.launches
+    got = ssd_k.ssd(x, la, B, C, chunk=chunk)
+    got2, h = ssd_k.ssd(x, la, B, C, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_k.ssd.launches == n + 2
+    assert ssd_k.ssd.last_launch["blocks"] == (L,)
+    assert ssd_k.ssd.last_launch["grid"] == (shape[0] * shape[2],)
+    assert got.dtype == dtype and h.dtype == torch.float32
+    assert torch.isfinite(got.float()).all() and torch.isfinite(h).all()
+    assert torch.equal(got, got2)
+    assert _rel(got, want) <= tol
+    assert _rel(h, want_h) <= 1e-5
+
+
+def test_cuda_ssd_reads_x_through_its_strides():
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, 1, 128, 8, 32, 16)
+    xt = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)  # (b, S, H, P) view
+    assert not xt.is_contiguous()
+    got = ssd_k.ssd(xt, la, B, C, chunk=32)
+    assert _rel(got, tref.ssd_chunked(x, la, B, C, chunk=32)) <= 1e-5
+
+
+def test_cuda_ssd_refuses_what_the_kernel_does_not_take():
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, 1, 256, 2, 64, 128)
+    with pytest.raises(ScheduleRejected) as e:
+        ssd_k.ssd(x, la, B, C, chunk=256)
+    assert e.value.reason == "shared_memory"
+    x, la, B, C = _ssd_inputs(dev, 1, 80, 2, 16, 8)
+    with pytest.raises(ScheduleRejected) as e:
+        ssd_k.ssd(x, la, B, C, chunk=64)
+    assert e.value.reason == "divide"
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x.half(), la, B, C)
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x, la.double(), B, C)

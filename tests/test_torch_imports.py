@@ -47,6 +47,8 @@ MODULES = [
     "repro_torch.kernels.matmul",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.softmax",
+    "repro_torch.kernels.ssd",
+    "repro_torch.kernels.ops",
     "repro_torch.kernels._build",
     "repro_torch.models",
     "repro_torch.models.layers",

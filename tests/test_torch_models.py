@@ -113,11 +113,24 @@ def test_rmsnorm_and_rope_match_reference():
     )
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m", "whisper-medium",
-                                  "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-medium", "qwen2-vl-2b"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError):
         TT.init_params(tcfg(arch, smoke=True), device="meta")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_families_init_with_the_reference_shapes_and_dtypes(arch):
+    jc, tc = jcfg(arch, smoke=True), tcfg(arch, smoke=True)
+    want = jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype)),
+        jax.eval_shape(lambda: JT.init_params(jc, jax.random.PRNGKey(0))),
+    )
+    got = jax.tree_util.tree_map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        TT.init_params(tc, device="meta"),
+    )
+    assert got == want
 
 
 def test_window_period_and_layer_windows_match_reference():
