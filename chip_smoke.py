@@ -11,9 +11,12 @@ Phases, in order; a failing phase makes the run exit non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, in float32,
-   at the smollm-135m shapes with tiles that are not powers of two (K4,
-   the row softmax, also in bfloat16, and a row block too large for shared
-   memory must be rejected);
+   at the smollm-135m shapes with tiles that are not powers of two (K1 in
+   each of its variants: ``splitk`` at the five decode shapes with w in both
+   layouts, ``tc`` at the four forward shapes and the transposed unembed in
+   one and two stages, ``fma`` at one odd tile, every epilogue, with the
+   float64 product as a witness; K4, the row softmax, also in bfloat16, and
+   a row block too large for shared memory must be rejected);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window;
@@ -41,9 +44,12 @@ Phases, in order; a failing phase makes the run exit non-zero:
    256x256 (13 runs, small budget): sfm through K4, the others through the
    structural lowering;
 6. each kernel's time at its smollm main-path shapes with the tuned tiles
-   (K7's at mamba2's forward shape is phase 3c's), beside its plain
-   version, the one PyTorch call that computes the same function (where
-   there is one), and the least time the card could take;
+   (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
+   unembed follows phases 9 and 10), beside its plain version, the one
+   PyTorch call that computes the same function (where there is one), and
+   the least time the card could take (K1's tc variant at the 3xTF32 rate);
+   device times (kernel and library call) from CUDA events around a CUDA
+   graph of 20 calls;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
    seq 256), tune them the same way, then the full-width 48-layer bf16
    forward under ``DispatchContext`` (49 rmsnorm hits, the unembed, K7 at
@@ -59,7 +65,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
 Every kernel wrapper counts its launches; the counts are zeroed just before
 each of the five paths (forward: phases 4-5; serving: phase 7; operators:
 phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10) and read just
-after it.  TF32 is off for float32 matmuls in
+after it; K1's launches are also counted by variant, and printed for the
+tuned forward, one decode-only tick (every one ``splitk``) and the mamba2
+forward.  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -83,12 +91,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # the card's published peaks (H100 SXM data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, and HBM3 bandwidth; K1's tc variant does three TF32 tensor-core
+# products (3xTF32) for each f32 one, so its f32 rate is at most 495 / 3
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
 SEQ = 256
 BATCH = 1
+M_FWD = BATCH * SEQ  # the rows of every forward matmul
 TOL_MATMUL = 2e-3  # f32, K <= 1536, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
 TOL_LOGITS_REL = 5e-2  # bf16 plain forward vs f32 kernels cast to bf16
@@ -104,6 +115,9 @@ TOL_SSD_BF16 = 8e-3
 # was dispatched (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
 NO_NORM_FORWARD_MS = 82.39
 NO_NORM_TICK_MS = 100.25
+# K1's device time in one traced decode-only tick when it had only its FMA
+# kernel, before the split-K variant (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+FMA_TICK_K1_MS = 20.09
 
 # the serving path (phase 7)
 SERVE_SLOTS = 4
@@ -132,12 +146,34 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: the busy time the profiler sees
-    over ``reps`` back-to-back calls, divided by ``reps`` (None when the
-    profiler sees no device event)."""
-    prof = profile_device(lambda: [fn() for _ in range(reps)])
-    return prof["busy_ms"] / reps if prof else None
+def graph_ms(fn, reps: int = 20) -> float:
+    """The device time of one call of ``fn``: CUDA events around one replay
+    of a CUDA graph that captured ``reps`` calls, over ``reps`` (the gaps
+    between the graph's kernels included, the host's enqueue not); the
+    calls are warmed on the capture stream first, so the graph allocates
+    nothing new.  Not the profiler: over 20 back-to-back calls it misses
+    whole windows, or part of one, at random (PERF.md)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -158,9 +194,18 @@ def sdpa(q, k, v, causal: bool):
     )
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(variant: str, M: int, N: int, K: int):
+    """(bound ms, by, bound ms at 67 TFLOP/s) of one K1 call: 2MNK flops at
+    the variant's peak (3xTF32 for tc), x and w read once, y written once."""
+    flops, nbytes = 2 * M * N * K, 4 * (M * K + K * N + M * N)
+    peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
+    b_ms, b_by = bound(flops, nbytes, peak)
+    return b_ms, b_by, bound(flops, nbytes)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -215,38 +260,62 @@ def phase_kernels(gen) -> dict:
         if not math.isfinite(err) or err > tol:
             fail(f"{kernel} {label}: max_abs_err {err} > {tol}")
 
-    M = BATCH * SEQ
-    dense_shapes = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
-    tiles = [(64, 96, 48), (32, 192, 64), (128, 64, 96), (256, 48, 32)]
-    for (K, N), blocks in zip(dense_shapes, tiles):
-        x, w = randn(M, K), randn(K, N)
-        bias = randn(N)
-        bs = mm.launch_config(1, M, N, K, mm._clamp(blocks, M, N, K))["blocks"]
-        for epi in ("none", "bias", "relu", "gelu", "silu", "softcap"):
-            b = bias if epi == "bias" else None
-            got = mm.matmul(x, w, b, epilogue=epi, block_sizes=bs)
-            want = ref.matmul(x, w, b, epilogue=epi)
-            k_ms = median_ms(lambda: mm.matmul(x, w, b, epilogue=epi, block_sizes=bs))
-            p_ms = median_ms(lambda: ref.matmul(x, w, b, epilogue=epi))
-            lib_ms = None
-            if epi == "none":
-                lib_ms = median_ms(lambda: torch.matmul(x, w))
-            elif epi == "bias":
-                lib_ms = median_ms(lambda: torch.addmm(b, x, w))
-            exact = x.double() @ w.double() if epi == "none" else None
-            report("matmul", f"({M},{N},{K}) {epi} blocks {bs}", got, want,
-                   TOL_MATMUL, k_ms, p_ms, lib_ms, exact)
-    # the tied unembed: the (vocab, d) table read transposed, no copy
-    table = randn(49152, 576)
-    x = randn(M, 576)
-    wt = table.t()
-    bs = (64, 192, 64)
-    got = mm.matmul(x, wt, block_sizes=bs)
-    want = ref.matmul(x, wt)
-    report("matmul", f"unembed ({M},49152,576) transposed blocks {bs}", got, want,
-           TOL_MATMUL, median_ms(lambda: mm.matmul(x, wt, block_sizes=bs)),
-           median_ms(lambda: ref.matmul(x, wt)),
-           median_ms(lambda: torch.matmul(x, wt)), x.double() @ wt.double())
+    # K1, each variant against the plain version, every epilogue.  splitk:
+    # the five decode shapes (m4) with w in both layouts, one split and
+    # many, and a bn that is not a multiple of 4, and mamba2's unembed;
+    # tc: the four forward shapes (m256), a serving chunk (m128), smollm's
+    # and mamba2's transposed unembeds, in one and two stages; fma: one
+    # tile (bk = 36) that neither of the others takes.  check_tiles holds
+    # every tuned K1 tile against the plain version as well
+    vocab, ssm_vocab = 49152, 50280
+    k1_cases = [
+        (4, 576, 1536, (4, 64, 48), "splitk"),
+        (4, 1536, 576, (4, 64, 96), "splitk"),
+        (4, 576, 576, (4, 18, 64), "splitk"),
+        (4, 576, 192, (4, 48, 576), "splitk"),
+        (4, 576, vocab, (4, 256, 96), "splitk"),
+        (4, 576, vocab, (4, 512, 576), "splitk"),
+        (4, 1024, ssm_vocab, (4, 60, 64), "splitk"),
+        (M_FWD, 576, 576, (64, 64, 32), "tc"),
+        (M_FWD, 576, 192, (32, 48, 64), "tc"),
+        (M_FWD, 576, 1536, (128, 192, 96), "tc"),
+        (M_FWD, 1536, 576, (128, 64, 128), "tc"),
+        (128, 576, 1536, (128, 16, 24), "tc"),
+        (M_FWD, 576, vocab, (64, 192, 64), "tc"),
+        (M_FWD, 1024, ssm_vocab, (32, 120, 32), "tc"),
+        (M_FWD, 576, 1536, (128, 8, 36), "fma"),
+    ]
+    for M, K, N, blocks, var in k1_cases:
+        if N in (vocab, ssm_vocab):
+            layouts = ("k",)  # the tied unembed reads the table transposed
+        else:
+            layouts = ("n", "k") if var == "splitk" else ("n",)
+        for layout in layouts:
+            x = randn(M, K)
+            w = randn(N, K).t() if layout == "k" else randn(K, N)
+            bias = randn(N)
+            cfg = mm.launch_config(1, M, N, K, blocks, kernel="matmul")
+            if cfg["variant"] != var:
+                fail(f"matmul {blocks} on {(M, N, K)} takes {cfg['variant']}, not {var}")
+            exact = x.double() @ w.double()
+            for epi in ("none", "bias", "relu", "gelu", "silu", "softcap"):
+                b = bias if epi == "bias" else None
+                got = mm.matmul(x, w, b, epilogue=epi, block_sizes=blocks)
+                if mm.matmul.last_launch != cfg:
+                    fail(f"matmul launched {mm.matmul.last_launch}, want {cfg}")
+                want = ref.matmul(x, w, b, epilogue=epi)
+                k_ms = median_ms(lambda: mm.matmul(x, w, b, epilogue=epi, block_sizes=blocks))
+                p_ms = median_ms(lambda: ref.matmul(x, w, b, epilogue=epi))
+                lib_ms = None
+                if epi == "none":
+                    lib_ms = median_ms(lambda: torch.matmul(x, w))
+                elif epi == "bias":
+                    lib_ms = median_ms(lambda: torch.addmm(b, x, w))
+                label = (f"{var} ({M},{N},{K}) w {layout}-contiguous {epi} blocks "
+                         f"{blocks} grid {cfg['grid']} stages {cfg['stages']} "
+                         f"splits {cfg['splits']}")
+                report("matmul", label, got, want, TOL_MATMUL, k_ms, p_ms, lib_ms,
+                       exact if epi == "none" else None)
 
     # K2: the attention contractions in canonical layout (B·KVH, G·S, ·)
     H, KVH, D = 9, 3, 64
@@ -493,12 +562,12 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
         return ssd_k.ssd(x, la, B, C, chunk=SSM_CHUNK)
 
     k_ms = median_ms(launch)
-    d_ms = device_ms(launch)
+    d_ms = graph_ms(launch)
     p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK))
     flops, nbytes = ssd_work(b, S, H, P, N, SSM_CHUNK)
     b_ms, b_by = bound(flops, nbytes)
     print(f"[time] ssd ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} bf16: kernel "
-          f"{k_ms:.4f} ms (device {d_ms} ms) plain {p_ms:.4f} ms library - (no single "
+          f"{k_ms:.4f} ms (device {d_ms:.4f} ms) plain {p_ms:.4f} ms library - (no single "
           f"PyTorch call computes the SSD scan) bound {b_ms:.4f} ms ({b_by}; "
           f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
     return dict(kernel="ssd", blocks=[SSM_CHUNK], ms=k_ms, device_ms=d_ms,
@@ -534,10 +603,21 @@ def _wrappers():
 def reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
+    k1 = _wrappers()["matmul"]
+    k1.launches_by_variant = dict.fromkeys(k1.launches_by_variant, 0)
 
 
 def read_counts() -> dict:
     return {k: w.launches for k, w in _wrappers().items()}
+
+
+def read_variants() -> dict:
+    """K1's launches by variant so far (``splitk``, ``tc``, ``fma``)."""
+    return dict(_wrappers()["matmul"].launches_by_variant)
+
+
+def variants_since(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in read_variants().items()}
 
 
 def phase_tune(cfg, db, extract=None, tag="tune"):
@@ -601,8 +681,8 @@ def failure_reason(err: str) -> str:
 
 def check_tiles(tasks, db) -> dict:
     """Replay each task's best record and check that the kernel launched
-    with the record's snapped tile: grid, threads and shared memory follow
-    from those blocks alone."""
+    with the record's snapped tile: variant, grid, threads and shared
+    memory are the ones ``launch_config`` gives those blocks."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -630,7 +710,7 @@ def check_tiles(tasks, db) -> dict:
             sampled = meta.get("pallas_blocks_sampled")
         _, lowered = apply_trace(t.func, rec.trace(), backend="cuda")
         ins = device_inputs(t.func, torch.device("cuda"))
-        lowered.fn(ins)
+        outs = lowered.fn(ins)
         torch.cuda.synchronize()
         kern = meta["pallas_kernel"]
         last = _wrappers()[kern].last_launch
@@ -655,19 +735,46 @@ def check_tiles(tasks, db) -> dict:
                 (M, K), (_, N), B = shapes[0], shapes[1], 1
             else:
                 (B, M, K), N = shapes[0], shapes[1][2]
-            bm, bn, bk = snapped
-            want = dict(grid=(N // bn, M // bm, B),
-                        threads=mm.micro_tile(bm, bn)[1],
-                        smem_bytes=4 * (bm * bk + bk * bn))
+            cfg = mm.launch_config(B, M, N, K, snapped, kernel=kern)
+            want = {k: cfg[k] for k in ("variant", "grid", "threads", "smem_bytes")
+                    if k in cfg}
         got = {k: last[k] for k in want}
-        print(f"[tiles] {t.key}: sampled {sampled} "
+        var = f" {last['variant']}" if kern == "matmul" else ""
+        print(f"[tiles] {t.key}:{var} sampled {sampled} "
               f"snapped {list(snapped)} -> grid {last['grid']} threads "
               f"{last['threads']} smem {last['smem_bytes']} B; best "
               f"{rec.latency_s * 1e3:.4f} ms")
         if tuple(last["blocks"]) != snapped or got != want:
             fail(f"{t.key}: launch {last} does not follow snapped blocks {snapped}")
+        if kern == "matmul":
+            tuned_k1_against_plain(t, ins, snapped, next(iter(outs.values())))
         runs[t.key] = (kern, snapped, shapes)
     return runs
+
+
+def tuned_k1_against_plain(t, ins, blocks, got) -> None:
+    """Hold K1 at a tuned tile against the plain version within
+    TOL_MATMUL: the record's own output (w as the task gives it,
+    n-contiguous) and the same product with w read transposed
+    (k-contiguous, as the tied unembed reads its table)."""
+    import torch
+
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+
+    name = t.func.name  # the epilogue, as lower_dense reads it
+    epi = name[len("dense_"):] if name.startswith("dense_") else "none"
+    x, w, bias = ins["X"], ins["W"], ins.get("bias")
+    want = ref.matmul(x, w, bias, epilogue=epi)
+    got_k = mm.matmul(x, w.t().contiguous().t(), bias, epilogue=epi, block_sizes=blocks)
+    var = mm.matmul.last_launch["variant"]
+    for layout, y in (("n", got), ("k", got_k)):
+        err = float((y.float() - want.float()).abs().max())
+        print(f"[tiles] {t.key}: {var} {list(blocks)} w {layout}-contiguous {epi} "
+              f"against plain: max_abs_err {err:.3e} (tol {TOL_MATMUL:g})")
+        if not math.isfinite(err) or err > TOL_MATMUL:
+            fail(f"{t.key}: K1 {var} {blocks} w {layout}-contiguous: "
+                 f"max_abs_err {err} > {TOL_MATMUL}")
 
 
 def phase_forward(cfg, tasks, db, gen_seed: int = 0):
@@ -701,6 +808,7 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
             tuned = T.forward(cfg, params, toks)
         torch.cuda.synchronize()
         fwd_counts = read_counts()
+        fwd_variants = read_variants()
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
@@ -719,7 +827,8 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
               f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
         for r, n in row["reasons"].items():
             reasons[r] = reasons.get(r, 0) + n
-    print(f"[forward] kernel launches in one dispatched forward: {fwd_counts}")
+    print(f"[forward] kernel launches in one dispatched forward: {fwd_counts}; "
+          f"K1 by variant {fwd_variants}")
     if not torch.isfinite(tuned.float()).all():
         fail("dispatched logits are not finite")
     if tuned.shape != (BATCH, SEQ, cfg.vocab):
@@ -742,7 +851,7 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
              f"{2 * cfg.n_layers + 1} and no not_in_slice")
     return dict(max_abs_err=max_abs, max_rel_err=rel, plain_ms=plain_ms,
                 dispatched_ms=tuned_ms, stats=stats, rmsnorm_hits=norm_hits,
-                reasons=reasons), fwd_counts
+                reasons=reasons, matmul_variants=fwd_variants), fwd_counts
 
 
 # ---------------------------------------------------------------------------
@@ -763,6 +872,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
         if t.key not in runs:
             continue  # no kernel: the structural lowering (check_tiles)
         kern, snapped, shapes = runs[t.key]
+        extra = {}
         if kern == "matmul":
             (M, K), (_, N) = shapes[0], shapes[1]
             x = torch.randn(M, K, generator=gen, device="cuda")
@@ -771,19 +881,28 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
                 w = torch.randn(N, K, generator=gen, device="cuda").t()
             def launch():
                 return mm.matmul(x, w, block_sizes=snapped)
+
+            def library():
+                return torch.matmul(x, w)
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.matmul(x, w))
-            l_ms = median_ms(lambda: torch.matmul(x, w))
-            flops, nbytes = 2 * M * N * K, 4 * (M * K + K * N + M * N)
+            l_ms = median_ms(library)
+            flops = 2 * M * N * K
+            var = mm.launch_config(1, M, N, K, snapped, kernel="matmul")["variant"]
+            b_ms, b_by, b67 = k1_bound(var, M, N, K)
+            extra = dict(variant=var, bound_f32_ms=b67)
         elif kern == "batch_matmul":
             (B, M, K), N = shapes[0], shapes[1][2]
             a = torch.randn(B, M, K, generator=gen, device="cuda")
             b = torch.randn(B, K, N, generator=gen, device="cuda")
             def launch():
                 return mm.batch_matmul(a, b, block_sizes=snapped)
+
+            def library():
+                return torch.bmm(a, b)
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.batch_matmul(a, b))
-            l_ms = median_ms(lambda: torch.bmm(a, b))
+            l_ms = median_ms(library)
             flops = 2 * B * M * N * K
             nbytes = 4 * B * (M * K + K * N + M * N)
         elif kern == "row_softmax":
@@ -792,9 +911,11 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             x = torch.randn(M, N, generator=gen, device="cuda")
             def launch():
                 return sm.row_softmax(x, block_rows=bm)
+            def library():
+                return torch.softmax(x, -1)
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.row_softmax(x))
-            l_ms = median_ms(lambda: torch.softmax(x, -1))
+            l_ms = median_ms(library)
             # max, subtract, exp, sum and divide an element; x read once and
             # y written once
             flops, nbytes = 5 * M * N, 2 * 4 * M * N
@@ -807,9 +928,11 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             bias = decode_bias([t_len] * b, t_len)
             def launch():
                 return fa.decode_flash_attention(q, k, v, bias, block_kv=bkv)
+            def library():
+                return sdpa_decode(q, k, v, bias)
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias))
-            l_ms = median_ms(lambda: sdpa_decode(q, k, v, bias))
+            l_ms = median_ms(library)
             flops, nbytes = decode_work(b, kvh, g, t_len, d)
         else:
             b, kvh, g, s, d = shapes[0]
@@ -821,22 +944,35 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             def launch():
                 return fa.flash_attention(q, k, v, causal=True, block_q=bq,
                                           block_kv=bkv)
+            def library():
+                return sdpa(q, k, v, True)
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=True))
-            l_ms = median_ms(lambda: sdpa(q, k, v, True))
+            l_ms = median_ms(library)
             # causal: only the s(s+1)/2 unmasked pairs need work
             flops = 4 * b * h * d * (s * (s + 1) // 2)
             nbytes = 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
-        b_ms, b_by = bound(flops, nbytes)
-        d_ms = device_ms(launch)
+        if kern != "matmul":
+            b_ms, b_by = bound(flops, nbytes)
+        # the kernel and the library call on one footing: device time by
+        # CUDA-graph replay of 20 calls each
+        d_ms, l_d_ms = graph_ms(launch), graph_ms(library)
         rows[t.key] = dict(kernel=kern, blocks=list(snapped), ms=k_ms,
                            device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
-                           bound_ms=b_ms, bound_by=b_by, weight=t.weight,
-                           flops=flops)
-        print(f"[time] {t.key} {kern} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
-              f"(device {d_ms} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})")
+                           library_device_ms=l_d_ms, bound_ms=b_ms, bound_by=b_by,
+                           weight=t.weight, flops=flops, **extra)
+        var = f" {extra['variant']}" if "variant" in extra else ""
+        f32 = f", {extra['bound_f32_ms']:.4f} ms at 67 TFLOP/s" if var == " tc" else ""
+        print(f"[time] {t.key} {kern}{var} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
+              f"(device {d_ms:.4f} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
+              f"(device {l_d_ms:.4f} ms) bound {b_ms:.4f} ms ({b_by}{f32})")
     return rows
+
+
+def unembed_tasks(tasks, runs, vocab: int) -> list:
+    """The tasks whose tuned kernel is K1 with N = vocab (the unembed)."""
+    return [t for t in tasks if t.key in runs and runs[t.key][0] == "matmul"
+            and runs[t.key][2][1][1] == vocab]
 
 
 def structural_timings(tasks, db) -> dict:
@@ -900,7 +1036,7 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
     def launch():
         return fa.paged_decode_flash_attention(q, kp, vp, table, bias)
     k_ms = median_ms(launch)
-    d_ms = device_ms(launch)
+    d_ms = graph_ms(launch)
     p_ms = median_ms(lambda: ref.paged_decode_attention(q, kp, vp, table, bias))
     flops, nbytes = decode_work(b, kvh, g, t_len, d, table_entries=b * P)
     b_ms, b_by = bound(flops, nbytes)
@@ -908,7 +1044,7 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
                device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                flops=flops, weight=0)
     print(f"[time] paged decode ({b},{kvh},{g},{t_len},{d}) page {ps}: kernel "
-          f"{k_ms:.4f} ms plain {p_ms:.4f} ms library - (no single PyTorch call "
+          f"{k_ms:.4f} ms (device {d_ms:.4f} ms) plain {p_ms:.4f} ms library - (no single PyTorch call "
           f"reads through a page table) bound {b_ms:.4f} ms ({b_by})")
     return row
 
@@ -941,12 +1077,17 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
     return sched, reqs, time.perf_counter() - t0
 
 
+# the kernels K1 launches (K2 shares the FMA one, matmul_tile_kernel, but
+# launches only while tuning)
+K1_KERNEL_NAMES = ("matmul_splitk_kernel", "matmul_tc_kernel", "matmul_tile_kernel")
+
+
 def profile_device(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's events
     (kernels, copies), their summed time by name, the time the device was
-    busy (the union of their intervals) and the span from the first event's
-    start to the last one's end.  Empty when the profiler saw no device
-    event."""
+    busy (the union of their intervals), the span from the first event's
+    start to the last one's end, and the summed time of K1's kernels.
+    Empty when the profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -961,13 +1102,17 @@ def profile_device(fn) -> dict:
         return {}
     busy, end = 0.0, spans[0][0]
     by_name = Counter()
+    k1 = 0.0
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         by_name[name[:60]] += t1 - t0
+        if any(k in name for k in K1_KERNEL_NAMES):
+            k1 += t1 - t0
     span = end - spans[0][0]
     return dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
                 idle_share=1.0 - busy / span if span > 0 else 0.0,
+                matmul_ms=k1 / 1e3,
                 top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
 
 
@@ -1016,6 +1161,7 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     hits0 = ctx.hits_by_key.get(attn_key, 0)
     norm0 = ctx.hits_by_key.get(norm_key, 0)
     counts0 = read_counts()
+    variants0 = read_variants()
     reasons0 = Counter(r for row in ctx.stats_by_key().values()
                        for r, n in row["reasons"].items() for _ in range(n))
     tuned = run(ctx, copy())
@@ -1023,6 +1169,7 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     hits = ctx.hits_by_key.get(attn_key, 0) - hits0
     norm_hits = ctx.hits_by_key.get(norm_key, 0) - norm0
     launches = {k: n - counts0[k] for k, n in read_counts().items()}
+    variants = variants_since(variants0)
     reasons = Counter(r for row in ctx.stats_by_key().values()
                       for r, n in row["reasons"].items() for _ in range(n))
     plain = run(None, copy())
@@ -1034,7 +1181,7 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     traced = profile_device(lambda: run(timing_ctx, caches[0]))
     traced_plain = profile_device(lambda: run(None, caches[1]))
     return dict(lanes=int(live.sum()), attention_decode_hits=hits,
-                rmsnorm_hits=norm_hits, launches=launches,
+                rmsnorm_hits=norm_hits, launches=launches, matmul_variants=variants,
                 new_reasons=dict(reasons - reasons0),
                 max_rel_err=rel, finite=bool(torch.isfinite(d).all()),
                 dispatched_ms=dispatched_ms, plain_ms=plain_ms,
@@ -1142,6 +1289,11 @@ def phase_serve(cfg, db, gen_seed: int = 0):
               f"span, idle share {prof['idle_share']:.3f}")
         for name, ms in prof["top_ms"].items():
             print(f"[serve]   {ms:8.3f} ms  {name}")
+    k1_ms = check["profile"].get("matmul_ms")
+    k1_ms = "not measured" if k1_ms is None else f"{k1_ms:.3f} ms"
+    print(f"[serve] K1 in one decode-only tick: launches by variant "
+          f"{check['matmul_variants']}; device time {k1_ms} (traced; "
+          f"{FMA_TICK_K1_MS} ms before the split-K variant)")
     print(f"[serve] one decode-only tick ({check['lanes']} lanes, host clock, median "
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
           f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
@@ -1158,6 +1310,9 @@ def phase_serve(cfg, db, gen_seed: int = 0):
         fail("matmul was not launched while serving")
     if reasons.get("lowering_failed"):
         fail(f"{reasons['lowering_failed']} lowering_failed misses while serving")
+    if check["matmul_variants"]["splitk"] != check["launches"]["matmul"]:
+        fail(f"decode-only tick: K1 launches by variant {check['matmul_variants']}; "
+             "every one should be splitk")
     k5_tick = check["launches"]["decode_flash_attention"]
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
@@ -1227,10 +1382,12 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
         plain, plain_ms = timed(lambda: plain_fwd(params))
         ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
+        variants0 = read_variants()
         with ctx:
             tuned = T.forward(cfg, params, toks)
         torch.cuda.synchronize()
         fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+        fwd_variants = variants_since(variants0)
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
@@ -1284,7 +1441,8 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
         for name, ms in prof["top_ms"].items():
             print(f"[ssm-forward]   {ms:8.3f} ms  {name}")
     print(f"[ssm-forward] {norm_key}: {norm_hits} hits, {unembed_key}: {unembed_hits} "
-          f"hits; kernel launches in one dispatched forward: {fwd_counts}")
+          f"hits; kernel launches in one dispatched forward: {fwd_counts}; K1 by "
+          f"variant {fwd_variants}")
     if not torch.isfinite(tuned.float()).all() or tuned.shape != (BATCH, SEQ, cfg.vocab):
         fail(f"{cfg.name} dispatched logits not finite or of shape {tuple(tuned.shape)}")
     if rel > TOL_LOGITS_REL:
@@ -1302,7 +1460,7 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
                plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
                rmsnorm_hits=norm_hits,
                unembed_hits=unembed_hits, reasons=dict(reasons), profiles=profiles,
-               launches=fwd_counts, tasks=len(tasks))
+               launches=fwd_counts, matmul_variants=fwd_variants, tasks=len(tasks))
     return tasks, best, res, tune_counts, fwd_counts
 
 
@@ -1541,14 +1699,20 @@ def main(argv=None) -> int:
     reset_counts()  # the mamba2 forward path starts here
     ssm_tasks, ssm_best, ssm_fwd, ssm_tune_counts, ssm_fwd_counts = phase_ssm_forward(
         ssm_cfg, ssm_db)
-    check_tiles(ssm_tasks, ssm_db)
+    ssm_runs = check_tiles(ssm_tasks, ssm_db)
+    # phase 6 for the mamba2 unembed, the one K1 site of its paths
+    rows.update(phase_timings(unembed_tasks(ssm_tasks, ssm_runs, ssm_cfg.vocab),
+                              ssm_runs, gen, ssm_cfg.vocab))
     clock("phase 9")
 
     ssm_serve_db = Database()
     reset_counts()  # the mamba2 serving path starts here
     ssm_serve_tasks, ssm_serve_best, ssm_serve, ssm_serve_tune_counts = phase_ssm_serve(
         ssm_cfg, ssm_serve_db)
-    check_tiles(ssm_serve_tasks, ssm_serve_db)
+    ssm_serve_runs = check_tiles(ssm_serve_tasks, ssm_serve_db)
+    rows.update(phase_timings(
+        unembed_tasks(ssm_serve_tasks, ssm_serve_runs, ssm_cfg.vocab),
+        ssm_serve_runs, gen, ssm_cfg.vocab))
     clock("phase 10")
 
     paths = {
@@ -1590,9 +1754,10 @@ def main(argv=None) -> int:
             launches=launches[k], forward_launches=fwd_counts[k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
-            plain_ms=r["plain_ms"],
+            plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
+            **({"variant": r["variant"]} if "variant" in r else {}),
         ))
     total_s = time.perf_counter() - t_start
     print(f"[done] build {build_s:.1f} s, total {total_s:.1f} s")
@@ -1608,7 +1773,11 @@ def main(argv=None) -> int:
                            structural=structural, ssm_forward=ssm_fwd,
                            ssm_tune_best=ssm_best, ssm_serve=ssm_serve,
                            ssm_serve_tune_best=ssm_serve_best,
-                           launches_by_path=paths), f, indent=1)
+                           launches_by_path=paths,
+                           matmul_variants=dict(
+                               forward=fwd["matmul_variants"],
+                               decode_tick=serve["tick_check"]["matmul_variants"],
+                               mamba2_forward=ssm_fwd["matmul_variants"])), f, indent=1)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -148,7 +148,8 @@ def lower_dense(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
     blocks = snap_blocks((M, N, K), sampled or DEFAULT_BLOCKS)
     bm, bn, bk = blocks
     _check_grid((M // bm) * (N // bn) * (K // bk), blocks)
-    mm.launch_config(1, M, N, K, blocks)  # shared-memory / thread caps
+    # the variant's shared-memory / thread / grid caps
+    mm.launch_config(1, M, N, K, blocks, kernel="matmul")
     # epilogue from the ORIGINAL workload name (dense_<epilogue>)
     epilogue = "none"
     if func.name.startswith("dense_"):

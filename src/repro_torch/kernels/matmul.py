@@ -1,26 +1,39 @@
 """K1 ``matmul`` and K2 ``batch_matmul``: the tunable matrix-product kernels.
 
-Source: ``csrc/matmul.cu`` (one source, two entry points), CUDA C++ for
-``sm_90a``.  It replaces the Pallas kernels ``matmul`` and
-``batch_matmul`` of the JAX package's ``kernels/matmul.py``.  The tuned
-(bm, bn, bk) are runtime arguments: they set the grid (N/bn, M/bm, B),
-the threads of a CTA and its dynamic shared memory ``4·(bm·bk + bk·bn)``
-bytes, so the tile the search sampled is the tile that runs.  The note at
-the top of the source says what bounds the kernel on the card and what
-its design does about it.
+Source: ``csrc/matmul.cu`` (one source), CUDA C++ for ``sm_90a``.  It
+replaces the Pallas kernels ``matmul`` and ``batch_matmul`` of the JAX
+package's ``kernels/matmul.py``.  The tuned (bm, bn, bk) are runtime
+arguments, so the tile the search sampled is the tile that runs.  K1 has
+three variants, chosen by :func:`variant` from M and the tile alone:
+
+* ``splitk`` for M < 16 (decode): grid (N/bn, M/bm, K/bk), 128 threads,
+  shared memory ``4·(bm·bk + 4·bm·bn)``; with K/bk > 1 the partials go to a
+  (K/bk, M, N) scratch the wrapper allocates and the last CTA of each
+  output tile sums them in split order (a per-tile counter the kernel
+  resets, kept per device and stream);
+* ``tc`` for M >= 16 with bm % 16, bn % 8 and bk % 8 all 0 (prefill and
+  forward): 3xTF32 tensor cores, grid (N/bn, M/bm), one warp per
+  :func:`warp_tile` block of m16n8 fragments, two ``cp.async`` stages when
+  they fit in shared memory (:func:`tc_stage_bytes`), else one;
+* ``fma`` otherwise: grid (N/bn, M/bm), the threads of :func:`micro_tile`
+  and ``4·(bm·bk + bk·bn)`` bytes of shared memory, as K2 always.
+
+The note at the top of the source says what bounds each variant on the
+card and what its design does about it.
 
 Beside each wrapper: its plain PyTorch version (``kernels/ref.py``), which
 the wrapper runs for CPU tensors only, and a launch counter
 (``matmul.launches`` / ``batch_matmul.launches``) that counts kernel
-launches and nothing else.  ``last_launch`` records the launch
-configuration of the latest launch.  For a CUDA tensor the wrapper checks
-device, dtype and shape, launches, and raises on a refused launch.
+launches and nothing else; ``matmul.launches_by_variant`` splits K1's by
+variant.  ``last_launch`` records the launch configuration of the latest
+launch.  For a CUDA tensor the wrapper checks device, dtype and shape,
+launches, and raises on a refused launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +46,13 @@ MAX_SMEM_BYTES = 227 * 1024
 MAX_THREADS = 512  # per CTA; the kernel's launch bound for T = 8
 _MICRO_TILES = (1, 2, 4, 8)  # per-thread output tile T x T, compiled sizes
 _GRID_YZ_MAX = 65535
+
+VARIANTS = ("splitk", "tc", "fma")
+SPLITK_MAX_M = 16  # M below this takes the split-K variant
+SPLITK_THREADS = 128  # four warps: SPLITK_WARPS in the source
+TC_MAX_WARPS = 16
+# (WM, WN) m16n8 fragments a warp, the compiled sizes, smallest first
+_WARP_TILES = ((1, 1), (1, 2), (2, 1), (2, 2), (1, 4), (4, 1), (2, 4), (4, 2), (4, 4))
 
 _ACT = {"none": 0, "relu": 1, "gelu": 2, "silu": 3, "softcap": 4}
 
@@ -65,38 +85,117 @@ def micro_tile(bm: int, bn: int) -> Tuple[int, int]:
     )
 
 
-def launch_config(
-    batch: int, M: int, N: int, K: int, blocks: Tuple[int, int, int]
-) -> dict:
-    """Grid, threads and dynamic shared memory of a launch with ``blocks``.
-
-    Raises ``ScheduleRejected`` for a tile that does not divide the
-    problem or that the card cannot run (shared memory, threads, grid), the
-    schedule rejections the search treats as failed candidates.
-    """
+def variant(M: int, blocks: Tuple[int, int, int]) -> str:
+    """K1's variant for a problem with M rows and the snapped tile."""
     bm, bn, bk = blocks
-    if M % bm or N % bn or K % bk:
-        raise ScheduleRejected(
-            "divide", f"blocks {tuple(blocks)} must divide {(M, N, K)}"
-        )
-    smem = 4 * (bm * bk + bk * bn)
+    if M < SPLITK_MAX_M:
+        return "splitk"
+    if bm % 16 == 0 and bn % 8 == 0 and bk % 8 == 0:
+        return "tc"
+    return "fma"
+
+
+def warp_tile(bm: int, bn: int) -> Tuple[Tuple[int, int], int]:
+    """((WM, WN), threads) of the ``tc`` variant: the smallest compiled
+    block of WM x WN m16n8 fragments a warp that tiles bm x bn with at most
+    16 warps.  Raises ``ScheduleRejected("threads")`` when none does."""
+    fm, fn = bm // 16, bn // 8
+    for wm, wn in _WARP_TILES:
+        warps = (fm // wm) * (fn // wn)
+        if fm % wm == 0 and fn % wn == 0 and warps <= TC_MAX_WARPS:
+            return (wm, wn), 32 * warps
+    raise ScheduleRejected(
+        "threads",
+        f"tile {bm}x{bn} needs more than {TC_MAX_WARPS} warps of 4x4 fragments"
+    )
+
+
+def tc_stage_bytes(bm: int, bn: int, bk: int) -> int:
+    """Shared memory of one ``tc`` stage: each operand's tile in the larger
+    of its two layouts, rows padded against bank conflicts (the source's
+    ``tc_x_floats`` and ``tc_w_floats``)."""
+    pad_n = 8 if bn % 16 == 0 else 0
+    x = max(bm * (bk + 4), bk * (bm + 8))
+    w = max(bk * (bn + pad_n), bn * (bk + 4))
+    return 4 * (x + w)
+
+
+def splitk_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Shared memory of a ``splitk`` CTA: x's (bm, bk) slice and one
+    (bm, bn) partial a warp."""
+    return 4 * (bm * bk + (SPLITK_THREADS // 32) * bm * bn)
+
+
+def _reject_smem(blocks, smem: int) -> None:
     if smem > MAX_SMEM_BYTES:
         raise ScheduleRejected(
             "shared_memory",
             f"tile {tuple(blocks)} needs {smem} bytes of shared memory; "
             f"cap {MAX_SMEM_BYTES}"
         )
-    t, threads = micro_tile(bm, bn)
-    grid = (N // bn, M // bm, batch)
+
+
+def _reject_grid(grid) -> None:
     if grid[1] > _GRID_YZ_MAX or grid[2] > _GRID_YZ_MAX:
         raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
-    return {
+
+
+def launch_config(
+    batch: int, M: int, N: int, K: int, blocks: Tuple[int, int, int],
+    kernel: str = "batch_matmul",
+) -> dict:
+    """Grid, threads and dynamic shared memory of a launch with ``blocks``.
+
+    ``kernel="batch_matmul"`` (K2): the FMA kernel's configuration.
+    ``kernel="matmul"`` (K1, ``batch`` 1): the :func:`variant`'s, with its
+    ``stages``, ``splits`` and ``warp_tile`` too.
+
+    Raises ``ScheduleRejected`` for a tile that does not divide the
+    problem or that the chosen kernel cannot run (shared memory, threads,
+    grid), the schedule rejections the search treats as failed candidates.
+    """
+    bm, bn, bk = blocks
+    if M % bm or N % bn or K % bk:
+        raise ScheduleRejected(
+            "divide", f"blocks {tuple(blocks)} must divide {(M, N, K)}"
+        )
+    if kernel not in ("matmul", "batch_matmul"):
+        raise ValueError(f"launch_config: unknown kernel {kernel!r}")
+    var = variant(M, blocks) if kernel == "matmul" else "fma"
+    if var == "splitk":
+        smem = splitk_smem_bytes(bm, bn, bk)
+        _reject_smem(blocks, smem)
+        grid = (N // bn, M // bm, K // bk)
+        _reject_grid(grid)
+        return {"variant": var, "blocks": (bm, bn, bk), "grid": grid,
+                "threads": SPLITK_THREADS, "smem_bytes": smem, "stages": 1,
+                "splits": K // bk, "warp_tile": None, "micro_tile": None}
+    if var == "tc":
+        stage = tc_stage_bytes(bm, bn, bk)
+        _reject_smem(blocks, stage)
+        stages = 2 if 2 * stage <= MAX_SMEM_BYTES else 1
+        wt, threads = warp_tile(bm, bn)
+        grid = (N // bn, M // bm, 1)
+        _reject_grid(grid)
+        return {"variant": var, "blocks": (bm, bn, bk), "grid": grid,
+                "threads": threads, "smem_bytes": stages * stage,
+                "stages": stages, "splits": 1, "warp_tile": wt,
+                "micro_tile": None}
+    smem = 4 * (bm * bk + bk * bn)
+    _reject_smem(blocks, smem)
+    t, threads = micro_tile(bm, bn)
+    grid = (N // bn, M // bm, batch)
+    _reject_grid(grid)
+    cfg = {
         "blocks": (bm, bn, bk),
         "grid": grid,
         "threads": threads,
         "micro_tile": t,
         "smem_bytes": smem,
     }
+    if kernel == "matmul":
+        cfg.update(variant=var, stages=1, splits=1, warp_tile=None)
+    return cfg
 
 
 def _lib():
@@ -113,6 +212,14 @@ def _lib():
             P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, I, P
         ]
         lib.repro_batch_matmul.restype = I
+        lib.repro_matmul_splitk.argtypes = [
+            P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, I, Fl, L, P
+        ]
+        lib.repro_matmul_splitk.restype = I
+        lib.repro_matmul_tc.argtypes = [
+            P, P, P, P, I, I, I, I, I, I, L, L, L, L, I, I, I, I, Fl, L, P
+        ]
+        lib.repro_matmul_tc.restype = I
         lib._repro_typed = True
     return lib
 
@@ -124,6 +231,20 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise RuntimeError(f"{name}: operands on {t.device} and {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+
+
+# one zeroed int a split-K output tile, per (device, stream); each launch
+# leaves it zero, and launches on one stream run one after another, so no
+# two launches share a counter at once
+_TILE_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    buf = _TILE_COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _TILE_COUNTERS[(device, stream)] = buf
+    return buf
 
 
 def _clamp(blocks, M, N, K):
@@ -155,27 +276,49 @@ def matmul(
     _check_cuda("matmul", *operands)
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"matmul: bias must be contiguous ({N},)")
-    cfg = launch_config(1, M, N, K, blocks)
+    cfg = launch_config(1, M, N, K, blocks, kernel="matmul")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     bm, bn, bk = blocks
+    var = cfg["variant"]
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr())
+    strides = (x.stride(0), x.stride(1), w.stride(0), w.stride(1))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().repro_matmul(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, N, K, bm, bn, bk,
-            x.stride(0), x.stride(1), w.stride(0), w.stride(1),
-            act, float(softcap), cfg["micro_tile"], stream,
-        )
+        lib = _lib()
+        if var == "splitk":
+            splits = cfg["splits"]
+            part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+                    if splits > 1 else None)
+            counters = _tile_counters(x.device, stream,
+                                      cfg["grid"][0] * cfg["grid"][1])
+            err = lib.repro_matmul_splitk(
+                *ptrs, None if part is None else part.data_ptr(),
+                counters.data_ptr(), M, N, K, bm, bn, bk, *strides,
+                act, float(softcap), cfg["smem_bytes"], stream,
+            )
+        elif var == "tc":
+            wm, wn = cfg["warp_tile"]
+            err = lib.repro_matmul_tc(
+                *ptrs, M, N, K, bm, bn, bk, *strides, wm, wn, cfg["stages"],
+                act, float(softcap), cfg["smem_bytes"], stream,
+            )
+        else:
+            err = lib.repro_matmul(
+                *ptrs, M, N, K, bm, bn, bk, *strides,
+                act, float(softcap), cfg["micro_tile"], stream,
+            )
     from ._build import check
 
-    check(err, f"matmul {tuple(blocks)} on ({M}, {N}, {K})")
+    check(err, f"matmul {var} {tuple(blocks)} on ({M}, {N}, {K})")
     matmul.launches += 1
+    matmul.launches_by_variant[var] += 1
     matmul.last_launch = cfg
     return y
 
 
 matmul.launches = 0
+matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 matmul.last_launch = None
 
 

@@ -8,7 +8,9 @@ installed.  TF32 is switched off for float32 matmuls
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set to False), so the plain versions
 run in full float32.  Tolerances: 1e-3 for f32 matrix products with
-K <= 72 (different summation orders), 1e-4 for attention, whose outputs
+K <= 72 (different summation orders), 2e-3 with K up to 1536 (N(0, 1)
+inputs, |y| up to ~200: ``TOL_MATMUL`` of ``chip_smoke.py``; the ``tc``
+variant's 3xTF32 keeps f32 accuracy), 1e-4 for attention, whose outputs
 are convex combinations of v.  K7 (ssd) against its plain version: 1e-5
 of the output's largest magnitude in f32 (sums of up to N + L terms in
 another order), 8e-3 of it with bf16 x/B/C (both round y to bf16 once: one
@@ -54,6 +56,133 @@ def test_cuda_matmul_against_plain(ep):
     assert mm.matmul.last_launch["grid"] == (3, 3, 1)
     want = tref.matmul(x, w, b, epilogue=ep)
     assert float((got - want).abs().max()) < 1e-3
+
+
+K1_EPILOGUES = ("none", "bias", "relu", "gelu", "silu", "softcap")
+TOL_MATMUL = 2e-3
+
+
+def _k1_operands(dev, seed, M, K, N, w_layout, x_layout="k"):
+    """x (M, K) and w (K, N) on the card; ``w_layout`` "k" reads w through a
+    (N, K) table transposed (the tied unembed), "n" is row-major; x "m" is a
+    transposed (K, M) tensor, "pad" a row-major one with rows of K + 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if x_layout == "m":
+        x = torch.randn(K, M, generator=g, device=dev).t()
+    elif x_layout == "pad":
+        x = torch.randn(M, K + 1, generator=g, device=dev)[:, :K]
+    else:
+        x = torch.randn(M, K, generator=g, device=dev)
+    if w_layout == "k":
+        w = torch.randn(N, K, generator=g, device=dev).t()
+    else:
+        w = torch.randn(K, N, generator=g, device=dev)
+    return x, w, torch.randn(N, generator=g, device=dev)
+
+
+def _k1_against_plain(x, w, bias, blocks, variant):
+    for ep in K1_EPILOGUES:
+        b = bias if ep == "bias" else None
+        n = mm.matmul.launches_by_variant[variant]
+        got = mm.matmul(x, w, b, epilogue=ep, block_sizes=blocks)
+        again = mm.matmul(x, w, b, epilogue=ep, block_sizes=blocks)
+        torch.cuda.synchronize()
+        assert mm.matmul.launches_by_variant[variant] == n + 2
+        cfg = mm.matmul.last_launch
+        assert cfg["variant"] == variant and cfg["blocks"] == blocks
+        want = tref.matmul(x, w, b, epilogue=ep)
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) < TOL_MATMUL, ep
+        assert torch.equal(got, again)  # the same bits every run
+    return cfg
+
+
+# decode shapes (M = 4 and an odd M = 3): one split and many, a bm below M,
+# a bn or bk that is not a multiple of 4 (scalar loads), both layouts of w
+@pytest.mark.parametrize("M,K,N,blocks", [
+    (4, 576, 576, (4, 64, 36)),
+    (4, 576, 576, (4, 64, 576)),
+    (4, 576, 1536, (2, 96, 96)),
+    (4, 1536, 576, (4, 18, 48)),
+    (3, 72, 120, (3, 40, 18)),
+    (4, 1024, 50280, (4, 60, 64)),  # mamba2's unembed at decode
+])
+@pytest.mark.parametrize("w_layout", ["n", "k"])
+def test_cuda_matmul_splitk_against_plain(M, K, N, blocks, w_layout):
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, M + K + N, M, K, N, w_layout)
+    cfg = _k1_against_plain(x, w, bias, blocks, "splitk")
+    bm, bn, bk = blocks
+    assert cfg["grid"] == (N // bn, M // bm, K // bk)
+    assert cfg["splits"] == K // bk and cfg["threads"] == mm.SPLITK_THREADS
+
+
+def test_cuda_matmul_splitk_unembed_shape():
+    """The tied unembed at decode: (4, 576) @ the (49152, 576) table read
+    transposed, many splits."""
+    dev = _cuda()
+    x, w, _ = _k1_operands(dev, 7, 4, 576, 49152, "k")
+    got = mm.matmul(x, w, block_sizes=(4, 256, 96))
+    torch.cuda.synchronize()
+    assert mm.matmul.last_launch["variant"] == "splitk"
+    assert mm.matmul.last_launch["grid"] == (192, 1, 6)
+    assert float((got - tref.matmul(x, w)).abs().max()) < TOL_MATMUL
+
+
+def test_cuda_matmul_splitk_on_two_streams():
+    """Split-K launches on two streams at once keep their own tile counters:
+    each gives the bits it gives alone."""
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, 11, 4, 1536, 576, "n")
+    blocks = (4, 18, 48)  # 32 splits
+    alone = mm.matmul(x, w, bias, epilogue="bias", block_sizes=blocks)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(mm.matmul(x, w, bias, epilogue="bias", block_sizes=blocks))
+    torch.cuda.synchronize()
+    for out in outs[0] + outs[1]:
+        assert torch.equal(out, alone)
+
+
+# forward shapes: two stages and one (128^3 needs 139 KB a stage), both
+# layouts of w, x transposed and x with rows that break 16-byte alignment
+@pytest.mark.parametrize("M,K,N,blocks,stages", [
+    (256, 576, 576, (64, 64, 32), 2),
+    (256, 576, 192, (32, 48, 64), 2),
+    (256, 256, 256, (128, 128, 128), 1),
+    (48, 72, 120, (16, 40, 24), 2),
+    (128, 576, 1536, (128, 16, 24), 2),  # a smollm serving chunk
+    (256, 1024, 50280, (32, 120, 32), 2),  # mamba2's unembed, bn 8 mod 16
+])
+@pytest.mark.parametrize("w_layout", ["n", "k"])
+def test_cuda_matmul_tc_against_plain(M, K, N, blocks, stages, w_layout):
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, M + K + N, M, K, N, w_layout)
+    cfg = _k1_against_plain(x, w, bias, blocks, "tc")
+    bm, bn, _ = blocks
+    assert cfg["grid"] == (N // bn, M // bm, 1) and cfg["stages"] == stages
+    assert cfg["smem_bytes"] == stages * mm.tc_stage_bytes(*blocks)
+
+
+@pytest.mark.parametrize("x_layout", ["m", "pad"])
+def test_cuda_matmul_tc_reads_x_through_its_strides(x_layout):
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, 3, 64, 96, 128, "n", x_layout)
+    assert not x.is_contiguous()
+    _k1_against_plain(x, w, bias, (32, 64, 32), "tc")
+
+
+def test_cuda_matmul_fma_variant_against_plain():
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, 5, 64, 72, 96, "n")
+    cfg = _k1_against_plain(x, w, bias, (32, 12, 36), "fma")
+    assert cfg["grid"] == (8, 2, 1)
 
 
 def test_cuda_batch_matmul_against_plain():
