@@ -15,8 +15,13 @@ Phases, in order; a failing phase makes the run exit non-zero:
    each of its variants: ``splitk`` at the five decode shapes with w in both
    layouts, ``tc`` at the four forward shapes and the transposed unembed in
    one and two stages, ``fma`` at one odd tile, every epilogue, with the
-   float64 product as a witness; K4, the row softmax, also in bfloat16, and
-   a row block too large for shared memory must be rejected);
+   float64 product as a witness; K2 in each of the same variants: ``tc`` at
+   the two attention contractions (b3 m768) in one and two stages and at
+   hymba-1.5b's (b5 m1280), ``splitk`` at the decode contraction (b12 m3)
+   in one split and many, ``fma`` at a ragged tile, each run twice for the
+   same bits; K4, the row softmax, also in bfloat16, on its registers
+   variant at row blocks 36-288 and its shared-memory variant at N = 258,
+   where a block too large for shared memory must be rejected);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window;
@@ -47,9 +52,12 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
    unembed follows phases 9 and 10), beside its plain version, the one
    PyTorch call that computes the same function (where there is one), and
-   the least time the card could take (K1's tc variant at the 3xTF32 rate);
-   device times (kernel and library call) from CUDA events around a CUDA
-   graph of 20 calls;
+   the least time the card could take (the tc variant of K1 and K2 at the
+   3xTF32 rate); device times (kernel and library call) from CUDA events
+   around a CUDA graph of 20 calls; then the same device times at fixed
+   tiles (``FIXED_TILES``: the tiles of the per-shape tables PERF.md keeps
+   for K1, K2 and K4), so runs whose search picked other tiles compare at
+   the same tile;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
    seq 256), tune them the same way, then the full-width 48-layer bf16
    forward under ``DispatchContext`` (49 rmsnorm hits, the unembed, K7 at
@@ -65,9 +73,10 @@ Phases, in order; a failing phase makes the run exit non-zero:
 Every kernel wrapper counts its launches; the counts are zeroed just before
 each of the five paths (forward: phases 4-5; serving: phase 7; operators:
 phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10) and read just
-after it; K1's launches are also counted by variant, and printed for the
-tuned forward, one decode-only tick (every one ``splitk``) and the mamba2
-forward.  TF32 is off for float32 matmuls in
+after it; K1's and K2's launches are also counted by variant: K1's are
+printed for the tuned forward, one decode-only tick (every one ``splitk``)
+and the mamba2 forward, K2's for phase 3 (every variant) and the serving
+path's tuning (every one ``splitk``).  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -199,10 +208,11 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(variant: str, M: int, N: int, K: int):
-    """(bound ms, by, bound ms at 67 TFLOP/s) of one K1 call: 2MNK flops at
-    the variant's peak (3xTF32 for tc), x and w read once, y written once."""
-    flops, nbytes = 2 * M * N * K, 4 * (M * K + K * N + M * N)
+def mm_bound(variant: str, M: int, N: int, K: int, B: int = 1):
+    """(bound ms, by, bound ms at 67 TFLOP/s) of one K1 (B = 1) or K2 call:
+    2BMNK flops at the variant's peak (3xTF32 for tc), x and w read once, y
+    written once."""
+    flops, nbytes = 2 * B * M * N * K, 4 * B * (M * K + K * N + M * N)
     peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
     b_ms, b_by = bound(flops, nbytes, peak)
     return b_ms, b_by, bound(flops, nbytes)[0]
@@ -294,7 +304,7 @@ def phase_kernels(gen) -> dict:
             x = randn(M, K)
             w = randn(N, K).t() if layout == "k" else randn(K, N)
             bias = randn(N)
-            cfg = mm.launch_config(1, M, N, K, blocks, kernel="matmul")
+            cfg = mm.launch_config(1, M, N, K, blocks)
             if cfg["variant"] != var:
                 fail(f"matmul {blocks} on {(M, N, K)} takes {cfg['variant']}, not {var}")
             exact = x.double() @ w.double()
@@ -317,20 +327,50 @@ def phase_kernels(gen) -> dict:
                 report("matmul", label, got, want, TOL_MATMUL, k_ms, p_ms, lib_ms,
                        exact if epi == "none" else None)
 
-    # K2: the attention contractions in canonical layout (B·KVH, G·S, ·)
+    # K2, each variant against the plain version, with the float64 product
+    # as a witness: tc at smollm's two attention contractions in canonical
+    # layout (B·KVH, G·S, ·), in two stages and one, and at hymba-1.5b's
+    # (b5 m1280, dispatched in its forward); splitk at the serving decode
+    # contraction (b12 m3 k256 n64) in one split and many, each run twice
+    # for the same bits; fma at a ragged tile.  check_tiles holds every
+    # tuned K2 tile against the plain version as well
     H, KVH, D = 9, 3, 64
     G = H // KVH
-    for (Bb, Mm, Kk, Nn), bs in (
-        ((KVH, G * SEQ, D, SEQ), (96, 64, 32)),
-        ((KVH, G * SEQ, SEQ, D), (48, 64, 128)),
+    k2_before = read_variants("batch_matmul")
+    for (Bb, Mm, Kk, Nn), bs, var in (
+        ((KVH, G * SEQ, SEQ, D), (96, 64, 32), "tc"),
+        ((KVH, G * SEQ, SEQ, D), (128, 64, 256), "tc"),
+        ((KVH, G * SEQ, D, SEQ), (48, 64, 64), "tc"),
+        ((KVH, G * SEQ, D, SEQ), (96, 64, 32), "tc"),
+        ((5, 1280, 256, 64), (64, 64, 64), "tc"),
+        ((5, 1280, 64, 256), (128, 128, 64), "tc"),
+        ((12, 3, 256, 64), (3, 64, 256), "splitk"),
+        ((12, 3, 256, 64), (3, 64, 32), "splitk"),
+        ((12, 3, 256, 64), (1, 16, 64), "splitk"),
+        ((KVH, G * SEQ, SEQ, D), (24, 32, 32), "fma"),
     ):
         a, b = randn(Bb, Mm, Kk), randn(Bb, Kk, Nn)
+        cfg = mm.launch_config(Bb, Mm, Nn, Kk, bs)
+        if cfg["variant"] != var:
+            fail(f"batch_matmul {bs} on {(Bb, Mm, Nn, Kk)} takes {cfg['variant']}, not {var}")
         got = mm.batch_matmul(a, b, block_sizes=bs)
+        again = mm.batch_matmul(a, b, block_sizes=bs)
+        if mm.batch_matmul.last_launch != cfg:
+            fail(f"batch_matmul launched {mm.batch_matmul.last_launch}, want {cfg}")
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"batch_matmul {var} {bs} on {(Bb, Mm, Nn, Kk)}: two runs differ")
         want = ref.batch_matmul(a, b)
-        report("batch_matmul", f"({Bb},{Mm},{Nn},{Kk}) blocks {bs}", got, want,
+        report("batch_matmul",
+               f"{var} ({Bb},{Mm},{Nn},{Kk}) blocks {bs} grid {cfg['grid']} stages "
+               f"{cfg['stages']} splits {cfg['splits']}", got, want,
                TOL_MATMUL, median_ms(lambda: mm.batch_matmul(a, b, block_sizes=bs)),
                median_ms(lambda: ref.batch_matmul(a, b)),
                median_ms(lambda: torch.bmm(a, b)), a.double() @ b.double())
+    k2_variants = {k: n - k2_before[k] for k, n in read_variants("batch_matmul").items()}
+    print(f"[kernels] batch_matmul launches by variant in phase 3: {k2_variants}")
+    if min(k2_variants.values()) <= 0:
+        fail(f"batch_matmul variants launched in phase 3: {k2_variants}")
 
     # K3: causal, sliding window, softcap, GQA 9/3, at S=256 and S=96
     for S in (SEQ, 96):
@@ -357,34 +397,44 @@ def phase_kernels(gen) -> dict:
                    median_ms(lambda: ref.flash_attention(q, k, v, **kw)), lib_ms)
 
     # K4: the attention softmax rows of one kv chunk (M = B·H·S, N = chunk),
-    # at row blocks that divide 2304 = 2^8·3^2 and are not powers of two
+    # at row blocks that divide 2304 = 2^8·3^2 and are not powers of two, on
+    # the registers variant (288 rows: no shared memory to limit the block);
+    # then the shared-memory variant at N = 258 (not a multiple of 4)
     from repro_torch.kernels import ScheduleRejected
     from repro_torch.kernels import softmax as sm
 
     errs["row_softmax"] = 0.0
     M, N = BATCH * H * SEQ, SEQ
     x = randn(M, N) * 4.0
+    x_shared = randn(M // 8, N + 2) * 4.0
     for dtype, tol in ((torch.float32, TOL_SOFTMAX_F32),
                        (torch.bfloat16, TOL_SOFTMAX_BF16)):
-        xx = x.to(dtype)
-        want = ref.row_softmax(xx)
-        for bm in (36, 72, 144):
-            got = sm.row_softmax(xx, block_rows=bm)
-            if sm.row_softmax.last_launch["blocks"] != (bm,):
-                fail(f"row_softmax launched {sm.row_softmax.last_launch}, asked ({bm},)")
-            report("row_softmax", f"({M},{N}) {str(dtype)[6:]} block_rows {bm}",
-                   got, want, tol,
-                   median_ms(lambda: sm.row_softmax(xx, block_rows=bm)),
-                   median_ms(lambda: ref.row_softmax(xx)),
-                   median_ms(lambda: torch.softmax(xx, -1)))
-    try:
-        sm.row_softmax(x, block_rows=288)
-    except ScheduleRejected as e:
-        print(f"[kernels] row_softmax block_rows 288 at N={N}: rejected ({e.reason})")
-        if e.reason != "shared_memory":
-            fail(f"row_softmax 288 rejected for {e.reason}, not shared_memory")
-    else:
-        fail("row_softmax block_rows 288 was not rejected")
+        for xx, bms in ((x.to(dtype), (36, 72, 144, 288)),
+                        (x_shared.to(dtype), (12, 48))):
+            want = ref.row_softmax(xx)
+            for bm in bms:
+                cfg = sm.launch_config(*xx.shape, bm)
+                got = sm.row_softmax(xx, block_rows=bm)
+                if sm.row_softmax.last_launch != cfg:
+                    fail(f"row_softmax launched {sm.row_softmax.last_launch}, want {cfg}")
+                report("row_softmax",
+                       f"{cfg['variant']} {tuple(xx.shape)} {str(dtype)[6:]} "
+                       f"block_rows {bm} threads {cfg['threads']} smem {cfg['smem_bytes']}",
+                       got, want, tol,
+                       median_ms(lambda: sm.row_softmax(xx, block_rows=bm)),
+                       median_ms(lambda: ref.row_softmax(xx)),
+                       median_ms(lambda: torch.softmax(xx, -1)))
+    for xx, bm, reason in ((x, 100, "divide"), (randn(M, N + 2), 288, "shared_memory")):
+        try:
+            sm.row_softmax(xx, block_rows=bm)
+        except ScheduleRejected as e:
+            print(f"[kernels] row_softmax block_rows {bm} at N={xx.shape[1]}: "
+                  f"rejected ({e.reason})")
+            if e.reason != reason:
+                fail(f"row_softmax {bm} at N={xx.shape[1]} rejected for {e.reason}, "
+                     f"not {reason}")
+        else:
+            fail(f"row_softmax block_rows {bm} at N={xx.shape[1]} was not rejected")
     return errs
 
 
@@ -603,17 +653,19 @@ def _wrappers():
 def reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
-    k1 = _wrappers()["matmul"]
-    k1.launches_by_variant = dict.fromkeys(k1.launches_by_variant, 0)
+    for k in ("matmul", "batch_matmul"):
+        w = _wrappers()[k]
+        w.launches_by_variant = dict.fromkeys(w.launches_by_variant, 0)
 
 
 def read_counts() -> dict:
     return {k: w.launches for k, w in _wrappers().items()}
 
 
-def read_variants() -> dict:
-    """K1's launches by variant so far (``splitk``, ``tc``, ``fma``)."""
-    return dict(_wrappers()["matmul"].launches_by_variant)
+def read_variants(kernel: str = "matmul") -> dict:
+    """K1's (or K2's) launches by variant so far (``splitk``, ``tc``,
+    ``fma``)."""
+    return dict(_wrappers()[kernel].launches_by_variant)
 
 
 def variants_since(before: dict) -> dict:
@@ -727,19 +779,17 @@ def check_tiles(tasks, db) -> dict:
                         smem_bytes=fa.decode_smem_bytes(g, bkv, d))
         elif kern == "row_softmax":
             M, N = shapes[0]
-            (bm,) = snapped
-            want = dict(grid=(M // bm,), threads=32 * min(bm, sm.WARPS),
-                        smem_bytes=sm.smem_bytes(bm, N))
+            cfg = sm.launch_config(M, N, *snapped)
+            want = {k: cfg[k] for k in ("variant", "grid", "threads", "smem_bytes")}
         else:
             if kern == "matmul":
                 (M, K), (_, N), B = shapes[0], shapes[1], 1
             else:
                 (B, M, K), N = shapes[0], shapes[1][2]
-            cfg = mm.launch_config(B, M, N, K, snapped, kernel=kern)
-            want = {k: cfg[k] for k in ("variant", "grid", "threads", "smem_bytes")
-                    if k in cfg}
+            cfg = mm.launch_config(B, M, N, K, snapped)
+            want = {k: cfg[k] for k in ("variant", "grid", "threads", "smem_bytes")}
         got = {k: last[k] for k in want}
-        var = f" {last['variant']}" if kern == "matmul" else ""
+        var = f" {last['variant']}" if "variant" in last else ""
         print(f"[tiles] {t.key}:{var} sampled {sampled} "
               f"snapped {list(snapped)} -> grid {last['grid']} threads "
               f"{last['threads']} smem {last['smem_bytes']} B; best "
@@ -748,6 +798,8 @@ def check_tiles(tasks, db) -> dict:
             fail(f"{t.key}: launch {last} does not follow snapped blocks {snapped}")
         if kern == "matmul":
             tuned_k1_against_plain(t, ins, snapped, next(iter(outs.values())))
+        elif kern == "batch_matmul":
+            tuned_k2_against_plain(t, ins, snapped, next(iter(outs.values())))
         runs[t.key] = (kern, snapped, shapes)
     return runs
 
@@ -774,6 +826,29 @@ def tuned_k1_against_plain(t, ins, blocks, got) -> None:
               f"against plain: max_abs_err {err:.3e} (tol {TOL_MATMUL:g})")
         if not math.isfinite(err) or err > TOL_MATMUL:
             fail(f"{t.key}: K1 {var} {blocks} w {layout}-contiguous: "
+                 f"max_abs_err {err} > {TOL_MATMUL}")
+
+
+def tuned_k2_against_plain(t, ins, blocks, got) -> None:
+    """Hold K2 at a tuned tile against the plain version within
+    TOL_MATMUL: the record's own output (contiguous operands) and the same
+    product with both operands read transposed (x m-contiguous, w
+    k-contiguous, as attention reads k)."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+
+    a, b = ins["A"], ins["B"]
+    want = ref.batch_matmul(a, b)
+    got_t = mm.batch_matmul(a.transpose(1, 2).contiguous().transpose(1, 2),
+                            b.transpose(1, 2).contiguous().transpose(1, 2),
+                            block_sizes=blocks)
+    var = mm.batch_matmul.last_launch["variant"]
+    for layout, y in (("contiguous", got), ("transposed", got_t)):
+        err = float((y.float() - want.float()).abs().max())
+        print(f"[tiles] {t.key}: {var} {list(blocks)} operands {layout} against "
+              f"plain: max_abs_err {err:.3e} (tol {TOL_MATMUL:g})")
+        if not math.isfinite(err) or err > TOL_MATMUL:
+            fail(f"{t.key}: K2 {var} {blocks} operands {layout}: "
                  f"max_abs_err {err} > {TOL_MATMUL}")
 
 
@@ -888,8 +963,8 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             p_ms = median_ms(lambda: ref.matmul(x, w))
             l_ms = median_ms(library)
             flops = 2 * M * N * K
-            var = mm.launch_config(1, M, N, K, snapped, kernel="matmul")["variant"]
-            b_ms, b_by, b67 = k1_bound(var, M, N, K)
+            var = mm.launch_config(1, M, N, K, snapped)["variant"]
+            b_ms, b_by, b67 = mm_bound(var, M, N, K)
             extra = dict(variant=var, bound_f32_ms=b67)
         elif kern == "batch_matmul":
             (B, M, K), N = shapes[0], shapes[1][2]
@@ -904,7 +979,9 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             p_ms = median_ms(lambda: ref.batch_matmul(a, b))
             l_ms = median_ms(library)
             flops = 2 * B * M * N * K
-            nbytes = 4 * B * (M * K + K * N + M * N)
+            var = mm.launch_config(B, M, N, K, snapped)["variant"]
+            b_ms, b_by, b67 = mm_bound(var, M, N, K, B)
+            extra = dict(variant=var, bound_f32_ms=b67)
         elif kern == "row_softmax":
             M, N = shapes[0]
             (bm,) = snapped
@@ -919,6 +996,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             # max, subtract, exp, sum and divide an element; x read once and
             # y written once
             flops, nbytes = 5 * M * N, 2 * 4 * M * N
+            extra = dict(variant=sm.launch_config(M, N, bm)["variant"])
         elif kern == "decode_flash_attention":
             (b, kvh, g, d), t_len = shapes[0], shapes[1][2]
             (bkv,) = snapped
@@ -952,7 +1030,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             # causal: only the s(s+1)/2 unmasked pairs need work
             flops = 4 * b * h * d * (s * (s + 1) // 2)
             nbytes = 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
-        if kern != "matmul":
+        if kern not in ("matmul", "batch_matmul"):
             b_ms, b_by = bound(flops, nbytes)
         # the kernel and the library call on one footing: device time by
         # CUDA-graph replay of 20 calls each
@@ -966,6 +1044,72 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
         print(f"[time] {t.key} {kern}{var} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
               f"(device {d_ms:.4f} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
               f"(device {l_d_ms:.4f} ms) bound {b_ms:.4f} ms ({b_by}{f32})")
+    return rows
+
+
+# Fixed tiles timed every run, so runs compare at the same tile whatever
+# the search picks: K1 at the tiles of the per-shape table PERF.md keeps for
+# its three variants, K2 and K4 at the tiles PERF.md records for their
+# kernels before the shared variants and the registers softmax.
+# (kernel, shape, blocks); K1's shape is (M, K, N, w layout), K2's (B, M,
+# K, N), K4's (M, N)
+FIXED_TILES = (
+    ("matmul", (256, 576, 1536, "n"), (64, 32, 64)),
+    ("matmul", (256, 576, 49152, "k"), (64, 96, 16)),
+    ("matmul", (256, 1536, 576, "n"), (64, 24, 24)),
+    ("matmul", (256, 576, 576, "n"), (16, 96, 72)),
+    ("matmul", (256, 576, 192, "n"), (16, 96, 72)),
+    ("matmul", (128, 576, 1536, "n"), (128, 16, 24)),
+    ("matmul", (128, 1536, 576, "n"), (16, 24, 32)),
+    ("matmul", (128, 576, 576, "n"), (16, 24, 64)),
+    ("matmul", (128, 576, 192, "n"), (128, 16, 24)),
+    ("matmul", (4, 576, 49152, "k"), (4, 96, 96)),
+    ("matmul", (4, 576, 1536, "n"), (2, 6, 96)),
+    ("matmul", (4, 1536, 576, "n"), (4, 18, 64)),
+    ("matmul", (4, 576, 576, "n"), (2, 12, 96)),
+    ("matmul", (4, 576, 192, "n"), (2, 32, 64)),
+    ("matmul", (256, 1024, 50280, "k"), (32, 120, 32)),
+    ("matmul", (4, 1024, 50280, "k"), (4, 60, 64)),
+    ("batch_matmul", (3, 768, 256, 64), (24, 32, 32)),
+    ("row_softmax", (2304, 256), (12,)),
+)
+
+
+def fixed_tile_timings(gen) -> list:
+    """Device ms by CUDA-graph replay of each FIXED_TILES entry, beside its
+    library call's."""
+    import torch
+
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import softmax as sm
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = []
+    for kern, shape, blocks in FIXED_TILES:
+        if kern == "matmul":
+            M, K, N, layout = shape
+            x = randn(M, K)
+            w = randn(N, K).t() if layout == "k" else randn(K, N)
+            calls = (lambda: mm.matmul(x, w, block_sizes=blocks),
+                     lambda: torch.matmul(x, w))
+        elif kern == "batch_matmul":
+            B, M, K, N = shape
+            a, b = randn(B, M, K), randn(B, K, N)
+            calls = (lambda: mm.batch_matmul(a, b, block_sizes=blocks),
+                     lambda: torch.bmm(a, b))
+        else:
+            x = randn(*shape)
+            calls = (lambda: sm.row_softmax(x, block_rows=blocks[0]),
+                     lambda: torch.softmax(x, -1))
+        calls[0]()
+        var = _wrappers()[kern].last_launch["variant"]
+        d_ms, l_ms = (graph_ms(fn) for fn in calls)
+        print(f"[time] fixed tile {kern} {var} {shape} {list(blocks)}: device "
+              f"{d_ms:.4f} ms, library {l_ms:.4f} ms ({d_ms / l_ms:.2f}x)")
+        rows.append(dict(kernel=kern, variant=var, shape=list(shape),
+                         blocks=list(blocks), device_ms=d_ms, library_device_ms=l_ms))
     return rows
 
 
@@ -1077,8 +1221,9 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
     return sched, reqs, time.perf_counter() - t0
 
 
-# the kernels K1 launches (K2 shares the FMA one, matmul_tile_kernel, but
-# launches only while tuning)
+# the kernels K1 launches; K2 shares all three, but launches in neither
+# traced call (the decode-only tick checks that K2 has no launch in it, and
+# mamba2 has no batch_matmul site)
 K1_KERNEL_NAMES = ("matmul_splitk_kernel", "matmul_tc_kernel", "matmul_tile_kernel")
 
 
@@ -1204,6 +1349,12 @@ def phase_serve(cfg, db, gen_seed: int = 0):
 
     tasks, best = phase_tune(cfg, db, extract=extract, tag="serve-tune")
     tune_counts = read_counts()
+    # the decode contraction (M = 3) tunes on K2's split-K variant
+    k2_tune = read_variants("batch_matmul")
+    print(f"[serve-tune] batch_matmul launches by variant while tuning: {k2_tune}")
+    if k2_tune["splitk"] <= 0 or k2_tune["splitk"] != tune_counts["batch_matmul"]:
+        fail(f"serving tuning launched K2 {tune_counts['batch_matmul']} times, by "
+             f"variant {k2_tune}; want every launch splitk")
     attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
     norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
                             tokens=SERVE_SLOTS)
@@ -1259,7 +1410,7 @@ def phase_serve(cfg, db, gen_seed: int = 0):
         prefill_chunks=s["prefill_chunks"],
         attention_decode_tuned=stats["attention_decode_tuned"],
         greedy_agreement=agree / max(total, 1), stats=stats, tick_check=check,
-        launches=serve_counts,
+        launches=serve_counts, batch_matmul_tune_variants=k2_tune,
     )
     print(f"[serve] completed {done}/{len(reqs)} requests, {tokens} tokens in "
           f"{wall:.2f} s ({s['decode_steps']} decode ticks, {s['mixed_ticks']} "
@@ -1313,6 +1464,9 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     if check["matmul_variants"]["splitk"] != check["launches"]["matmul"]:
         fail(f"decode-only tick: K1 launches by variant {check['matmul_variants']}; "
              "every one should be splitk")
+    if check["launches"]["batch_matmul"]:
+        fail(f"decode-only tick: {check['launches']['batch_matmul']} K2 launches; the "
+             "tick's K1 device time counts matmul.cu's kernels as K1's")
     k5_tick = check["launches"]["decode_flash_attention"]
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
@@ -1692,6 +1846,7 @@ def main(argv=None) -> int:
     rows["ssd"] = ssd_row
     structural = structural_timings(tasks, db)
     structural.update(structural_timings(serve_tasks, serve_db))
+    fixed = fixed_tile_timings(gen)
     clock("phase 6")
 
     ssm_cfg = get_config(SSM_ARCH)
@@ -1773,7 +1928,7 @@ def main(argv=None) -> int:
                            structural=structural, ssm_forward=ssm_fwd,
                            ssm_tune_best=ssm_best, ssm_serve=ssm_serve,
                            ssm_serve_tune_best=ssm_serve_best,
-                           launches_by_path=paths,
+                           launches_by_path=paths, fixed_tiles=fixed,
                            matmul_variants=dict(
                                forward=fwd["matmul_variants"],
                                decode_tick=serve["tick_check"]["matmul_variants"],

@@ -149,7 +149,7 @@ def lower_dense(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
     bm, bn, bk = blocks
     _check_grid((M // bm) * (N // bn) * (K // bk), blocks)
     # the variant's shared-memory / thread / grid caps
-    mm.launch_config(1, M, N, K, blocks, kernel="matmul")
+    mm.launch_config(1, M, N, K, blocks)
     # epilogue from the ORIGINAL workload name (dense_<epilogue>)
     epilogue = "none"
     if func.name.startswith("dense_"):
@@ -170,7 +170,8 @@ def lower_dense(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
 
 
 def lower_batch_matmul(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
-    """Tuned batched matmul via the CUDA bmm kernel (K2, batch on grid z)."""
+    """Tuned batched matmul via the CUDA kernels (K2: K1's variants with a
+    batch axis)."""
     from ..kernels import matmul as mm
 
     func = sch.func

@@ -4,21 +4,24 @@
 //
 // Replaces the Pallas kernels in src/repro/kernels/matmul.py (`matmul`,
 // `batch_matmul`).  There the sequential k grid axis carried an f32 VMEM
-// accumulator.  Here K1 has three variants, chosen in Python
-// (kernels/matmul.py, `launch_config`) from M and the tile alone:
+// accumulator, and K2's batch was one more parallel grid axis.  Here both
+// products share three kernels, each with a batch axis (K1 is batch 1,
+// batch stride 0), and one rule picks the variant (kernels/matmul.py,
+// `variant`) from M and the tile alone:
 //
 // * `splitk` (M < 16, every decode task): bound by bytes.  Each weight
 //   byte is used M times, far below the ~20 FLOP/byte at which f32 FMAs
 //   would be the limit, so what matters is keeping HBM busy.  The grid is
-//   (N/bn, M/bm, K/bk): every CTA reduces one bk slice of K, so the tuned
-//   bk sets the split and small shapes still fill the 132 SMs.  A CTA
-//   stages x's (bm, bk) slice in shared memory and streams w's (bk, bn)
-//   slice once from global memory, with 16-byte loads along w's unit-stride
-//   axis where alignment allows (n for the projections, k for the tied
-//   unembed), then reduces in the warp (shuffles) and across warps (shared
-//   memory) in a fixed order.  With K/bk > 1 the CTAs write f32 partials to
-//   a scratch buffer the wrapper allocates; the last CTA of an output tile
-//   to arrive (a per-tile counter, reset by that CTA) sums the partials in
+//   (N/bn, B*M/bm, K/bk): grid y is batch-major over the row tiles, and
+//   every CTA reduces one bk slice of K, so the tuned bk sets the split and
+//   small shapes still fill the 132 SMs.  A CTA stages x's (bm, bk) slice
+//   in shared memory and streams w's (bk, bn) slice once from global
+//   memory, with 16-byte loads along w's unit-stride axis where alignment
+//   allows (n for the projections, k for the tied unembed), then reduces
+//   in the warp (shuffles) and across warps (shared memory) in a fixed
+//   order.  With K/bk > 1 the CTAs write f32 partials to a (K/bk, B, M, N)
+//   scratch the wrapper allocates; the last CTA of an output tile to
+//   arrive (a per-tile counter, reset by that CTA) sums the partials in
 //   split order and applies bias and epilogue once: one launch, the same
 //   bits every run.
 // * `tc` (M >= 16, bm % 16 == 0, bn % 8 == 0, bk % 8 == 0, the forward and
@@ -30,22 +33,23 @@
 //   added to an f32 accumulator: summing all of K in the tensor cores gave
 //   errors 20x the plain f32 product's at K = 576 on an H100.  x and w tiles are
 //   staged with `cp.async` (16-byte copies where the unit-stride axis and
-//   alignment allow, 4-byte otherwise), in two stages when two fit in
-//   shared memory, each operand in its own layout with rows padded so the
-//   fragment loads do not conflict on banks.  Each warp owns WM x WN
-//   m16n8 fragments; bias and activation are applied from the accumulator
-//   registers.  No wgmma, TMA or persistent schedule yet.
-// * `fma` (every other tile, e.g. bk = 36 or bn = 12), and K2 always: one
-//   CTA owns one bm x bn output tile and loops over K in steps of bk,
-//   staging x[bm, bk] and w[bk, bn] in dynamic shared memory, T x T f32
-//   accumulators a thread, plain FMAs (67 TFLOP/s at most), no pipelining.
-//   blockIdx.z is the batch for K2.
+//   the alignment of every batch's base allow, 4-byte otherwise), in two
+//   stages when two fit in shared memory, each operand in its own layout
+//   with rows padded so the fragment loads do not conflict on banks.  Each
+//   warp owns WM x WN m16n8 fragments; bias and activation are applied
+//   from the accumulator registers.  blockIdx.z is the batch.  No wgmma,
+//   TMA or persistent schedule yet.
+// * `fma` (every other tile, e.g. bk = 36 or bm = 24): one CTA owns one
+//   bm x bn output tile and loops over K in steps of bk, staging x[bm, bk]
+//   and w[bk, bn] in dynamic shared memory, T x T f32 accumulators a
+//   thread, plain FMAs (67 TFLOP/s at most), no pipelining.  blockIdx.z is
+//   the batch.
 //
 // The epilogue (bias, relu, exact gelu, silu, softcap) runs once per
 // output.  Every operand is read through explicit strides, so the tied
 // unembed reads the (vocab, d) table as a transposed (d, vocab) operand
-// without a copy.  Tiles divide the problem (the wrapper rejects others),
-// so no variant has a ragged edge.
+// without a copy.  y is (B, M, N) contiguous.  Tiles divide the problem
+// (the wrapper rejects others), so no variant has a ragged edge.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -209,9 +213,10 @@ __device__ __forceinline__ float warp_sum(float v, int from, int to) {
   return v;
 }
 
-// One CTA reduces x[m0:m0+bm, k0:k0+bk] @ w[k0:k0+bk, n0:n0+bn], k0 =
-// blockIdx.z * bk.  MR >= bm rows of accumulators; V = 4 reads w 16 bytes at
-// a time along its unit-stride axis, V = 1 one float through both strides.
+// One CTA reduces x[b, m0:m0+bm, k0:k0+bk] @ w[b, k0:k0+bk, n0:n0+bn],
+// blockIdx.y = b * (M / bm) + m0 / bm, k0 = blockIdx.z * bk.  MR >= bm rows
+// of accumulators; V = 4 reads w 16 bytes at a time along its unit-stride
+// axis, V = 1 one float through both strides.
 // KMAJ: w's unit stride is along k (the transposed unembed).
 //   !KMAJ: a warp's lanes are C column vectors x G k-lanes, warps split k;
 //          each output is summed over the G lanes (shuffles), then over the
@@ -219,29 +224,35 @@ __device__ __forceinline__ float warp_sum(float v, int from, int to) {
 //   KMAJ:  a warp's lanes are G <= 8 k-vectors x C columns, warps split n;
 //          each output is summed over the G lanes (shuffles).
 // Then either y = act(sum + bias) (one split), or the sum goes to
-// part[split] and the last CTA of the output tile sums part[0..splits) in
-// order and writes y.
+// part[split, b] and the last CTA of the output tile sums part[0..splits, b]
+// in order and writes y[b].
 template <int MR, int V, bool KMAJ>
 __global__ void __launch_bounds__(SPLITK_WARPS * 32) matmul_splitk_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ y,
     float* __restrict__ part, int* __restrict__ counters,
-    int M, int N, int bm, int bn, int bk,
-    long long sxm, long long sxk, long long swk, long long swn,
+    int B, int M, int N, int bm, int bn, int bk,
+    long long sxb, long long sxm, long long sxk,
+    long long swb, long long swk, long long swn,
     int act, float softcap) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;             // [bm][bk]
   float* red = smem + bm * bk;  // [SPLITK_WARPS][bm][bn]
   __shared__ int last_cta;
 
-  const int n0 = blockIdx.x * bn, m0 = blockIdx.y * bm;
+  // y and part hold B * M rows of N, so the output's first row is
+  // blockIdx.y * bm; only x and w need the batch itself
+  const int tiles_m = M / bm;
+  const int b = B > 1 ? blockIdx.y / tiles_m : 0;
+  const int n0 = blockIdx.x * bn, m0 = (blockIdx.y - b * tiles_m) * bm;
+  const long long row0 = (long long)blockIdx.y * bm, rows = (long long)gridDim.y * bm;
   const int split = blockIdx.z, splits = gridDim.z;
   const long long k0 = (long long)split * bk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int e = tid; e < bm * bk; e += blockDim.x) {
     const int r = e / bk, c = e - r * bk;
-    xs[e] = x[(long long)(m0 + r) * sxm + (k0 + c) * sxk];
+    xs[e] = x[b * sxb + (m0 + r) * sxm + (k0 + c) * sxk];
   }
   __syncthreads();
 
@@ -260,7 +271,7 @@ __global__ void __launch_bounds__(SPLITK_WARPS * 32) matmul_splitk_kernel(
 #pragma unroll
         for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
       if (u < U) {
-        const float* wp = w + k0 * swk + (long long)(n0 + u * V) * swn;
+        const float* wp = w + b * swb + k0 * swk + (long long)(n0 + u * V) * swn;
 #pragma unroll 4
         for (int k = kl; k < bk; k += KL) {
           float wv[V];
@@ -311,7 +322,7 @@ __global__ void __launch_bounds__(SPLITK_WARPS * 32) matmul_splitk_kernel(
 #pragma unroll
       for (int m = 0; m < MR; ++m) acc[m] = 0.f;
       if (n < bn) {
-        const float* wp = w + (long long)(n0 + n) * swn + k0 * swk;
+        const float* wp = w + b * swb + (long long)(n0 + n) * swn + k0 * swk;
 #pragma unroll 4
         for (int kv = g; kv < U; kv += G) {
           if constexpr (V == 4) {
@@ -353,9 +364,9 @@ __global__ void __launch_bounds__(SPLITK_WARPS * 32) matmul_splitk_kernel(
     for (int s = 1; s < slots; ++s) v += red[(s * bm + m) * bn + n];
     if (splits == 1) {
       if (bias != nullptr) v += bias[n0 + n];
-      y[(long long)(m0 + m) * N + n0 + n] = apply_act(v, act, softcap);
+      y[(row0 + m) * N + n0 + n] = apply_act(v, act, softcap);
     } else {
-      part[((long long)split * M + m0 + m) * N + n0 + n] = v;
+      part[((long long)split * rows + row0 + m) * N + n0 + n] = v;
     }
   }
   if (splits == 1) return;
@@ -370,21 +381,21 @@ __global__ void __launch_bounds__(SPLITK_WARPS * 32) matmul_splitk_kernel(
   __threadfence();
   for (int e = tid; e < bm * bn; e += blockDim.x) {
     const int m = e / bn, n = e - m * bn;
-    const float* p = part + (long long)(m0 + m) * N + n0 + n;
+    const float* p = part + (row0 + m) * N + n0 + n;
     float v = __ldcg(p);
-    for (int s = 1; s < splits; ++s) v += __ldcg(p + (long long)s * M * N);
+    for (int s = 1; s < splits; ++s) v += __ldcg(p + s * rows * N);
     if (bias != nullptr) v += bias[n0 + n];
-    y[(long long)(m0 + m) * N + n0 + n] = apply_act(v, act, softcap);
+    y[(row0 + m) * N + n0 + n] = apply_act(v, act, softcap);
   }
   if (tid == 0) counters[tile] = 0;  // ready for the next launch
 }
 
 template <int MR, int V, bool KMAJ>
 int launch_splitk_t(const float* x, const float* w, const float* bias, float* y,
-                    float* part, int* counters, int M, int N, int K, int bm,
-                    int bn, int bk, long long sxm, long long sxk, long long swk,
-                    long long swn, int act, float softcap, size_t smem,
-                    cudaStream_t stream) {
+                    float* part, int* counters, int B, int M, int N, int K,
+                    int bm, int bn, int bk, long long sxb, long long sxm,
+                    long long sxk, long long swb, long long swk, long long swn,
+                    int act, float softcap, size_t smem, cudaStream_t stream) {
   static int opted_in = 48 * 1024;
   if ((int)smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -393,27 +404,29 @@ int launch_splitk_t(const float* x, const float* w, const float* bias, float* y,
     if (err != cudaSuccess) return (int)err;
     opted_in = (int)smem;
   }
-  const dim3 grid(N / bn, M / bm, K / bk);
+  const dim3 grid(N / bn, B * (M / bm), K / bk);
   matmul_splitk_kernel<MR, V, KMAJ><<<grid, SPLITK_WARPS * 32, smem, stream>>>(
-      x, w, bias, y, part, counters, M, N, bm, bn, bk, sxm, sxk, swk, swn, act,
-      softcap);
+      x, w, bias, y, part, counters, B, M, N, bm, bn, bk, sxb, sxm, sxk, swb,
+      swk, swn, act, softcap);
   return (int)cudaGetLastError();
 }
 
 template <int MR>
 int launch_splitk_mr(const float* x, const float* w, const float* bias,
-                     float* y, float* part, int* counters, int M, int N, int K,
-                     int bm, int bn, int bk, long long sxm, long long sxk,
-                     long long swk, long long swn, int act, float softcap,
-                     size_t smem, cudaStream_t stream) {
+                     float* y, float* part, int* counters, int B, int M, int N,
+                     int K, int bm, int bn, int bk, long long sxb,
+                     long long sxm, long long sxk, long long swb, long long swk,
+                     long long swn, int act, float softcap, size_t smem,
+                     cudaStream_t stream) {
   const bool kmaj = swk == 1 && swn != 1;
-  const bool vec = aligned16(w) &&
+  // every batch's base stays 16-byte aligned too
+  const bool vec = aligned16(w) && swb % 4 == 0 &&
                    (kmaj ? (bk % 4 == 0 && swn % 4 == 0)
                          : (swn == 1 && bn % 4 == 0 && swk % 4 == 0));
-#define REPRO_SPLITK(VV, KM)                                                 \
-  return launch_splitk_t<MR, VV, KM>(x, w, bias, y, part, counters, M, N, K, \
-                                     bm, bn, bk, sxm, sxk, swk, swn, act,    \
-                                     softcap, smem, stream);
+#define REPRO_SPLITK(VV, KM)                                                  \
+  return launch_splitk_t<MR, VV, KM>(x, w, bias, y, part, counters, B, M, N, \
+                                     K, bm, bn, bk, sxb, sxm, sxk, swb, swk,  \
+                                     swn, act, softcap, smem, stream);
   if (kmaj) {
     if (vec) REPRO_SPLITK(4, true)
     REPRO_SPLITK(1, true)
@@ -509,14 +522,15 @@ __host__ __device__ inline int tc_w_floats(int bn, int bk) {
   return imax(bk * (bn + tc_pad_n(bn)), bn * (bk + 4));
 }
 
-// One CTA computes y[m0:m0+bm, n0:n0+bn]; warp (wy, wx) owns rows
-// wy*16*WM.. and columns wx*8*WN.., WM x WN m16n8 fragments.
+// One CTA computes y[b, m0:m0+bm, n0:n0+bn], b = blockIdx.z; warp (wy, wx)
+// owns rows wy*16*WM.. and columns wx*8*WN.., WM x WN m16n8 fragments.
 template <int WM, int WN>
 __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ y,
-    int N, int K, int bm, int bn, int bk,
-    long long sxm, long long sxk, long long swk, long long swn,
+    int M, int N, int K, int bm, int bn, int bk,
+    long long sxb, long long sxm, long long sxk,
+    long long swb, long long swk, long long swn,
     int x_mmaj, int w_kmaj, int x_vec, int w_vec, int stages,
     int act, float softcap) {
   extern __shared__ __align__(16) float smem[];
@@ -529,6 +543,10 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
   const int wk = w_kmaj ? 1 : pw, wn = w_kmaj ? pw : 1;
 
   const int m0 = blockIdx.y * bm, n0 = blockIdx.x * bn;
+  // offsets of this CTA's x and w tiles and its first row of the (B * M,
+  // N) output
+  const long long xo = blockIdx.z * sxb + m0 * sxm, wo = blockIdx.z * swb + n0 * swn;
+  const long long row0 = (long long)blockIdx.z * M + m0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int warps_n = bn / (8 * WN);
@@ -537,8 +555,8 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
   auto load_stage = [&](int st, int k0) {
     float* xs = smem + st * stage_floats;
     float* ws = xs + x_floats;
-    const float* xg = x + (long long)m0 * sxm + (long long)k0 * sxk;
-    const float* wg = w + (long long)k0 * swk + (long long)n0 * swn;
+    const float* xg = x + xo + k0 * sxk;
+    const float* wg = w + wo + k0 * swk;
     if (x_mmaj)
       load_tile_async(xs, xg, bk, bm, sxk, sxm, px, x_vec);
     else
@@ -614,7 +632,7 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
       const float b1 = bias != nullptr ? bias[c + 1] : 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const long long r = m0 + wm0 + i * 16 + gid + 8 * h;
+        const long long r = row0 + wm0 + i * 16 + gid + 8 * h;
         *reinterpret_cast<float2*>(y + r * N + c) =
             make_float2(apply_act(acc[i][j][2 * h] + b0, act, softcap),
                         apply_act(acc[i][j][2 * h + 1] + b1, act, softcap));
@@ -625,10 +643,11 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
 
 template <int WM, int WN>
 int launch_tc_t(const float* x, const float* w, const float* bias, float* y,
-                int M, int N, int K, int bm, int bn, int bk, long long sxm,
-                long long sxk, long long swk, long long swn, int x_mmaj,
-                int w_kmaj, int x_vec, int w_vec, int stages, int act,
-                float softcap, size_t smem, cudaStream_t stream) {
+                int B, int M, int N, int K, int bm, int bn, int bk,
+                long long sxb, long long sxm, long long sxk, long long swb,
+                long long swk, long long swn, int x_mmaj, int w_kmaj,
+                int x_vec, int w_vec, int stages, int act, float softcap,
+                size_t smem, cudaStream_t stream) {
   static int opted_in = 48 * 1024;
   if ((int)smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -637,25 +656,24 @@ int launch_tc_t(const float* x, const float* w, const float* bias, float* y,
     if (err != cudaSuccess) return (int)err;
     opted_in = (int)smem;
   }
-  const dim3 grid(N / bn, M / bm, 1);
+  const dim3 grid(N / bn, M / bm, B);
   const int threads = 32 * (bm / (16 * WM)) * (bn / (8 * WN));
   matmul_tc_kernel<WM, WN><<<grid, threads, smem, stream>>>(
-      x, w, bias, y, N, K, bm, bn, bk, sxm, sxk, swk, swn, x_mmaj, w_kmaj,
-      x_vec, w_vec, stages, act, softcap);
+      x, w, bias, y, M, N, K, bm, bn, bk, sxb, sxm, sxk, swb, swk, swn, x_mmaj,
+      w_kmaj, x_vec, w_vec, stages, act, softcap);
   return (int)cudaGetLastError();
 }
 
-int launch(const float* x, const float* w, const float* bias, float* y,
-           int B, int M, int N, int K, int bm, int bn, int bk,
-           long long sxb, long long sxm, long long sxk,
-           long long swb, long long swk, long long swn,
-           long long syb, long long sym,
-           int act, float softcap, int micro, cudaStream_t stream) {
+int launch_fma(const float* x, const float* w, const float* bias, float* y,
+               int B, int M, int N, int K, int bm, int bn, int bk,
+               long long sxb, long long sxm, long long sxk,
+               long long swb, long long swk, long long swn,
+               int act, float softcap, int micro, cudaStream_t stream) {
 #define REPRO_MM_CASE(TT)                                                  \
   case TT:                                                                 \
     return launch_tile<TT>(x, w, bias, y, B, M, N, K, bm, bn, bk, sxb, sxm, \
-                           sxk, swb, swk, swn, syb, sym, act, softcap,     \
-                           stream);
+                           sxk, swb, swk, swn, (long long)M * N, N, act,   \
+                           softcap, stream);
   switch (micro) {
     REPRO_MM_CASE(1)
     REPRO_MM_CASE(2)
@@ -669,39 +687,35 @@ int launch(const float* x, const float* w, const float* bias, float* y,
 
 }  // namespace
 
-// y (M, N) contiguous = act(x @ w + bias); x and w strided, bias (N,) or null.
-extern "C" int repro_matmul(const void* x, const void* w, const void* bias,
-                            void* y, int M, int N, int K, int bm, int bn,
-                            int bk, long long sxm, long long sxk,
-                            long long swk, long long swn, int act,
-                            float softcap, int micro, void* stream) {
-  return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                static_cast<const float*>(bias), static_cast<float*>(y), 1, M,
-                N, K, bm, bn, bk, 0, sxm, sxk, 0, swk, swn, 0, N, act, softcap,
-                micro, static_cast<cudaStream_t>(stream));
+// Every entry point computes y[b] = act(x[b] @ w[b] + bias) for b < B: y
+// (B, M, N) contiguous, x and w strided (batch strides sxb and swb; 0 for
+// K1, which is batch 1), bias (N,) or null.  Each returns the launch's CUDA
+// error code.
+
+// The FMA variant, with a T x T (micro) output tile a thread.
+extern "C" int repro_matmul_fma(const void* x, const void* w, const void* bias,
+                                void* y, int B, int M, int N, int K, int bm,
+                                int bn, int bk, long long sxb, long long sxm,
+                                long long sxk, long long swb, long long swk,
+                                long long swn, int act, float softcap,
+                                int micro, void* stream) {
+  return launch_fma(static_cast<const float*>(x), static_cast<const float*>(w),
+                    static_cast<const float*>(bias), static_cast<float*>(y), B,
+                    M, N, K, bm, bn, bk, sxb, sxm, sxk, swb, swk, swn, act,
+                    softcap, micro, static_cast<cudaStream_t>(stream));
 }
 
-// y (B, M, N) contiguous; y[b] = x[b] @ w[b]; x and w strided.
-extern "C" int repro_batch_matmul(const void* x, const void* w, void* y,
-                                  int B, int M, int N, int K, int bm, int bn,
-                                  int bk, long long sxb, long long sxm,
-                                  long long sxk, long long swb, long long swk,
-                                  long long swn, int micro, void* stream) {
-  return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                nullptr, static_cast<float*>(y), B, M, N, K, bm, bn, bk, sxb,
-                sxm, sxk, swb, swk, swn, (long long)M * N, N, ACT_NONE, 0.f,
-                micro, static_cast<cudaStream_t>(stream));
-}
-
-// y (M, N) contiguous = act(x @ w + bias), M < 16: the split-K variant.
-// part: (K/bk, M, N) f32 scratch when K/bk > 1 (else null); counters: one
-// int per output tile, zero, left zero.  smem: the wrapper's figure, checked.
+// The split-K variant, M < 16.  part: (K/bk, B, M, N) f32 scratch when
+// K/bk > 1 (else null); counters: one int per output tile (B*M/bm*N/bn),
+// zero, left zero.  smem: the wrapper's figure, checked.
 extern "C" int repro_matmul_splitk(const void* x, const void* w,
                                    const void* bias, void* y, void* part,
-                                   void* counters, int M, int N, int K, int bm,
-                                   int bn, int bk, long long sxm, long long sxk,
+                                   void* counters, int B, int M, int N, int K,
+                                   int bm, int bn, int bk, long long sxb,
+                                   long long sxm, long long sxk, long long swb,
                                    long long swk, long long swn, int act,
-                                   float softcap, long long smem, void* stream) {
+                                   float softcap, long long smem,
+                                   void* stream) {
   if (smem != (long long)sizeof(float) * (bm * bk + SPLITK_WARPS * bm * bn))
     return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
@@ -711,10 +725,10 @@ extern "C" int repro_matmul_splitk(const void* x, const void* w,
   float* pf = static_cast<float*>(part);
   int* cf = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_SPLITK_MR(R)                                                   \
-  return launch_splitk_mr<R>(xf, wf, bf, yf, pf, cf, M, N, K, bm, bn, bk,   \
-                             sxm, sxk, swk, swn, act, softcap, (size_t)smem, \
-                             st);
+#define REPRO_SPLITK_MR(R)                                                    \
+  return launch_splitk_mr<R>(xf, wf, bf, yf, pf, cf, B, M, N, K, bm, bn, bk, \
+                             sxb, sxm, sxk, swb, swk, swn, act, softcap,     \
+                             (size_t)smem, st);
   if (bm <= 1) REPRO_SPLITK_MR(1)
   if (bm <= 2) REPRO_SPLITK_MR(2)
   if (bm <= 4) REPRO_SPLITK_MR(4)
@@ -724,33 +738,35 @@ extern "C" int repro_matmul_splitk(const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// y (M, N) contiguous = act(x @ w + bias): the tensor-core variant with
-// (wm, wn) fragments a warp and `stages` shared-memory stages.
+// The tensor-core variant with (wm, wn) fragments a warp and `stages`
+// shared-memory stages.  16-byte copies need the operand's base, every
+// batch's base and every row to be 16-byte aligned.
 extern "C" int repro_matmul_tc(const void* x, const void* w, const void* bias,
-                               void* y, int M, int N, int K, int bm, int bn,
-                               int bk, long long sxm, long long sxk,
-                               long long swk, long long swn, int wm, int wn,
-                               int stages, int act, float softcap,
-                               long long smem, void* stream) {
+                               void* y, int B, int M, int N, int K, int bm,
+                               int bn, int bk, long long sxb, long long sxm,
+                               long long sxk, long long swb, long long swk,
+                               long long swn, int wm, int wn, int stages,
+                               int act, float softcap, long long smem,
+                               void* stream) {
   if (smem != (long long)sizeof(float) * stages *
                   (tc_x_floats(bm, bk) + tc_w_floats(bn, bk)))
     return (int)cudaErrorInvalidValue;
   const int x_mmaj = sxm == 1 && sxk != 1;
   const int w_kmaj = swk == 1 && swn != 1;
-  const int x_vec = aligned16(x) && (x_mmaj ? sxk % 4 == 0
-                                             : (sxk == 1 && sxm % 4 == 0));
-  const int w_vec = aligned16(w) && (w_kmaj ? swn % 4 == 0
-                                             : (swn == 1 && swk % 4 == 0));
+  const int x_vec = aligned16(x) && sxb % 4 == 0 &&
+                    (x_mmaj ? sxk % 4 == 0 : (sxk == 1 && sxm % 4 == 0));
+  const int w_vec = aligned16(w) && swb % 4 == 0 &&
+                    (w_kmaj ? swn % 4 == 0 : (swn == 1 && swk % 4 == 0));
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_TC_CASE(A, B)                                                  \
-  if (wm == A && wn == B)                                                    \
-    return launch_tc_t<A, B>(xf, wf, bf, yf, M, N, K, bm, bn, bk, sxm, sxk,  \
-                             swk, swn, x_mmaj, w_kmaj, x_vec, w_vec, stages, \
-                             act, softcap, (size_t)smem, st);
+#define REPRO_TC_CASE(A, C)                                                   \
+  if (wm == A && wn == C)                                                     \
+    return launch_tc_t<A, C>(xf, wf, bf, yf, B, M, N, K, bm, bn, bk, sxb, sxm, \
+                             sxk, swb, swk, swn, x_mmaj, w_kmaj, x_vec, w_vec, \
+                             stages, act, softcap, (size_t)smem, st);
   REPRO_TC_CASE(1, 1)
   REPRO_TC_CASE(1, 2)
   REPRO_TC_CASE(2, 1)

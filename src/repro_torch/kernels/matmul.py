@@ -3,20 +3,21 @@
 Source: ``csrc/matmul.cu`` (one source), CUDA C++ for ``sm_90a``.  It
 replaces the Pallas kernels ``matmul`` and ``batch_matmul`` of the JAX
 package's ``kernels/matmul.py``.  The tuned (bm, bn, bk) are runtime
-arguments, so the tile the search sampled is the tile that runs.  K1 has
-three variants, chosen by :func:`variant` from M and the tile alone:
+arguments, so the tile the search sampled is the tile that runs.  Both
+products share three kernels, each with a batch axis (K1 is batch 1), and
+:func:`variant` picks one from M and the tile alone:
 
-* ``splitk`` for M < 16 (decode): grid (N/bn, M/bm, K/bk), 128 threads,
+* ``splitk`` for M < 16 (decode): grid (N/bn, B·M/bm, K/bk), 128 threads,
   shared memory ``4·(bm·bk + 4·bm·bn)``; with K/bk > 1 the partials go to a
-  (K/bk, M, N) scratch the wrapper allocates and the last CTA of each
+  (K/bk, B, M, N) scratch the wrapper allocates and the last CTA of each
   output tile sums them in split order (a per-tile counter the kernel
   resets, kept per device and stream);
 * ``tc`` for M >= 16 with bm % 16, bn % 8 and bk % 8 all 0 (prefill and
-  forward): 3xTF32 tensor cores, grid (N/bn, M/bm), one warp per
+  forward): 3xTF32 tensor cores, grid (N/bn, M/bm, B), one warp per
   :func:`warp_tile` block of m16n8 fragments, two ``cp.async`` stages when
   they fit in shared memory (:func:`tc_stage_bytes`), else one;
-* ``fma`` otherwise: grid (N/bn, M/bm), the threads of :func:`micro_tile`
-  and ``4·(bm·bk + bk·bn)`` bytes of shared memory, as K2 always.
+* ``fma`` otherwise: grid (N/bn, M/bm, B), the threads of
+  :func:`micro_tile` and ``4·(bm·bk + bk·bn)`` bytes of shared memory.
 
 The note at the top of the source says what bounds each variant on the
 card and what its design does about it.
@@ -24,7 +25,7 @@ card and what its design does about it.
 Beside each wrapper: its plain PyTorch version (``kernels/ref.py``), which
 the wrapper runs for CPU tensors only, and a launch counter
 (``matmul.launches`` / ``batch_matmul.launches``) that counts kernel
-launches and nothing else; ``matmul.launches_by_variant`` splits K1's by
+launches and nothing else; ``launches_by_variant`` splits each by
 variant.  ``last_launch`` records the launch configuration of the latest
 launch.  For a CUDA tensor the wrapper checks device, dtype and shape,
 launches, and raises on a refused launch.
@@ -86,7 +87,7 @@ def micro_tile(bm: int, bn: int) -> Tuple[int, int]:
 
 
 def variant(M: int, blocks: Tuple[int, int, int]) -> str:
-    """K1's variant for a problem with M rows and the snapped tile."""
+    """The variant of K1 or K2 for M rows (a batch's) and the snapped tile."""
     bm, bn, bk = blocks
     if M < SPLITK_MAX_M:
         return "splitk"
@@ -141,14 +142,11 @@ def _reject_grid(grid) -> None:
 
 
 def launch_config(
-    batch: int, M: int, N: int, K: int, blocks: Tuple[int, int, int],
-    kernel: str = "batch_matmul",
+    batch: int, M: int, N: int, K: int, blocks: Tuple[int, int, int]
 ) -> dict:
-    """Grid, threads and dynamic shared memory of a launch with ``blocks``.
-
-    ``kernel="batch_matmul"`` (K2): the FMA kernel's configuration.
-    ``kernel="matmul"`` (K1, ``batch`` 1): the :func:`variant`'s, with its
-    ``stages``, ``splits`` and ``warp_tile`` too.
+    """The :func:`variant`, grid, threads, dynamic shared memory, stages,
+    splits, warp tile and micro tile of a K1 (``batch`` 1) or K2 launch
+    with ``blocks``; the same keys for every variant.
 
     Raises ``ScheduleRejected`` for a tile that does not divide the
     problem or that the chosen kernel cannot run (shared memory, threads,
@@ -159,42 +157,28 @@ def launch_config(
         raise ScheduleRejected(
             "divide", f"blocks {tuple(blocks)} must divide {(M, N, K)}"
         )
-    if kernel not in ("matmul", "batch_matmul"):
-        raise ValueError(f"launch_config: unknown kernel {kernel!r}")
-    var = variant(M, blocks) if kernel == "matmul" else "fma"
+    var = variant(M, blocks)
+    cfg = {"variant": var, "blocks": (bm, bn, bk), "stages": 1, "splits": 1,
+           "warp_tile": None, "micro_tile": None}
     if var == "splitk":
         smem = splitk_smem_bytes(bm, bn, bk)
         _reject_smem(blocks, smem)
-        grid = (N // bn, M // bm, K // bk)
-        _reject_grid(grid)
-        return {"variant": var, "blocks": (bm, bn, bk), "grid": grid,
-                "threads": SPLITK_THREADS, "smem_bytes": smem, "stages": 1,
-                "splits": K // bk, "warp_tile": None, "micro_tile": None}
-    if var == "tc":
+        cfg.update(grid=(N // bn, batch * (M // bm), K // bk),
+                   threads=SPLITK_THREADS, smem_bytes=smem, splits=K // bk)
+    elif var == "tc":
         stage = tc_stage_bytes(bm, bn, bk)
         _reject_smem(blocks, stage)
         stages = 2 if 2 * stage <= MAX_SMEM_BYTES else 1
         wt, threads = warp_tile(bm, bn)
-        grid = (N // bn, M // bm, 1)
-        _reject_grid(grid)
-        return {"variant": var, "blocks": (bm, bn, bk), "grid": grid,
-                "threads": threads, "smem_bytes": stages * stage,
-                "stages": stages, "splits": 1, "warp_tile": wt,
-                "micro_tile": None}
-    smem = 4 * (bm * bk + bk * bn)
-    _reject_smem(blocks, smem)
-    t, threads = micro_tile(bm, bn)
-    grid = (N // bn, M // bm, batch)
-    _reject_grid(grid)
-    cfg = {
-        "blocks": (bm, bn, bk),
-        "grid": grid,
-        "threads": threads,
-        "micro_tile": t,
-        "smem_bytes": smem,
-    }
-    if kernel == "matmul":
-        cfg.update(variant=var, stages=1, splits=1, warp_tile=None)
+        cfg.update(grid=(N // bn, M // bm, batch), threads=threads,
+                   smem_bytes=stages * stage, stages=stages, warp_tile=wt)
+    else:
+        smem = 4 * (bm * bk + bk * bn)
+        _reject_smem(blocks, smem)
+        t, threads = micro_tile(bm, bn)
+        cfg.update(grid=(N // bn, M // bm, batch), threads=threads,
+                   smem_bytes=smem, micro_tile=t)
+    _reject_grid(cfg["grid"])
     return cfg
 
 
@@ -204,22 +188,16 @@ def _lib():
     lib = load("matmul")
     if not getattr(lib, "_repro_typed", False):
         P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.repro_matmul.argtypes = [
-            P, P, P, P, I, I, I, I, I, I, L, L, L, L, I, Fl, I, P
-        ]
-        lib.repro_matmul.restype = I
-        lib.repro_batch_matmul.argtypes = [
-            P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, I, P
-        ]
-        lib.repro_batch_matmul.restype = I
-        lib.repro_matmul_splitk.argtypes = [
-            P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, I, Fl, L, P
-        ]
-        lib.repro_matmul_splitk.restype = I
-        lib.repro_matmul_tc.argtypes = [
-            P, P, P, P, I, I, I, I, I, I, L, L, L, L, I, I, I, I, Fl, L, P
-        ]
-        lib.repro_matmul_tc.restype = I
+        # x, w, bias, y, [part, counters,] B, M, N, K, bm, bn, bk, the six
+        # strides, then each variant's own arguments
+        head, dims, strides = [P, P, P, P], [I] * 7, [L] * 6
+        lib.repro_matmul_fma.argtypes = head + dims + strides + [I, Fl, I, P]
+        lib.repro_matmul_splitk.argtypes = (head + [P, P] + dims + strides
+                                            + [I, Fl, L, P])
+        lib.repro_matmul_tc.argtypes = (head + dims + strides
+                                        + [I, I, I, I, Fl, L, P])
+        for fn in (lib.repro_matmul_fma, lib.repro_matmul_splitk, lib.repro_matmul_tc):
+            fn.restype = I
         lib._repro_typed = True
     return lib
 
@@ -252,6 +230,46 @@ def _clamp(blocks, M, N, K):
     return (min(bm, M), min(bn, N), min(bk, K))
 
 
+def _launch(name: str, cfg: dict, x, w, bias, y, dims: Tuple[int, int, int, int],
+            strides: Tuple[int, ...], act: int, softcap: float) -> None:
+    """Launch ``cfg``'s variant for y[b] = act(x[b] @ w[b] + bias), b < B:
+    ``dims`` (B, M, N, K), x's three strides then w's in ``strides`` (batch
+    strides 0 at B = 1), y (B, M, N) or (M, N) contiguous."""
+    B, M, N, K = dims
+    var = cfg["variant"]
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr())
+    sizes = (*dims, *cfg["blocks"])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = _lib()
+        if var == "splitk":
+            splits = cfg["splits"]
+            part = (torch.empty((splits, B, M, N), dtype=torch.float32,
+                                device=x.device) if splits > 1 else None)
+            counters = _tile_counters(x.device, stream,
+                                      cfg["grid"][0] * cfg["grid"][1])
+            err = lib.repro_matmul_splitk(
+                *ptrs, None if part is None else part.data_ptr(),
+                counters.data_ptr(), *sizes, *strides, act, float(softcap),
+                cfg["smem_bytes"], stream,
+            )
+        elif var == "tc":
+            wm, wn = cfg["warp_tile"]
+            err = lib.repro_matmul_tc(
+                *ptrs, *sizes, *strides, wm, wn, cfg["stages"], act,
+                float(softcap), cfg["smem_bytes"], stream,
+            )
+        else:
+            err = lib.repro_matmul_fma(
+                *ptrs, *sizes, *strides, act, float(softcap), cfg["micro_tile"],
+                stream,
+            )
+    from ._build import check
+
+    check(err, f"{name} {var} {tuple(cfg['blocks'])} on ({B}, {M}, {N}, {K})")
+
+
 def matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -276,43 +294,12 @@ def matmul(
     _check_cuda("matmul", *operands)
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"matmul: bias must be contiguous ({N},)")
-    cfg = launch_config(1, M, N, K, blocks, kernel="matmul")
+    cfg = launch_config(1, M, N, K, blocks)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    bm, bn, bk = blocks
-    var = cfg["variant"]
-    ptrs = (x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr())
-    strides = (x.stride(0), x.stride(1), w.stride(0), w.stride(1))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        lib = _lib()
-        if var == "splitk":
-            splits = cfg["splits"]
-            part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-                    if splits > 1 else None)
-            counters = _tile_counters(x.device, stream,
-                                      cfg["grid"][0] * cfg["grid"][1])
-            err = lib.repro_matmul_splitk(
-                *ptrs, None if part is None else part.data_ptr(),
-                counters.data_ptr(), M, N, K, bm, bn, bk, *strides,
-                act, float(softcap), cfg["smem_bytes"], stream,
-            )
-        elif var == "tc":
-            wm, wn = cfg["warp_tile"]
-            err = lib.repro_matmul_tc(
-                *ptrs, M, N, K, bm, bn, bk, *strides, wm, wn, cfg["stages"],
-                act, float(softcap), cfg["smem_bytes"], stream,
-            )
-        else:
-            err = lib.repro_matmul(
-                *ptrs, M, N, K, bm, bn, bk, *strides,
-                act, float(softcap), cfg["micro_tile"], stream,
-            )
-    from ._build import check
-
-    check(err, f"matmul {var} {tuple(blocks)} on ({M}, {N}, {K})")
+    _launch("matmul", cfg, x, w, bias, y, (1, M, N, K),
+            (0, *x.stride(), 0, *w.stride()), act, softcap)
     matmul.launches += 1
-    matmul.launches_by_variant[var] += 1
+    matmul.launches_by_variant[cfg["variant"]] += 1
     matmul.last_launch = cfg
     return y
 
@@ -330,7 +317,8 @@ def batch_matmul(
 ) -> torch.Tensor:
     """y[b] = x[b] @ w[b]; x: (B, M, K), w: (B, K, N), any strides.
 
-    The batch rides blockIdx.z; the per-batch tiling is :func:`matmul`'s.
+    The per-batch tile and its variant are :func:`matmul`'s, with the batch
+    on the variant's batch axis (:func:`launch_config`).
     """
     B, M, K = x.shape
     B2, K2, N = w.shape
@@ -345,24 +333,16 @@ def batch_matmul(
         raise RuntimeError(f"batch_matmul: no kernel for device {x.device}")
     _check_cuda("batch_matmul", x, w)
     cfg = launch_config(B, M, N, K, blocks)
+    sxb, swb = (x.stride(0), w.stride(0)) if B > 1 else (0, 0)
     y = torch.empty((B, M, N), dtype=x.dtype, device=x.device)
-    bm, bn, bk = blocks
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().repro_batch_matmul(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(),
-            B, M, N, K, bm, bn, bk,
-            x.stride(0), x.stride(1), x.stride(2),
-            w.stride(0), w.stride(1), w.stride(2),
-            cfg["micro_tile"], stream,
-        )
-    from ._build import check
-
-    check(err, f"batch_matmul {tuple(blocks)} on ({B}, {M}, {N}, {K})")
+    _launch("batch_matmul", cfg, x, w, None, y, (B, M, N, K),
+            (sxb, *x.stride()[1:], swb, *w.stride()[1:]), _ACT["none"], 0.0)
     batch_matmul.launches += 1
+    batch_matmul.launches_by_variant[cfg["variant"]] += 1
     batch_matmul.last_launch = cfg
     return y
 
 
 batch_matmul.launches = 0
+batch_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 batch_matmul.last_launch = None

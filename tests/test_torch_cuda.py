@@ -194,8 +194,111 @@ def test_cuda_batch_matmul_against_plain():
     got = mm.batch_matmul(a, b, block_sizes=(24, 48, 16))
     torch.cuda.synchronize()
     assert mm.batch_matmul.launches == n + 1
+    assert mm.batch_matmul.last_launch["variant"] == "fma"  # bm 24: ragged
     assert mm.batch_matmul.last_launch["grid"] == (1, 4, 3)
     assert float((got - tref.batch_matmul(a, b)).abs().max()) < 1e-3
+
+
+def test_cuda_batch_matmul_tc_against_plain():
+    """The tc twin of the test above: the same operands, a tensor-core tile."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(3, 96, 64, generator=g, device=dev)
+    b = torch.randn(3, 64, 48, generator=g, device=dev)
+    n = mm.batch_matmul.launches
+    got = mm.batch_matmul(a, b, block_sizes=(32, 48, 16))
+    torch.cuda.synchronize()
+    assert mm.batch_matmul.launches == n + 1
+    assert mm.batch_matmul.last_launch["variant"] == "tc"
+    assert mm.batch_matmul.last_launch["grid"] == (1, 3, 3)
+    assert float((got - tref.batch_matmul(a, b)).abs().max()) < 1e-3
+
+
+def _k2_operands(dev, seed, B, M, K, N, layout):
+    """x (B, M, K) and w (B, K, N) on the card.  "c": contiguous; "t":
+    transposed views, x m-contiguous and w k-contiguous (as attention reads
+    k transposed); "pad": row-major with a batch stride of one more than a
+    batch's size, which breaks every batch's 16-byte alignment but the
+    first."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "t":
+        x = torch.randn(B, K, M, generator=g, device=dev).transpose(1, 2)
+        w = torch.randn(B, N, K, generator=g, device=dev).transpose(1, 2)
+    elif layout == "pad":
+        x = torch.randn(B * (M * K + 1), generator=g, device=dev)
+        x = x.as_strided((B, M, K), (M * K + 1, K, 1))
+        w = torch.randn(B * (K * N + 1), generator=g, device=dev)
+        w = w.as_strided((B, K, N), (K * N + 1, N, 1))
+    else:
+        x = torch.randn(B, M, K, generator=g, device=dev)
+        w = torch.randn(B, K, N, generator=g, device=dev)
+    return x, w
+
+
+def _k2_against_plain(x, w, blocks, variant):
+    n = mm.batch_matmul.launches_by_variant[variant]
+    got = mm.batch_matmul(x, w, block_sizes=blocks)
+    again = mm.batch_matmul(x, w, block_sizes=blocks)
+    torch.cuda.synchronize()
+    assert mm.batch_matmul.launches_by_variant[variant] == n + 2
+    cfg = mm.batch_matmul.last_launch
+    assert cfg["variant"] == variant and cfg["blocks"] == blocks
+    want = tref.batch_matmul(x, w)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < TOL_MATMUL
+    assert torch.equal(got, again)  # the same bits every run
+    return cfg
+
+
+# the smoke's two forward contractions (b3 m768; 128x64x256 is one stage)
+# and hymba-1.5b's (b5 m1280), each operand in every layout
+@pytest.mark.parametrize("B,M,K,N,blocks,stages", [
+    (3, 768, 256, 64, (96, 64, 32), 2),
+    (3, 768, 256, 64, (128, 64, 256), 1),
+    (3, 768, 64, 256, (48, 64, 64), 2),
+    (5, 1280, 256, 64, (64, 64, 64), 2),
+    (5, 1280, 64, 256, (128, 128, 64), 2),
+])
+@pytest.mark.parametrize("layout", ["c", "t", "pad"])
+def test_cuda_batch_matmul_tc_variant_against_plain(B, M, K, N, blocks, stages, layout):
+    dev = _cuda()
+    x, w = _k2_operands(dev, B + M + K + N, B, M, K, N, layout)
+    cfg = _k2_against_plain(x, w, blocks, "tc")
+    bm, bn, _ = blocks
+    assert cfg["grid"] == (N // bn, M // bm, B) and cfg["stages"] == stages
+
+
+# the decode contraction (b12 m3 k256 n64): one split and many, bm below M,
+# a bn that is not a multiple of 4 (scalar loads)
+@pytest.mark.parametrize("blocks", [(3, 64, 256), (3, 64, 32), (1, 16, 64), (3, 2, 16)])
+@pytest.mark.parametrize("layout", ["c", "t", "pad"])
+def test_cuda_batch_matmul_splitk_against_plain(blocks, layout):
+    dev = _cuda()
+    B, M, K, N = 12, 3, 256, 64
+    x, w = _k2_operands(dev, sum(blocks), B, M, K, N, layout)
+    cfg = _k2_against_plain(x, w, blocks, "splitk")
+    bm, bn, bk = blocks
+    assert cfg["grid"] == (N // bn, B * (M // bm), K // bk)
+    assert cfg["splits"] == K // bk
+
+
+def test_cuda_batch_matmul_fma_variant_against_plain():
+    dev = _cuda()
+    x, w = _k2_operands(dev, 9, 3, 768, 256, 64, "t")
+    cfg = _k2_against_plain(x, w, (24, 32, 32), "fma")
+    assert cfg["grid"] == (2, 32, 3)
+
+
+def test_cuda_batch_matmul_batch_of_one_is_matmul():
+    """At B = 1 K2 runs K1's launch: the same configuration and bits."""
+    dev = _cuda()
+    for M, blocks in ((4, (4, 32, 32)), (256, (64, 32, 32)), (256, (32, 12, 32))):
+        x, w = _k2_operands(dev, M, 1, M, 256, 96, "c")
+        got = mm.batch_matmul(x, w, block_sizes=blocks)
+        one = mm.matmul(x[0], w[0], block_sizes=blocks)
+        torch.cuda.synchronize()
+        assert mm.batch_matmul.last_launch == mm.matmul.last_launch
+        assert torch.equal(got[0], one)
 
 
 def test_cuda_flash_attention_against_plain():
@@ -287,7 +390,7 @@ def test_cuda_paged_decode_attention_against_decode_on_the_gathered_view():
                  .abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("bm", [36, 72, 144])
+@pytest.mark.parametrize("bm", [36, 72, 144, 288])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
 def test_cuda_row_softmax_against_plain(bm, dtype, tol):
     dev = _cuda()
@@ -297,18 +400,43 @@ def test_cuda_row_softmax_against_plain(bm, dtype, tol):
     got = sm.row_softmax(x, block_rows=bm)
     torch.cuda.synchronize()
     assert sm.row_softmax.launches == n + 1
+    assert sm.row_softmax.last_launch["variant"] == "registers"
     assert sm.row_softmax.last_launch["blocks"] == (bm,)
     assert sm.row_softmax.last_launch["grid"] == (2304 // bm,)
     assert got.dtype == dtype
     assert float((got.float() - tref.row_softmax(x).float()).abs().max()) <= tol
 
 
+# the shared-memory variant (N % 4 != 0 or N > 1024), the registers one at
+# a row that leaves lanes empty (N = 132) and at its cap, and 4-byte loads
+# from a base that is not 16-byte aligned (the same bits as aligned)
+@pytest.mark.parametrize("M,N,bm,variant", [
+    (96, 258, 24, "shared"), (64, 2000, 16, "shared"), (96, 132, 48, "registers"),
+    (64, 1024, 64, "registers"),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
+def test_cuda_row_softmax_variants_against_plain(M, N, bm, variant, dtype, tol):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(N)
+    x = (torch.randn(M, N, generator=g, device=dev) * 4).to(dtype)
+    got = sm.row_softmax(x, block_rows=bm)
+    torch.cuda.synchronize()
+    assert sm.row_softmax.last_launch["variant"] == variant
+    assert float((got.float() - tref.row_softmax(x).float()).abs().max()) <= tol
+    odd = torch.empty(M * N + 1, device=dev, dtype=dtype)[1:].view(M, N)
+    odd.copy_(x)
+    assert torch.equal(sm.row_softmax(odd, block_rows=bm), got)
+
+
 def test_cuda_row_softmax_refuses_what_the_kernel_does_not_take():
     dev = _cuda()
-    x = torch.randn(2304, 256, device=dev)
+    x = torch.randn(2304, 258, device=dev)  # the shared variant
     with pytest.raises(ScheduleRejected) as e:
         sm.row_softmax(x, block_rows=288)
     assert e.value.reason == "shared_memory"
+    with pytest.raises(ScheduleRejected) as e:
+        sm.row_softmax(x[:, :256].contiguous(), block_rows=100)
+    assert e.value.reason == "divide"
     with pytest.raises(TypeError):
         sm.row_softmax(x.half())
     with pytest.raises(ValueError):

@@ -69,6 +69,8 @@ def test_matmul_reads_a_transposed_weight():
 @pytest.mark.parametrize("B,M,N,K,blocks", [
     (3, 96, 32, 64, (48, 32, 32)),
     (2, 48, 64, 48, (24, 64, 16)),
+    (12, 3, 64, 256, (3, 64, 32)),  # the decode contraction (splitk on the card)
+    (5, 80, 64, 32, (16, 32, 16)),  # hymba's layout, narrow (tc on the card)
 ])
 def test_batch_matmul_matches_pallas(B, M, N, K, blocks):
     r = _rng(3)
@@ -138,10 +140,10 @@ def test_best_divisor_matches_reference(n, target, want):
 
 def test_launch_config_follows_the_tile():
     cfg = mm.launch_config(3, 768, 256, 64, (96, 64, 32))
-    assert cfg["grid"] == (4, 8, 3)
-    assert cfg["smem_bytes"] == 4 * (96 * 32 + 32 * 64)
-    t = cfg["micro_tile"]
-    assert cfg["threads"] == -(-96 // t) * -(-64 // t) <= 512
+    assert cfg["variant"] == "tc" and cfg["grid"] == (4, 8, 3)
+    assert cfg["smem_bytes"] == cfg["stages"] * mm.tc_stage_bytes(96, 64, 32)
+    (wm, wn), threads = mm.warp_tile(96, 64)
+    assert cfg["threads"] == threads == 32 * (96 // (16 * wm)) * (64 // (8 * wn)) <= 512
     acfg = fa.launch_config(1, 9, 256, 64, 64, 128)
     assert acfg["grid"] == (4, 9)
     assert acfg["smem_bytes"] == fa.smem_bytes(64, 128, 64)
@@ -175,7 +177,7 @@ def test_cuda_entry_points_raise_without_a_card():
 # values in [0, 1], atol 1e-6; bf16: both round the f32 result to bf16 once,
 # so they may differ by one bf16 ulp at the value (at most 2^-7 relative).
 @pytest.mark.parametrize("M,N,bm", [(48, 32, 16), (72, 40, 36), (96, 64, 96),
-                                    (2304, 256, 144)])
+                                    (2304, 256, 144), (2304, 256, 288), (48, 30, 24)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_row_softmax_plain_matches_pallas(M, N, bm, dtype):
     import jax.numpy as jnp
@@ -198,14 +200,46 @@ def test_row_softmax_plain_matches_pallas(M, N, bm, dtype):
 
 
 def test_row_softmax_launch_config_follows_the_row_block():
+    # N = 256: the registers variant, one warp a row, 32 warps at most
     cfg = sm.launch_config(2304, 256, 72)
-    assert cfg == {"blocks": (72,), "grid": (32,), "threads": 256,
-                   "smem_bytes": 72 * 256 * 4}
+    assert cfg == {"variant": "registers", "blocks": (72,), "grid": (32,),
+                   "threads": 1024, "smem_bytes": 0, "groups": 2}
     assert sm.launch_config(2304, 256, 4)["threads"] == 128
+    assert sm.launch_config(2304, 256, 12)["threads"] == 384
+    # a row of N = 258 does not split into 4-value groups: shared memory
+    cfg = sm.launch_config(2304, 258, 72)
+    assert cfg == {"variant": "shared", "blocks": (72,), "grid": (32,),
+                   "threads": 256, "smem_bytes": 72 * 258 * 4, "groups": None}
+    assert sm.launch_config(2304, 258, 4)["threads"] == 128
 
 
-@pytest.mark.parametrize("bm,reason", [(288, "shared_memory"), (100, "divide")])
-def test_row_softmax_launch_config_rejects_what_the_card_cannot_run(bm, reason):
+@pytest.mark.parametrize("N,groups", [(4, 1), (128, 1), (132, 2), (256, 2), (512, 4),
+                                      (640, 8), (1024, 8)])
+def test_row_softmax_registers_variant_holds_the_row_in_groups_of_four(N, groups):
+    cfg = sm.launch_config(96, N, 96)
+    assert cfg["variant"] == sm.variant(N) == "registers"
+    assert cfg["groups"] == groups and 32 * 4 * groups >= N
+    assert cfg["smem_bytes"] == 0 and cfg["threads"] == 1024
+
+
+@pytest.mark.parametrize("N", [1, 6, 255, 1028, 4096])
+def test_row_softmax_other_rows_take_the_shared_variant(N):
+    cfg = sm.launch_config(8, N, 8)
+    assert cfg["variant"] == sm.variant(N) == "shared"
+    assert cfg["smem_bytes"] == sm.smem_bytes(8, N) and cfg["threads"] == 256
+
+
+@pytest.mark.parametrize("bm", [36, 72, 144, 288, 576, 2304])
+def test_row_softmax_registers_variant_takes_any_dividing_block(bm):
+    """No shared memory on this path, so large blocks are legal (288 at
+    N = 256 was refused for shared memory before rows lived in registers)."""
+    cfg = sm.launch_config(2304, 256, bm)
+    assert cfg["grid"] == (2304 // bm,) and cfg["threads"] == 32 * min(bm, 32)
+
+
+@pytest.mark.parametrize("M,N,bm,reason", [(2304, 258, 288, "shared_memory"),
+                                           (2304, 256, 100, "divide")])
+def test_row_softmax_launch_config_rejects_what_the_card_cannot_run(M, N, bm, reason):
     with pytest.raises(ScheduleRejected) as e:
-        sm.launch_config(2304, 256, bm)
+        sm.launch_config(M, N, bm)
     assert e.value.reason == reason

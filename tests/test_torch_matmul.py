@@ -1,12 +1,14 @@
-"""K1's launch configuration on the CPU: which variant a tile takes, and
-the grid, threads, shared memory, stages and splits it launches with.
+"""K1's and K2's launch configuration on the CPU: which variant a tile
+takes, and the grid, threads, shared memory, stages and splits it launches
+with.
 
 The variant is chosen from M and the snapped tile alone (``splitk`` for
-M < 16, ``tc`` for bm % 16, bn % 8 and bk % 8 all 0, ``fma`` otherwise), so
-the search's sampled tile decides the launch before any card is involved.
-K2 (``kernel="batch_matmul"``, the default) keeps its FMA configuration.
-The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
-``-m cuda -k matmul``).  No tolerances: the numbers here are exact.
+M < 16, ``tc`` for bm % 16, bn % 8 and bk % 8 all 0, ``fma`` otherwise), by
+one rule for both products, so the search's sampled tile decides the launch
+before any card is involved.  K2's batch rides grid y for ``splitk``
+(batch-major over the row tiles) and grid z for ``tc`` and ``fma``.  The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``,
+``-m cuda -k "matmul"``).  No tolerances: the numbers here are exact.
 """
 
 import pytest
@@ -68,7 +70,7 @@ def _tc_stage(bm, bn, bk):
     (256, 576, 576, (32, 12, 32), dict(variant="fma", grid=(48, 8, 1))),
 ])
 def test_matmul_launch_config_picks_the_variant(M, N, K, blocks, want):
-    cfg = mm.launch_config(1, M, N, K, blocks, kernel="matmul")
+    cfg = mm.launch_config(1, M, N, K, blocks)
     assert mm.variant(M, blocks) == cfg["variant"]
     assert cfg["blocks"] == tuple(blocks)
     assert {k: cfg[k] for k in want} == want
@@ -89,27 +91,77 @@ def test_matmul_launch_config_picks_the_variant(M, N, K, blocks, want):
 ])
 def test_matmul_launch_config_rejects_by_reason(M, N, K, blocks, reason):
     with pytest.raises(ScheduleRejected) as e:
-        mm.launch_config(1, M, N, K, blocks, kernel="matmul")
+        mm.launch_config(1, M, N, K, blocks)
     assert e.value.reason == reason
 
 
+# K2 takes K1's variant for its M and tile, with the batch on the variant's
+# batch axis: the smoke's forward (b3 m768), decode (b12 m3) and hymba's
+# (b5 m1280) shapes
+@pytest.mark.parametrize("batch,M,N,K,blocks,want", [
+    (12, 3, 64, 256, (3, 64, 32),
+     dict(variant="splitk", grid=(1, 12, 8), splits=8, threads=128, stages=1,
+          smem_bytes=_splitk_smem(3, 64, 32), warp_tile=None, micro_tile=None)),
+    (12, 3, 64, 256, (3, 16, 256),
+     dict(variant="splitk", grid=(4, 12, 1), splits=1)),
+    (2, 4, 64, 64, (2, 64, 64), dict(variant="splitk", grid=(1, 4, 1), splits=1)),
+    (5, 15, 60, 30, (5, 12, 10), dict(variant="splitk", grid=(5, 15, 3), splits=3)),
+    (3, 768, 64, 256, (96, 64, 32),
+     dict(variant="tc", grid=(1, 8, 3), warp_tile=(2, 2), threads=384, stages=2,
+          splits=1, smem_bytes=2 * _tc_stage(96, 64, 32), micro_tile=None)),
+    (3, 768, 256, 64, (48, 64, 64),
+     dict(variant="tc", grid=(4, 16, 3), warp_tile=(1, 2), threads=384, stages=2)),
+    (5, 1280, 64, 256, (64, 64, 64), dict(variant="tc", grid=(1, 20, 5), stages=2)),
+    (5, 1280, 256, 64, (128, 128, 64), dict(variant="tc", grid=(2, 10, 5), stages=2,
+                                        smem_bytes=139264)),
+    (3, 768, 256, 64, (24, 32, 32),
+     dict(variant="fma", grid=(8, 32, 3), micro_tile=2, threads=192,
+          smem_bytes=4 * (24 * 32 + 32 * 32))),
+])
+def test_batch_matmul_launch_config_picks_the_variant(batch, M, N, K, blocks, want):
+    cfg = mm.launch_config(batch, M, N, K, blocks)
+    assert cfg["variant"] == mm.variant(M, blocks)
+    assert {k: cfg[k] for k in want} == want
+    # the per-batch launch is K1's: only the batch axis differs
+    one = mm.launch_config(1, M, N, K, blocks)
+    axis = 1 if cfg["variant"] == "splitk" else 2
+    grid = list(one["grid"])
+    grid[axis] *= batch
+    assert cfg == dict(one, grid=tuple(grid))
+
+
+# ragged tiles (bm % 16 != 0 at M >= 16) stay on the FMA kernel, for K2 as
+# for K1, with the batch on grid z
 @pytest.mark.parametrize("batch,M,N,K,blocks", [
-    (3, 768, 256, 64, (96, 64, 32)),
-    (2, 4, 64, 64, (4, 64, 64)),  # M < 16: K2 never splits K
-    (3, 768, 64, 256, (48, 64, 128)),
+    (3, 768, 256, 64, (24, 32, 32)),
+    (3, 768, 64, 256, (24, 64, 32)),
+    (5, 1280, 64, 256, (40, 64, 64)),
 ])
 def test_batch_matmul_launch_config_is_the_fma_kernels(batch, M, N, K, blocks):
     bm, bn, bk = blocks
     t, threads = mm.micro_tile(bm, bn)
-    want = {"blocks": blocks, "grid": (N // bn, M // bm, batch), "threads": threads,
-            "micro_tile": t, "smem_bytes": 4 * (bm * bk + bk * bn)}
+    want = {"variant": "fma", "blocks": blocks, "grid": (N // bn, M // bm, batch),
+            "threads": threads, "micro_tile": t, "smem_bytes": 4 * (bm * bk + bk * bn),
+            "stages": 1, "splits": 1, "warp_tile": None}
     assert mm.launch_config(batch, M, N, K, blocks) == want
-    assert mm.launch_config(batch, M, N, K, blocks, kernel="batch_matmul") == want
 
 
-def test_launch_config_refuses_an_unknown_kernel():
-    with pytest.raises(ValueError, match="unknown kernel"):
-        mm.launch_config(1, 64, 64, 64, (32, 32, 32), kernel="conv")
+@pytest.mark.parametrize("batch,M,N,K,blocks,reason", [
+    (70000, 1, 8, 8, (1, 8, 8), "grid"),  # splitk: grid y = B * M / bm > 65535
+    (9000, 8, 8, 8, (1, 8, 8), "grid"),  # splitk: 72,000 row tiles
+    (65536, 32, 8, 8, (32, 8, 8), "grid"),  # tc: grid z = B > 65535
+    (65536, 24, 8, 8, (24, 8, 8), "grid"),  # fma: grid z = B > 65535
+    (3, 768, 64, 256, (96, 64, 40), "divide"),
+])
+def test_batch_matmul_launch_config_rejects_by_reason(batch, M, N, K, blocks, reason):
+    with pytest.raises(ScheduleRejected) as e:
+        mm.launch_config(batch, M, N, K, blocks)
+    assert e.value.reason == reason
+
+
+def test_batch_matmul_splitk_grid_fits_at_the_cap():
+    cfg = mm.launch_config(65535, 1, 8, 8, (1, 8, 8))
+    assert cfg["grid"] == (1, 65535, 1) and cfg["variant"] == "splitk"
 
 
 def test_cpu_matmul_counts_no_variant():
@@ -121,14 +173,26 @@ def test_cpu_matmul_counts_no_variant():
     assert set(before) == set(mm.VARIANTS)
 
 
+def test_cpu_batch_matmul_counts_no_variant():
+    import torch
+
+    before = dict(mm.batch_matmul.launches_by_variant)
+    launches = mm.batch_matmul.launches
+    y = mm.batch_matmul(torch.ones(2, 4, 8), torch.ones(2, 8, 16), block_sizes=(4, 8, 8))
+    assert torch.equal(y, torch.full((2, 4, 16), 8.0))
+    assert mm.batch_matmul.launches_by_variant == before
+    assert mm.batch_matmul.launches == launches
+    assert set(before) == set(mm.VARIANTS)
+
+
 def test_dense_lowering_asks_for_k1s_configuration(monkeypatch):
-    """``lower_dense`` checks a tile against K1's variant (kernel="matmul"),
-    not K2's FMA formula."""
+    """``lower_dense`` checks a tile against K1's configuration: the shared
+    launch configuration at batch 1."""
     calls = []
     real = mm.launch_config
 
     def spy(*a, **k):
-        calls.append(k.get("kernel"))
+        calls.append(a[0])
         return real(*a, **k)
 
     monkeypatch.setattr(mm, "launch_config", spy)
@@ -140,4 +204,4 @@ def test_dense_lowering_asks_for_k1s_configuration(monkeypatch):
             backend="cuda", device="cpu"),
     )
     assert r.trials > 0
-    assert calls and set(calls) == {"matmul"}
+    assert calls and set(calls) == {1}
