@@ -24,12 +24,18 @@ Phases, in order; a failing phase makes the run exit non-zero:
    where a block too large for shared memory must be rejected);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
-   shapes, with ragged lengths, sentinels, a softcap and a window;
+   shapes, with ragged lengths, sentinels, a softcap and a window, at kv
+   tiles whose split of the kv axis leaves whole splits masked (a length-1
+   slot, the window); each replayed twice from one CUDA graph for the
+   eager call's bits;
 3c. K7, the chunked SSD scan, against its plain version on the card, in
    float32 and with bfloat16 x/B/C, with and without the final state, at
-   mamba2-370m's and hymba-1.5b's forward shapes, at a 48-token chunk and
-   with a decay whose exp overflows above the diagonal; a chunk that does
-   not divide S and one too large for shared memory must be rejected;
+   mamba2-370m's and hymba-1.5b's forward shapes, at chunks of 17, 37 and
+   48 tokens (one chunk that fills no mma tile) and with a decay whose exp
+   overflows above the diagonal; replayed twice from one CUDA graph; a
+   chunk that does not divide S and one too large for shared memory must
+   be rejected; its chunk kernel must run at least 128 CTAs at mamba2's
+   forward shape;
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -52,9 +58,10 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
    unembed follows phases 9 and 10), beside its plain version, the one
    PyTorch call that computes the same function (where there is one), and
-   the least time the card could take (the tc variant of K1 and K2 at the
-   3xTF32 rate); device times (kernel and library call) from CUDA events
-   around a CUDA graph of 20 calls; then the same device times at fixed
+   the least time the card could take (the tc variant of K1 and K2, and
+   K7, at the 3xTF32 rate, each also at 67 TFLOP/s); device times (kernel
+   and library call) from CUDA events around a CUDA graph of 20 calls;
+   then the same device times at fixed
    tiles (``FIXED_TILES``: the tiles of the per-shape tables PERF.md keeps
    for K1, K2 and K4), so runs whose search picked other tiles compare at
    the same tile;
@@ -100,8 +107,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # the card's published peaks (H100 SXM data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth; K1's tc variant does three TF32 tensor-core
-# products (3xTF32) for each f32 one, so its f32 rate is at most 495 / 3
+# cores, and HBM3 bandwidth; K1's tc variant and K7 do three TF32
+# tensor-core products (3xTF32) for each f32 one, so their f32 rate is at
+# most 495 / 3
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
@@ -494,7 +502,9 @@ def phase_decode_kernels(gen, errs: dict) -> None:
             fail(f"{kernel} {label}: max_abs_err {err} > {TOL_ATTN}")
 
     q = randn(B, KVH, G, D)
-    for T, tiles in ((SERVE_MAX_SEQ, (16, 64, 256)), (192, (48, 96))):
+    # tiles 8 and 16 split the kv axis finely: a length-1 slot, and the
+    # window, leave whole splits masked
+    for T, tiles in ((SERVE_MAX_SEQ, (8, 16, 64, 256)), (192, (16, 48, 96))):
         k, v = randn(B, KVH, T, D), randn(B, KVH, T, D)
         cases = [("full", None, decode_bias([T] * B, T)),
                  ("ragged", None, decode_bias([T, 1, 77, T - 5], T)),
@@ -504,12 +514,20 @@ def phase_decode_kernels(gen, errs: dict) -> None:
             for label, cap, bias in cases:
                 got = fa.decode_flash_attention(q, k, v, bias, softcap=cap,
                                                 block_kv=bkv)
-                launched = fa.decode_flash_attention.last_launch["blocks"]
-                if launched != (bkv,):
-                    fail(f"decode_flash_attention launched {launched}, asked ({bkv},)")
+                plan = fa.decode_flash_attention.last_launch
+                if plan["blocks"] != (bkv,):
+                    fail(f"decode_flash_attention launched {plan['blocks']}, asked ({bkv},)")
                 want = ref.decode_attention(q, k, v, bias, softcap=cap)
                 report("decode_flash_attention",
-                       f"({B},{KVH},{G},{T},{D}) block_kv {bkv} {label}", got, want)
+                       f"({B},{KVH},{G},{T},{D}) block_kv {bkv}, {plan['splits']} "
+                       f"splits of {plan['rows_per_split']} rows, {label}", got, want)
+        bias = decode_bias([T, 1, 77, 9], T)
+        same = replay_twice(lambda: (fa.decode_flash_attention(q, k, v, bias,
+                                                               block_kv=16),))
+        print(f"[decode] decode_flash_attention T {T} block_kv 16, replayed twice "
+              f"from one CUDA graph: {'the same bits' if same else 'DIFFERENT bits'}")
+        if not same:
+            fail("decode_flash_attention: a graph replay differs from the eager call")
     # K6: pages scattered over a pool, sentinel entries, ragged lengths
     P = SERVE_MAX_SEQ // SERVE_PAGE
     n_pages = B * P + 3
@@ -531,20 +549,59 @@ def phase_decode_kernels(gen, errs: dict) -> None:
                got, want)
         report("paged_decode_flash_attention", f"{label} vs plain", got,
                ref.paged_decode_attention(q, kp, vp, table, bias, softcap=cap))
+    same = replay_twice(lambda: (fa.paged_decode_flash_attention(q, kp, vp, table,
+                                                                 bias),))
+    splits = fa.paged_decode_flash_attention.last_launch["splits"]
+    print(f"[decode] paged_decode_flash_attention, {splits} splits, replayed twice "
+          f"from one CUDA graph: {'the same bits' if same else 'DIFFERENT bits'}")
+    if not same:
+        fail("paged_decode_flash_attention: a graph replay differs from the eager call")
 
 
 def ssd_work(b, S, H, P, N, L, state_out: bool = False):
-    """(flops, bytes) of one K7 call: per (batch, head) and chunk, C·Bᵀ and
-    scores·x over the L(L+1)/2 pairs the causal mask keeps, C·h and the
-    state update's Bᵀx over all L rows; x, log_a, B and C read once, y
-    written once (and the f32 state, when asked for).  Inputs in bf16."""
-    pairs = L * (L + 1) // 2
-    per_chunk = 2 * pairs * N + 2 * pairs * P + 4 * L * N * P
-    flops = b * H * (S // L) * per_chunk
+    """(flops, bytes) of one K7 call, the work the function needs on these
+    inputs: C·Bᵀ once per (batch, chunk) (B and C are shared by the heads)
+    over the L(L+1)/2 pairs the causal mask keeps; per (batch, head) and
+    chunk, scores·x over the same pairs, the state's Bᵀx over all L rows
+    for every chunk but the last (whose state is read only when asked
+    for) and C·h over all L rows for every chunk but the first (the state
+    before it is zero); x, log_a, B and C read once, y written once (and
+    the f32 state, when asked for).  Inputs in bf16."""
+    pairs, nc = L * (L + 1) // 2, S // L
+    state = 2 * L * N * P
+    per_head = nc * 2 * pairs * P + (nc - 1) * 2 * state + (state if state_out else 0)
+    flops = b * (nc * 2 * pairs * N + H * per_head)
     nbytes = 2 * (2 * b * S * H * P + 2 * b * S * N) + 4 * b * S * H
     if state_out:
         nbytes += 4 * b * H * N * P
     return flops, nbytes
+
+
+def replay_twice(fn) -> bool:
+    """Whether ``fn``'s outputs (a tuple of tensors) from one eager call
+    and from each of two replays of a CUDA graph that captured it are the
+    same bits: the split-K counters and scratch of K5, K6 and K7 must come
+    back ready for the next replay."""
+    import torch
+
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = fn()
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            return False
+    return True
 
 
 def phase_ssd_kernel(gen, errs: dict) -> dict:
@@ -568,6 +625,9 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
     cases = (
         ("mamba2-370m forward", (1, 256, 32, 64, 128), 0.3),
         ("hymba-1.5b forward", (1, 256, 25, 64, 16), 0.3),
+        ("17-token prompt", (1, 17, 32, 64, 128), 0.3),
+        ("37-token prompt", (1, 37, 32, 64, 128), 0.3),
+        ("hymba 37-token prompt", (1, 37, 25, 64, 16), 0.3),
         ("48-token prompt", (1, 48, 32, 64, 128), 0.3),
         ("decay 20/step: exp overflows above the diagonal", (1, 256, 32, 64, 128), 20.0),
     )
@@ -580,8 +640,13 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
             got = ssd_k.ssd(xx, la, BB, CC, chunk=SSM_CHUNK)
             got2, h = ssd_k.ssd(xx, la, BB, CC, chunk=SSM_CHUNK, return_state=True)
             torch.cuda.synchronize()
-            if ssd_k.ssd.last_launch["blocks"] != (L,):
-                fail(f"ssd launched {ssd_k.ssd.last_launch}, want chunk {L}")
+            plan = ssd_k.ssd.last_launch
+            if plan["blocks"] != (L,):
+                fail(f"ssd launched {plan}, want chunk {L}")
+            if dtype == torch.float32:
+                print(f"[ssd] {label}: chunk grid {plan['grid']} (head group "
+                      f"{plan['head_group']}), pass grid {plan['pass_grid']} (slice "
+                      f"{plan['p_slice']}), {plan['kernels']} kernel(s)")
             err = float((got.float() - want.float()).abs().max())
             rel = err / float(want.float().abs().max())
             rel_h = float((h - want_h).abs().max() / want_h.abs().max())
@@ -592,6 +657,18 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
             finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(h).all())
             if not finite or rel > tol or rel_h > TOL_SSD_F32 or not torch.equal(got, got2):
                 fail(f"ssd {label} {dtype}: rel err {rel}, state {rel_h}, finite {finite}")
+    # two replays of one CUDA graph give the eager call's bits: the scratch
+    # between the two kernels is the graph's own
+    for label, (b, S, H, P, N) in (("mamba2-370m forward", (1, 256, 32, 64, 128)),
+                                   ("37-token prompt", (1, 37, 32, 64, 128))):
+        x, la, B, C = inputs(b, S, H, P, N)
+        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+        same = replay_twice(lambda: ssd_k.ssd(x, la, B, C, chunk=SSM_CHUNK,
+                                              return_state=True))
+        print(f"[ssd] {label} bf16 with its state, replayed twice from one CUDA "
+              f"graph: {'the same bits' if same else 'DIFFERENT bits'}")
+        if not same:
+            fail(f"ssd {label}: a graph replay differs from the eager call")
     for S, N, chunk, reason in ((80, 128, 64, "divide"), (256, 128, 256, "shared_memory")):
         x, la, B, C = inputs(1, S, 32, 64, N)
         try:
@@ -613,16 +690,23 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
 
     k_ms = median_ms(launch)
     d_ms = graph_ms(launch)
+    plan = ssd_k.ssd.last_launch
     p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK))
     flops, nbytes = ssd_work(b, S, H, P, N, SSM_CHUNK)
-    b_ms, b_by = bound(flops, nbytes)
+    # both kernels' contractions run in 3xTF32 on the tensor cores
+    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    b67 = bound(flops, nbytes)[0]
+    ctas = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
     print(f"[time] ssd ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} bf16: kernel "
-          f"{k_ms:.4f} ms (device {d_ms:.4f} ms) plain {p_ms:.4f} ms library - (no single "
+          f"{k_ms:.4f} ms (device {d_ms:.4f} ms, both kernels: {ctas} chunk CTAs, "
+          f"pass grid {plan['pass_grid']}) plain {p_ms:.4f} ms library - (no single "
           f"PyTorch call computes the SSD scan) bound {b_ms:.4f} ms ({b_by}; "
-          f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+          f"{b67:.4f} ms at 67 TFLOP/s; {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    if ctas < 128:
+        fail(f"ssd's chunk kernel ran {ctas} CTAs at mamba2-370m's forward shape")
     return dict(kernel="ssd", blocks=[SSM_CHUNK], ms=k_ms, device_ms=d_ms,
                 plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                flops=flops, weight=0)
+                bound_f32_ms=b67, chunk_ctas=ctas, flops=flops, weight=0)
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +821,7 @@ def check_tiles(tasks, db) -> dict:
     memory are the ones ``launch_config`` gives those blocks."""
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention as fa, sm_count
     from repro_torch.kernels import matmul as mm
     from repro_torch.search.measure.local import device_inputs
     from repro_torch.search.tune import apply_trace
@@ -775,8 +859,9 @@ def check_tiles(tasks, db) -> dict:
         elif kern == "decode_flash_attention":
             b, kvh, g, d = shapes[0]
             (bkv,) = snapped
-            want = dict(grid=(b * kvh,), threads=fa.THREADS,
-                        smem_bytes=fa.decode_smem_bytes(g, bkv, d))
+            cfg = fa.decode_launch_config(b, kvh, g, shapes[1][2], d, bkv,
+                                          sm_count("cuda"))
+            want = {k: cfg[k] for k in ("grid", "threads", "smem_bytes", "splits")}
         elif kern == "row_softmax":
             M, N = shapes[0]
             cfg = sm.launch_config(M, N, *snapped)
@@ -1009,6 +1094,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             def library():
                 return sdpa_decode(q, k, v, bias)
             k_ms = median_ms(launch)
+            extra = dict(splits=fa.decode_flash_attention.last_launch["splits"])
             p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias))
             l_ms = median_ms(library)
             flops, nbytes = decode_work(b, kvh, g, t_len, d)
@@ -1040,6 +1126,8 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
                            library_device_ms=l_d_ms, bound_ms=b_ms, bound_by=b_by,
                            weight=t.weight, flops=flops, **extra)
         var = f" {extra['variant']}" if "variant" in extra else ""
+        if "splits" in extra:
+            var = f" {extra['splits']} splits"
         f32 = f", {extra['bound_f32_ms']:.4f} ms at 67 TFLOP/s" if var == " tc" else ""
         print(f"[time] {t.key} {kern}{var} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
               f"(device {d_ms:.4f} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
@@ -1181,13 +1269,14 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
         return fa.paged_decode_flash_attention(q, kp, vp, table, bias)
     k_ms = median_ms(launch)
     d_ms = graph_ms(launch)
+    splits = fa.paged_decode_flash_attention.last_launch["splits"]
     p_ms = median_ms(lambda: ref.paged_decode_attention(q, kp, vp, table, bias))
     flops, nbytes = decode_work(b, kvh, g, t_len, d, table_entries=b * P)
     b_ms, b_by = bound(flops, nbytes)
     row = dict(kernel="paged_decode_flash_attention", blocks=[ps], ms=k_ms,
                device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               flops=flops, weight=0)
-    print(f"[time] paged decode ({b},{kvh},{g},{t_len},{d}) page {ps}: kernel "
+               flops=flops, weight=0, splits=splits)
+    print(f"[time] paged decode ({b},{kvh},{g},{t_len},{d}) page {ps}, {splits} splits: kernel "
           f"{k_ms:.4f} ms (device {d_ms:.4f} ms) plain {p_ms:.4f} ms library - (no single PyTorch call "
           f"reads through a page table) bound {b_ms:.4f} ms ({b_by})")
     return row
@@ -1225,14 +1314,17 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
 # traced call (the decode-only tick checks that K2 has no launch in it, and
 # mamba2 has no batch_matmul site)
 K1_KERNEL_NAMES = ("matmul_splitk_kernel", "matmul_tc_kernel", "matmul_tile_kernel")
+# K5's and K6's one kernel, and K7's two
+K5_KERNEL_NAMES = ("decode_attention_kernel",)
+K7_KERNEL_NAMES = ("ssd_chunk_kernel", "ssd_pass_kernel")
 
 
 def profile_device(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's events
     (kernels, copies), their summed time by name, the time the device was
     busy (the union of their intervals), the span from the first event's
-    start to the last one's end, and the summed time of K1's kernels.
-    Empty when the profiler saw no device event."""
+    start to the last one's end, and the summed time of K1's, K5's and
+    K7's kernels.  Empty when the profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1247,17 +1339,20 @@ def profile_device(fn) -> dict:
         return {}
     busy, end = 0.0, spans[0][0]
     by_name = Counter()
-    k1 = 0.0
+    groups = {"matmul_ms": K1_KERNEL_NAMES, "decode_attention_ms": K5_KERNEL_NAMES,
+              "ssd_ms": K7_KERNEL_NAMES}
+    by_kernel = dict.fromkeys(groups, 0.0)
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         by_name[name[:60]] += t1 - t0
-        if any(k in name for k in K1_KERNEL_NAMES):
-            k1 += t1 - t0
+        for key, names in groups.items():
+            if any(k in name for k in names):
+                by_kernel[key] += t1 - t0
     span = end - spans[0][0]
     return dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
                 idle_share=1.0 - busy / span if span > 0 else 0.0,
-                matmul_ms=k1 / 1e3,
+                **{k: v / 1e3 for k, v in by_kernel.items()},
                 top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
 
 
@@ -1445,6 +1540,11 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     print(f"[serve] K1 in one decode-only tick: launches by variant "
           f"{check['matmul_variants']}; device time {k1_ms} (traced; "
           f"{FMA_TICK_K1_MS} ms before the split-K variant)")
+    k5_ms = check["profile"].get("decode_attention_ms")
+    k5_ms = "not measured" if k5_ms is None else f"{k5_ms:.3f} ms"
+    print(f"[serve] K5 in one decode-only tick: "
+          f"{check['launches']['decode_flash_attention']} launches, device time "
+          f"{k5_ms} (traced)")
     print(f"[serve] one decode-only tick ({check['lanes']} lanes, host clock, median "
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
           f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
@@ -1594,6 +1694,8 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
               f"span, idle share {prof['idle_share']:.3f}")
         for name, ms in prof["top_ms"].items():
             print(f"[ssm-forward]   {ms:8.3f} ms  {name}")
+        print(f"[ssm-forward] K7 in one {label} forward: {prof['ssd_ms']:.3f} ms "
+              f"traced over its kernels")
     print(f"[ssm-forward] {norm_key}: {norm_hits} hits, {unembed_key}: {unembed_hits} "
           f"hits; kernel launches in one dispatched forward: {fwd_counts}; K1 by "
           f"variant {fwd_variants}")
@@ -1912,7 +2014,7 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
-            **({"variant": r["variant"]} if "variant" in r else {}),
+            **{k: r[k] for k in ("variant", "bound_f32_ms", "splits") if k in r},
         ))
     total_s = time.perf_counter() - t_start
     print(f"[done] build {build_s:.1f} s, total {total_s:.1f} s")

@@ -23,4 +23,21 @@ class ScheduleRejected(ValueError):
         self.reason = reason
 
 
+_SM_COUNTS = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` (read once).
+    The launch plans of K5, K6 and K7 take this count as an argument, so
+    that they stay pure functions the CPU tests can call."""
+    import torch
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
+
 from . import ref  # noqa: E402,F401

@@ -12,11 +12,16 @@ shared memory of a CTA.
 K5 ``decode_flash_attention`` and K6 ``paged_decode_flash_attention``
 (source ``csrc/decode_attention.cu``) replace the Pallas kernels of the
 same names: one query token per sequence against a fixed-shape cache, the
-length and window masks arriving as an additive bias row.  One CTA owns one
-(batch, kv head) with the G query rows of its group, and loops over the kv
-axis in tiles of ``block_kv`` (K5, a runtime divisor of T) or one page per
-step read through the page table (K6).  The note at the top of each source
-says what bounds the kernel and what its design does about it.
+length and window masks arriving as an additive bias row.  The kv axis is
+split over CTAs (flash-decoding): the grid is (batch·kv head, splits), a
+CTA takes the G query rows of its group over a contiguous run of kv rows,
+whole tiles of ``block_kv`` (K5, a runtime divisor of T) or pages read
+through the page table (K6) where there are enough of them and part of one
+otherwise, and the last CTA of a (batch, kv head) combines the splits'
+partial (max, sum, accumulator) in split order, in the same launch.
+The split count is a pure function of the shape, the tile and the card's SM
+count (:func:`decode_splits`).  The note at the top of each source says what
+bounds the kernel and what its design does about it.
 
 Beside each wrapper: the plain PyTorch version (``kernels/ref.py``), which
 the wrapper runs for CPU tensors only, and the launch counter
@@ -31,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from . import ScheduleRejected, ref
+from . import ScheduleRejected, ref, sm_count
 
 NEG_INF = ref.NEG_INF
 MAX_SMEM_BYTES = 227 * 1024
@@ -94,6 +99,10 @@ def _lib():
         lib.repro_flash_attention.restype = I
         lib._repro_typed = True
     return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _check_cuda_operands(name: str, tensors, dtypes) -> None:
@@ -167,18 +176,40 @@ flash_attention.last_launch = None
 # ---------------------------------------------------------------------------
 
 
+H100_SMS = 132
+
+
+def decode_splits(bh: int, T: int, bkv: int, sms: int):
+    """(rows a split, splits) of a decode launch over ``bh`` = batch·kv
+    heads and ``T`` kv rows in tiles of ``bkv`` on a card of ``sms`` SMs.
+    The card wants ceil(sms / bh) splits a (batch, kv head).  Where the
+    tiles are as many, a split is a run of whole tiles, as many as still
+    leave that count; where they are fewer (a large tile), a split is
+    ceil(T / wanted) rows, part of one tile.  One split when ``bh`` alone
+    fills the card."""
+    want = -(-sms // bh)
+    n_tiles = T // bkv
+    rows = bkv * (n_tiles // want) if n_tiles >= want else -(-T // want)
+    return rows, -(-T // rows)
+
+
 def decode_smem_bytes(g: int, bkv: int, d: int) -> int:
-    """Shared memory of one decode CTA: q and acc (G·D each), the K tile
-    padded to D+1 a row, the V tile, the G·bkv score tile and three
+    """Shared memory of one decode CTA: q and acc (G·D each), the V tile,
+    the K tile padded to D+1 a row, the G·bkv score tile and three
     G-vectors."""
     return 4 * (2 * g * d + bkv * (d + 1) + bkv * d + g * bkv + 3 * g)
 
 
-def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int) -> dict:
-    """Grid, threads and shared memory of a decode launch with kv tile
-    ``bkv``; raises ``ScheduleRejected`` for a tile the card cannot run."""
+def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int,
+                         sms: int = H100_SMS) -> dict:
+    """Grid (B·KVH, splits), threads, shared memory, the rows a split
+    (:func:`decode_splits`) and the f32 scratch of the partials
+    (B·KVH·splits·(2G + G·D), none with one split) of a decode launch with
+    kv tile ``bkv`` on a card of ``sms`` SMs; raises ``ScheduleRejected``
+    for a tile the card cannot run."""
     if T % bkv:
         raise ScheduleRejected("divide", f"block_kv {bkv} must divide T={T}")
+    rows, splits = decode_splits(B * KVH, T, bkv, sms)
     smem = decode_smem_bytes(G, bkv, D)
     if smem > MAX_SMEM_BYTES:
         raise ScheduleRejected(
@@ -186,10 +217,12 @@ def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int) -> 
             f"decode block_kv {bkv} at G={G}, D={D} needs {smem} bytes of "
             f"shared memory; cap {MAX_SMEM_BYTES}"
         )
-    grid = (B * KVH,)
-    if grid[0] > _GRID_X_MAX:
+    grid = (B * KVH, splits)
+    if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
         raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
-    return {"blocks": (bkv,), "grid": grid, "threads": THREADS, "smem_bytes": smem}
+    scratch = 4 * B * KVH * splits * (2 * G + G * D) if splits > 1 else 0
+    return {"blocks": (bkv,), "grid": grid, "threads": THREADS, "smem_bytes": smem,
+            "splits": splits, "rows_per_split": rows, "scratch_bytes": scratch}
 
 
 def _decode_lib():
@@ -197,17 +230,28 @@ def _decode_lib():
 
     lib = load("decode_attention")
     if not getattr(lib, "_repro_typed", False):
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_decode_attention.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, I, Fl, Fl, P
-        ]
+        P, I, Fl, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        lib.repro_decode_attention.argtypes = [P] * 7 + [I] * 8 + [Fl, Fl, L, P]
         lib.repro_decode_attention.restype = I
-        lib.repro_paged_decode_attention.argtypes = [
-            P, P, P, P, P, P, I, I, I, I, I, I, I, Fl, Fl, P
-        ]
+        lib.repro_paged_decode_attention.argtypes = [P] * 8 + [I] * 9 + [Fl, Fl, L, P]
         lib.repro_paged_decode_attention.restype = I
         lib._repro_typed = True
     return lib
+
+
+def _decode_buffers(cfg: dict, q: torch.Tensor, stream: int):
+    """The output, the partials' scratch behind it in one allocation, and
+    the per-(batch, kv head) counters of a decode launch; no scratch and no
+    counters with one split.  The counters are :mod:`matmul`'s split-K
+    ones: kept per device and stream, each launch leaves them zero."""
+    if cfg["splits"] == 1:
+        return torch.empty_like(q), None, None
+    from .matmul import _tile_counters
+
+    buf = torch.empty(q.numel() + cfg["scratch_bytes"] // 4, dtype=torch.float32,
+                      device=q.device)
+    counters = _tile_counters(q.device, stream, cfg["grid"][0])
+    return buf[: q.numel()].view(q.shape), buf[q.numel():], counters
 
 
 def decode_flash_attention(
@@ -238,14 +282,15 @@ def decode_flash_attention(
                          (torch.float32,) * 4)
     if softcap is not None and softcap <= 0:
         raise ValueError(f"decode_flash_attention: softcap must be > 0, got {softcap}")
-    cfg = decode_launch_config(B, KVH, G, T, D, bkv)
-    o = torch.empty_like(q)
+    cfg = decode_launch_config(B, KVH, G, T, D, bkv, sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        o, part, counters = _decode_buffers(cfg, q, stream)
         err = _decode_lib().repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), B, KVH, G, T, D, bkv, float(scale),
-            float(softcap or 0.0), stream,
+            o.data_ptr(), _ptr(part), _ptr(counters), B, KVH, G, T, D, bkv,
+            cfg["rows_per_split"], cfg["splits"], float(scale),
+            float(softcap or 0.0), cfg["smem_bytes"], stream,
         )
     from ._build import check
 
@@ -298,14 +343,16 @@ def paged_decode_flash_attention(
         raise ValueError(
             f"paged_decode_flash_attention: softcap must be > 0, got {softcap}"
         )
-    cfg = decode_launch_config(B, KVH, G, P * ps, D, ps)
-    o = torch.empty_like(q)
+    cfg = decode_launch_config(B, KVH, G, P * ps, D, ps, sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        o, part, counters = _decode_buffers(cfg, q, stream)
         err = _decode_lib().repro_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), bias.data_ptr(), o.data_ptr(), B, KVH, G, D,
-            ps, P, n_pages, float(scale), float(softcap or 0.0), stream,
+            page_table.data_ptr(), bias.data_ptr(), o.data_ptr(), _ptr(part),
+            _ptr(counters), B, KVH, G, D, ps, P, cfg["rows_per_split"],
+            cfg["splits"], n_pages, float(scale), float(softcap or 0.0),
+            cfg["smem_bytes"], stream,
         )
     from ._build import check
 

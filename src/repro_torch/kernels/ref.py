@@ -156,20 +156,13 @@ def ssd_scan(x, log_a, B, C):
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-def ssd_chunked(x, log_a, B, C, chunk: int = 16, return_state: bool = False):
-    """Chunked (state-space duality) SSD — the algorithm K7 implements,
-    mathematically equal to :func:`ssd_scan`.
-
-    Within a chunk of L steps the recurrence is a decay-masked quadratic
-    form, ``y_i = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) x_j`` with
-    ``cum = cumsum(log_a)``; across chunks an (N, P) f32 state per
-    (batch, head) carries ``h = exp(cum_L) h + Σ_j exp(cum_L - cum_j)
-    B_j x_jᵀ``, and ``y_i += exp(cum_i) C_i·h`` reads the state from
-    before the chunk.  x, B and C are computed in f32; y is returned in
-    x's dtype.  ``return_state=True`` also returns the final state
-    (batch, H, N, P) in f32, the prefill -> decode handoff.  ``chunk``
-    must divide S.
-    """
+def ssd_chunk_pass(x, log_a, B, C, chunk: int):
+    """The part of :func:`ssd_chunked` that needs no earlier chunk (K7's
+    chunk kernel).  Returns ``cum`` = cumsum(log_a) within each chunk
+    (batch, nc, L, H); ``y_intra`` (batch, S, H, P) f32, the decay-masked
+    quadratic form ``Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) x_j``; and each
+    chunk's own state at its end, ``Σ_j exp(cum_L - cum_j) B_j x_jᵀ``
+    (batch, nc, H, N, P) f32.  ``chunk`` must divide S."""
     batch, S, H, P = x.shape
     N = B.shape[-1]
     if chunk < 1 or S % chunk:
@@ -183,8 +176,8 @@ def ssd_chunked(x, log_a, B, C, chunk: int = 16, return_state: bool = False):
     Cc = C.reshape(batch, nc, chunk, N).float()
     cum = torch.cumsum(lac, dim=2)  # (b, nc, L, H)
 
-    # intra-chunk: the decay-masked quadratic form; exp is taken where the
-    # mask keeps it (cum_i - cum_j > 0 above the diagonal may overflow)
+    # exp is taken where the mask keeps it (cum_i - cum_j > 0 above the
+    # diagonal may overflow)
     idx = torch.arange(chunk, device=x.device)
     tri = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, L, L, H)
@@ -192,22 +185,57 @@ def ssd_chunked(x, log_a, B, C, chunk: int = 16, return_state: bool = False):
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, dec, xc)
 
-    # each chunk's own contribution to the state at its end
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (b, nc, L, H)
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, decay_to_end, xc)
+    return cum, y_intra.reshape(batch, S, H, P), states
 
-    # inter-chunk recurrence over the chunk index: the state before each
-    # chunk, and the final one
+
+def ssd_state_pass(states, cum):
+    """The pass over chunks (K7's pass kernel, its state half):
+    ``h_c = exp(cum_L) h_{c-1} + s_c`` from h = 0.  ``states`` (batch, nc,
+    H, N, P) and ``cum`` (batch, nc, L, H) from :func:`ssd_chunk_pass`.
+    Returns the state before each chunk (batch, nc, H, N, P) and the final
+    state (batch, H, N, P), both f32."""
+    batch, nc, H, N, P = states.shape
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, H)
-    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=x.device)
+    h = torch.zeros((batch, H, N, P), dtype=torch.float32, device=states.device)
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
         h = chunk_decay[:, c, :, None, None] * h + states[:, c]
-    h_prev = torch.stack(h_prev, dim=1)  # (b, nc, H, N, P)
+    return torch.stack(h_prev, dim=1), h
 
-    y_inter = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum), h_prev)
-    y = (y_intra + y_inter).reshape(batch, S, H, P).to(x.dtype)
+
+def ssd_inter(C, cum, h_prev):
+    """The state's share of y (K7's pass kernel, its output half):
+    ``y_inter_i = exp(cum_i) C_i·h_{c-1}``, (batch, S, H, P) f32, from C
+    (batch, S, N), ``cum`` (batch, nc, L, H) and the states before each
+    chunk (batch, nc, H, N, P)."""
+    batch, nc, L, H = cum.shape
+    P = h_prev.shape[-1]
+    Cc = C.reshape(batch, nc, L, C.shape[-1]).float()
+    y = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(cum), h_prev)
+    return y.reshape(batch, nc * L, H, P)
+
+
+def ssd_chunked(x, log_a, B, C, chunk: int = 16, return_state: bool = False):
+    """Chunked (state-space duality) SSD — the algorithm K7 implements,
+    mathematically equal to :func:`ssd_scan`, composed of its three passes
+    :func:`ssd_chunk_pass`, :func:`ssd_state_pass` and :func:`ssd_inter`.
+
+    Within a chunk of L steps the recurrence is a decay-masked quadratic
+    form, ``y_i = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) x_j`` with
+    ``cum = cumsum(log_a)``; across chunks an (N, P) f32 state per
+    (batch, head) carries ``h = exp(cum_L) h + Σ_j exp(cum_L - cum_j)
+    B_j x_jᵀ``, and ``y_i += exp(cum_i) C_i·h`` reads the state from
+    before the chunk.  x, B and C are computed in f32; y is returned in
+    x's dtype.  ``return_state=True`` also returns the final state
+    (batch, H, N, P) in f32, the prefill -> decode handoff.  ``chunk``
+    must divide S.
+    """
+    cum, y_intra, states = ssd_chunk_pass(x, log_a, B, C, chunk)
+    h_prev, h = ssd_state_pass(states, cum)
+    y = (y_intra + ssd_inter(C, cum, h_prev)).to(x.dtype)
     if return_state:
         return y, h
     return y

@@ -15,6 +15,8 @@ are convex combinations of v.  K7 (ssd) against its plain version: 1e-5
 of the output's largest magnitude in f32 (sums of up to N + L terms in
 another order), 8e-3 of it with bf16 x/B/C (both round y to bf16 once: one
 ulp is 2^-8 of |y|); the f32 state within 1e-5 of its largest magnitude.
+The kernels that split their work over CTAs (K5, K6, K7) must give the
+same bits on a second call and on two replays of one CUDA graph.
 """
 
 import math
@@ -345,24 +347,66 @@ def _bias(lengths, T, dev, window=0):
     return torch.where(ok, 0.0, -1e30).float()
 
 
-@pytest.mark.parametrize("T,block_kv,softcap,window", [
-    (256, 64, None, 0), (192, 48, 50.0, 0), (192, 96, None, 40), (256, 256, None, 0),
-])
-def test_cuda_decode_attention_against_plain(T, block_kv, softcap, window):
+def _divisors(n):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+# every kv tile that divides T = 256 and 192, so every split the plan makes
+# at the serving shape (B 4, KVH 3, G 3, D 64): rows of every length (a
+# length-1 slot masks every split but the first), then with a softcap and
+# with a window that masks whole splits at small tiles
+@pytest.mark.parametrize("T,block_kv", [(256, d) for d in _divisors(256)]
+                         + [(192, d) for d in _divisors(192)])
+def test_cuda_decode_attention_against_plain(T, block_kv):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(T + block_kv)
     q = torch.randn(4, 3, 3, 64, generator=g, device=dev)
     k = torch.randn(4, 3, T, 64, generator=g, device=dev)
     v = torch.randn(4, 3, T, 64, generator=g, device=dev)
-    bias = _bias([T, 1, 77, T - 5], T, dev, window)  # ragged per-slot lengths
-    n = fa.decode_flash_attention.launches
-    got = fa.decode_flash_attention(q, k, v, bias, softcap=softcap, block_kv=block_kv)
+    plan = fa.decode_launch_config(4, 3, 3, T, 64, block_kv,
+                                   repro_torch.kernels.sm_count(dev))
+    for softcap, window, lengths in ((None, 0, [T, 1, 77, T - 5]),
+                                     (50.0, 0, [T, 33, 2, 150]),
+                                     (None, 40, [T, 100, 64, 9])):
+        bias = _bias(lengths, T, dev, window)
+        n = fa.decode_flash_attention.launches
+        got = fa.decode_flash_attention(q, k, v, bias, softcap=softcap,
+                                        block_kv=block_kv)
+        again = fa.decode_flash_attention(q, k, v, bias, softcap=softcap,
+                                          block_kv=block_kv)
+        torch.cuda.synchronize()
+        assert fa.decode_flash_attention.launches == n + 2
+        assert fa.decode_flash_attention.last_launch == plan
+        assert torch.equal(got, again)
+        want = tref.decode_attention(q, k, v, bias, softcap=softcap)
+        assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("block_kv", [8, 96])
+def test_cuda_decode_attention_head_dim_without_vector_loads(block_kv):
+    # D 30 takes the 4-byte loads of K and V
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(block_kv)
+    q = torch.randn(4, 3, 3, 30, generator=g, device=dev)
+    k = torch.randn(4, 3, 96, 30, generator=g, device=dev)
+    v = torch.randn(4, 3, 96, 30, generator=g, device=dev)
+    bias = _bias([96, 1, 50, 9], 96, dev, 20)
+    got = fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv)
     torch.cuda.synchronize()
-    assert fa.decode_flash_attention.launches == n + 1
-    assert fa.decode_flash_attention.last_launch["blocks"] == (block_kv,)
-    assert fa.decode_flash_attention.last_launch["grid"] == (12,)
-    want = tref.decode_attention(q, k, v, bias, softcap=softcap)
+    assert fa.decode_flash_attention.last_launch["splits"] > 1
+    want = tref.decode_attention(q, k, v, bias)
     assert float((got - want).abs().max()) < 1e-4
+
+
+def test_cuda_decode_attention_fills_the_card_at_small_tiles():
+    dev = _cuda()
+    q = torch.randn(4, 3, 3, 64, device=dev)
+    k = torch.randn(4, 3, 256, 64, device=dev)
+    bias = _bias([256, 1, 77, 251], 256, dev)
+    fa.decode_flash_attention(q, k, k, bias, block_kv=16)
+    grid = fa.decode_flash_attention.last_launch["grid"]
+    assert grid == (12, 16) or repro_torch.kernels.sm_count(dev) != 132
+    assert grid[0] * grid[1] >= min(132, repro_torch.kernels.sm_count(dev))
 
 
 def test_cuda_paged_decode_attention_against_decode_on_the_gathered_view():
@@ -384,10 +428,53 @@ def test_cuda_paged_decode_attention_against_decode_on_the_gathered_view():
     idx = torch.clamp(table.long(), max=n_pages - 1)
     gk = kp[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D).contiguous()
     gv = vp[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, P * ps, D).contiguous()
+    plan = fa.paged_decode_flash_attention.last_launch
+    assert plan == fa.decode_launch_config(B, KVH, G, P * ps, D, ps,
+                                           repro_torch.kernels.sm_count(dev))
     want = fa.decode_flash_attention(q, gk, gv, bias, block_kv=ps)
-    assert float((got - want).abs().max()) < 1e-4
+    # the same splits over the same values: the same bits
+    assert fa.decode_flash_attention.last_launch == plan
+    assert torch.equal(got, want)
     assert float((got - tref.paged_decode_attention(q, kp, vp, table, bias))
                  .abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("block_kv", [16, 64])
+def test_cuda_decode_kernels_replay_from_a_graph(block_kv):
+    # the split counters reset themselves, so a graph replays the same bits
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, KVH, G, D, ps, P = 4, 3, 3, 64, 16, 16
+    n_pages = B * P + 3
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    k = torch.randn(B, KVH, P * ps, D, generator=g, device=dev)
+    v = torch.randn(B, KVH, P * ps, D, generator=g, device=dev)
+    kp = torch.randn(n_pages, KVH, ps, D, generator=g, device=dev)
+    vp = torch.randn(n_pages, KVH, ps, D, generator=g, device=dev)
+    table = torch.randperm(n_pages - 1, generator=g, device=dev)[: B * P]
+    table = table.reshape(B, P).to(torch.int32)
+    table[3, 1:] = n_pages
+    bias = _bias([P * ps, 1, 77, 16], P * ps, dev)
+
+    def both():
+        return (fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv),
+                fa.paged_decode_flash_attention(q, kp, vp, table, bias))
+
+    want = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = both()
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("bm", [36, 72, 144, 288])
@@ -456,11 +543,18 @@ def _rel(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+# (batch, S, H, P, N): mamba2-370m's and hymba-1.5b's heads and states;
+# S 17 and 37 (slot-arena prompts: one chunk that fills no mma tile), 48,
+# 128 and 256; batch 4 and 8, where a CTA owns 3 heads of 32 or of 25
 @pytest.mark.parametrize("shape,chunk,decay", [
     ((1, 256, 32, 64, 128), 64, 0.3),   # mamba2-370m's forward
     ((1, 256, 25, 64, 16), 64, 0.3),    # hymba-1.5b's
+    ((1, 17, 32, 64, 128), 64, 0.3),    # a 17-token prompt: chunk 17
+    ((2, 37, 25, 64, 16), 64, 0.3),     # a 37-token prompt: chunk 37
     ((2, 48, 4, 32, 16), 64, 0.3),      # a 48-token prompt: chunk 48
     ((1, 128, 4, 64, 128), 64, 20.0),   # exp overflows above the diagonal
+    ((4, 256, 32, 64, 128), 64, 0.3),   # head groups of 3, the last of 2
+    ((8, 128, 25, 64, 16), 64, 0.3),    # head groups of 3, the last of 1
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
 def test_cuda_ssd_against_plain(shape, chunk, decay, dtype, tol):
@@ -472,15 +566,67 @@ def test_cuda_ssd_against_plain(shape, chunk, decay, dtype, tol):
     n = ssd_k.ssd.launches
     got = ssd_k.ssd(x, la, B, C, chunk=chunk)
     got2, h = ssd_k.ssd(x, la, B, C, chunk=chunk, return_state=True)
+    got3 = ssd_k.ssd(x, la, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_k.ssd.launches == n + 2
-    assert ssd_k.ssd.last_launch["blocks"] == (L,)
-    assert ssd_k.ssd.last_launch["grid"] == (shape[0] * shape[2],)
+    assert ssd_k.ssd.launches == n + 3
+    plan = ssd_k.launch_config(*shape, chunk, repro_torch.kernels.sm_count(dev),
+                               x.element_size())
+    assert ssd_k.ssd.last_launch == plan
+    assert plan["blocks"] == (L,) and plan["kernels"] == (1 if L == shape[1] else 2)
     assert got.dtype == dtype and h.dtype == torch.float32
     assert torch.isfinite(got.float()).all() and torch.isfinite(h).all()
-    assert torch.equal(got, got2)
+    assert torch.equal(got, got2) and torch.equal(got, got3)
     assert _rel(got, want) <= tol
     assert _rel(h, want_h) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
+def test_cuda_ssd_widths_that_fill_no_tile_and_allow_no_vector_copy(dtype, tol):
+    # N 12 and P 20 pad to 16 and 32 in shared memory; in bf16 neither
+    # allows 16-byte copies, and one pass slice of P holds no column of it
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, 2, 96, 3, 20, 12)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    want, want_h = tref.ssd_chunked(x, la, B, C, chunk=32, return_state=True)
+    got, h = ssd_k.ssd(x, la, B, C, chunk=32, return_state=True)
+    torch.cuda.synchronize()
+    plan = ssd_k.ssd.last_launch
+    assert plan["kernels"] == 2 and plan["pass_grid"][0] * plan["p_slice"] > 24
+    assert _rel(got, want) <= tol
+    assert _rel(h, want_h) <= 1e-5
+
+
+def test_cuda_ssd_main_shape_fills_the_card():
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, 1, 256, 32, 64, 128)
+    ssd_k.ssd(x.bfloat16(), la, B.bfloat16(), C.bfloat16())
+    plan = ssd_k.ssd.last_launch
+    if repro_torch.kernels.sm_count(dev) == 132:
+        assert plan["grid"] == (32, 4, 1)  # 128 CTAs, one head each
+        assert plan["pass_grid"] == (4, 32, 1)  # 128 CTAs of 8 warps
+    assert plan["grid"][0] * plan["grid"][1] * plan["grid"][2] >= 128
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 32, 64, 128), (2, 37, 25, 64, 16)])
+def test_cuda_ssd_replays_from_a_graph(shape):
+    dev = _cuda()
+    x, la, B, C = _ssd_inputs(dev, *shape)
+    x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    want, want_h = ssd_k.ssd(x, la, B, C, return_state=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_k.ssd(x, la, B, C, return_state=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got, h = ssd_k.ssd(x, la, B, C, return_state=True)
+    for _ in range(2):
+        got.zero_()
+        h.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(h, want_h)
 
 
 def test_cuda_ssd_reads_x_through_its_strides():

@@ -3,7 +3,9 @@
 K5 and K6 (``decode_flash_attention`` / ``paged_decode_flash_attention``):
 on the CPU each wrapper runs its plain PyTorch version, held against the
 Pallas kernels in interpret mode on the same seeded numpy inputs, float32,
-atol/rtol 2e-6 (online vs whole-row softmax, different summation orders).
+atol/rtol 2e-6 (online vs whole-row softmax, different summation orders);
+their launch plans (the split of the kv axis against the SM count) as
+pure functions.
 Above them: the decode lowering's snapped tiles and provenance meta against
 ``pallas_backend``'s, the model layer ``decode_attention`` (single token and
 chunk staircase, with and without a window; rtol/atol 1e-5), its dispatch
@@ -125,15 +127,56 @@ def test_paged_decode_equals_decode_on_the_gathered_view():
 
 
 def test_decode_launch_config_follows_and_rejects():
+    # the serving shape on 132 SMs: bkv 64 gives 4 tiles, fewer than the 11
+    # splits the card wants, so a split is 24 rows, part of one tile
     cfg = fa.decode_launch_config(4, 3, 3, 256, 64, 64)
-    assert cfg["grid"] == (12,) and cfg["blocks"] == (64,)
+    assert cfg["grid"] == (12, 11) and cfg["blocks"] == (64,)
+    assert cfg["splits"] == 11 and cfg["rows_per_split"] == 24
     assert cfg["smem_bytes"] == fa.decode_smem_bytes(3, 64, 64)
+    assert cfg["smem_bytes"] == 4 * (2 * 3 * 64 + 64 * 65 + 64 * 64 + 3 * 64 + 9)
+    assert cfg["scratch_bytes"] == 4 * 12 * 11 * (2 * 3 + 3 * 64)
     with pytest.raises(ScheduleRejected) as e:
         fa.decode_launch_config(1, 1, 3, 4096, 64, 4096)
     assert e.value.reason == "shared_memory"
     with pytest.raises(ScheduleRejected) as e:
         fa.decode_launch_config(1, 1, 3, 256, 64, 48)
     assert e.value.reason == "divide"
+
+
+# (B, KVH, T, bkv, sms) -> (rows a split, splits): ceil(sms / (B·KVH))
+# splits a (batch, kv head) at least, whole tiles where there are enough
+@pytest.mark.parametrize("B,KVH,T,bkv,sms,rows,splits", [
+    (4, 3, 256, 16, 132, 16, 16),    # the serving shape: 192 CTAs of a tile
+    (4, 3, 256, 8, 132, 16, 16),     # 32 tiles, two a split
+    (4, 3, 256, 32, 132, 24, 11),    # 8 tiles: part of one a split
+    (4, 3, 256, 128, 132, 24, 11),
+    (4, 3, 256, 256, 132, 24, 11),   # one tile, split 11 ways
+    (4, 3, 192, 16, 132, 16, 12),    # 12 tiles: 144 CTAs
+    (4, 3, 192, 8, 132, 16, 12),     # 24 tiles, two a split
+    (4, 3, 192, 96, 132, 18, 11),    # 11 splits, the last of 12 rows
+    (4, 3, 256, 16, 16, 128, 2),     # a card of 16 SMs: 8 tiles a split
+    (64, 3, 256, 16, 132, 256, 1),   # 192 (batch, kv head) pairs fill the card
+    (2, 2, 100, 4, 132, 4, 25),      # 25 tiles, fewer than the 33 wanted
+    (1, 1, 300, 1, 132, 2, 150),     # 300 tiles, two a split
+    (1, 1, 16, 16, 132, 1, 16),      # 16 rows: one a split
+])
+def test_decode_splits_fill_one_wave_where_the_rows_allow(B, KVH, T, bkv, sms,
+                                                          rows, splits):
+    assert fa.decode_splits(B * KVH, T, bkv, sms) == (rows, splits)
+    cfg = fa.decode_launch_config(B, KVH, 3, T, 64, bkv, sms)
+    assert cfg["grid"] == (B * KVH, splits) and cfg["rows_per_split"] == rows
+    # every split has rows, and the splits cover every row once
+    assert (splits - 1) * rows < T <= splits * rows
+    # a run of whole tiles, or part of one
+    assert rows % bkv == 0 or rows < bkv
+    assert cfg["scratch_bytes"] == (4 * B * KVH * splits * (6 + 3 * 64)
+                                    if splits > 1 else 0)
+
+
+def test_decode_splits_reach_one_wave_at_the_serving_shape_at_every_tile():
+    for bkv in (d for d in range(1, 257) if 256 % d == 0):
+        cfg = fa.decode_launch_config(4, 3, 3, 256, 64, bkv, 132)
+        assert cfg["grid"][0] * cfg["grid"][1] >= 132
 
 
 # ---------------------------------------------------------------------------
