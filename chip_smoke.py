@@ -27,7 +27,8 @@ Phases, in order; a failing phase makes the run exit non-zero:
    shapes, with ragged lengths, sentinels, a softcap and a window, at kv
    tiles whose split of the kv axis leaves whole splits masked (a length-1
    slot, the window); each replayed twice from one CUDA graph for the
-   eager call's bits;
+   eager call's bits; K5's device time at every kv tile that divides 256,
+   beside ``scaled_dot_product_attention`` on the same inputs;
 3c. K7, the chunked SSD scan, against its plain version on the card, in
    float32 and with bfloat16 x/B/C, with and without the final state, at
    mamba2-370m's and hymba-1.5b's forward shapes, at chunks of 17, 37 and
@@ -35,7 +36,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    overflows above the diagonal; replayed twice from one CUDA graph; a
    chunk that does not divide S and one too large for shared memory must
    be rejected; its chunk kernel must run at least 128 CTAs at mamba2's
-   forward shape;
+   forward shape, where each of its two kernels is also traced;
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -58,8 +59,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
    unembed follows phases 9 and 10), beside its plain version, the one
    PyTorch call that computes the same function (where there is one), and
-   the least time the card could take (the tc variant of K1 and K2, and
-   K7, at the 3xTF32 rate, each also at 67 TFLOP/s); device times (kernel
+   the least time the card could take (the tc variant of K1 and K2 at the
+   3xTF32 rate, K7 at the rate of each product's operand types, each also
+   at 67 TFLOP/s); device times (kernel
    and library call) from CUDA events around a CUDA graph of 20 calls;
    then the same device times at fixed
    tiles (``FIXED_TILES``: the tiles of the per-shape tables PERF.md keeps
@@ -106,12 +108,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# the card's published peaks (H100 SXM data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth; K1's tc variant and K7 do three TF32
-# tensor-core products (3xTF32) for each f32 one, so their f32 rate is at
-# most 495 / 3
+# the card's published peaks (H100 SXM data sheet, dense): f32 outside the
+# tensor cores, TF32 and bf16 on them, and HBM3 bandwidth.  A product of
+# two f32 operands takes three TF32 products (3xTF32: K1's tc variant, K7
+# in f32); one whose other operand is bf16, exact in TF32, takes two (K7's
+# scores.x, state and C.h in bf16); two bf16 operands take one bf16 product
+# (K7's C.B^T in bf16)
 PEAK_F32_FLOPS = 67e12
-PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_HBM_BYTES = 3.35e12
 
 SEQ = 256
@@ -482,7 +488,10 @@ def sdpa_decode(q4, k, v, bias):
     )
 
 
-def phase_decode_kernels(gen, errs: dict) -> None:
+def phase_decode_kernels(gen, errs: dict) -> dict:
+    """Phase 3b: K5 and K6 against their plain versions; returns K5's
+    device ms at every kv tile that divides the serving cache, and SDPA's,
+    with every slot full."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -556,25 +565,80 @@ def phase_decode_kernels(gen, errs: dict) -> None:
           f"from one CUDA graph: {'the same bits' if same else 'DIFFERENT bits'}")
     if not same:
         fail("paged_decode_flash_attention: a graph replay differs from the eager call")
+    T = SERVE_MAX_SEQ
+    k, v = randn(B, KVH, T, D), randn(B, KVH, T, D)
+    bias = decode_bias([T] * B, T)
+    tiles = {}
+    for bkv in [t for t in range(1, T + 1) if T % t == 0]:
+        tiles[bkv] = graph_ms(lambda: fa.decode_flash_attention(q, k, v, bias,
+                                                                block_kv=bkv))
+        plan = fa.decode_flash_attention.last_launch
+        print(f"[time] decode_flash_attention ({B},{KVH},{G},{T},{D}) block_kv {bkv}: "
+              f"device {tiles[bkv]:.4f} ms ({plan['splits']} splits of "
+              f"{plan['rows_per_split']} rows, grid {plan['grid']})")
+    sdpa_ms = graph_ms(lambda: sdpa_decode(q, k, v, bias))
+    print(f"[time] decode sdpa ({B},{KVH},{G},{T},{D}): device {sdpa_ms:.4f} ms")
+    return dict(block_kv_device_ms=tiles, sdpa_device_ms=sdpa_ms)
 
 
-def ssd_work(b, S, H, P, N, L, state_out: bool = False):
-    """(flops, bytes) of one K7 call, the work the function needs on these
-    inputs: C·Bᵀ once per (batch, chunk) (B and C are shared by the heads)
-    over the L(L+1)/2 pairs the causal mask keeps; per (batch, head) and
-    chunk, scores·x over the same pairs, the state's Bᵀx over all L rows
-    for every chunk but the last (whose state is read only when asked
-    for) and C·h over all L rows for every chunk but the first (the state
-    before it is zero); x, log_a, B and C read once, y written once (and
-    the f32 state, when asked for).  Inputs in bf16."""
+def ssd_work(b, S, H, P, N, L, state_out: bool = False, elem_bytes: int = 2):
+    """(C·Bᵀ flops, other flops, bytes) of one K7 call, the work the
+    function needs on these inputs: C·Bᵀ once per (batch, chunk) (B and C
+    are shared by the heads) over the L(L+1)/2 pairs the causal mask keeps;
+    per (batch, head) and chunk, scores·x over the same pairs, the state's
+    Bᵀx over all L rows for every chunk but the last (whose state is read
+    only when asked for) and C·h over all L rows for every chunk but the
+    first (the state before it is zero); x, log_a, B and C read once, y
+    written once (and the f32 state, when asked for).  x, B, C and y of
+    ``elem_bytes``."""
     pairs, nc = L * (L + 1) // 2, S // L
     state = 2 * L * N * P
     per_head = nc * 2 * pairs * P + (nc - 1) * 2 * state + (state if state_out else 0)
-    flops = b * (nc * 2 * pairs * N + H * per_head)
-    nbytes = 2 * (2 * b * S * H * P + 2 * b * S * N) + 4 * b * S * H
+    nbytes = elem_bytes * (2 * b * S * H * P + 2 * b * S * N) + 4 * b * S * H
     if state_out:
         nbytes += 4 * b * H * N * P
-    return flops, nbytes
+    return b * nc * 2 * pairs * N, b * H * per_head, nbytes
+
+
+def ssd_bound(b, S, H, P, N, L, elem_bytes: int = 2):
+    """(bound ms, by, bound ms at the 3xTF32 rate, bound ms at 67 TFLOP/s,
+    flops, bytes) of one K7 call: each product at the rate of its operand
+    types.  In bf16, C·Bᵀ (two bf16 operands) runs at the bf16 rate and the
+    other three (an f32 operand against a bf16 one) at half the TF32 rate;
+    in f32 all four at the 3xTF32 rate."""
+    cb, rest, nbytes = ssd_work(b, S, H, P, N, L, elem_bytes=elem_bytes)
+    flops = cb + rest
+    if elem_bytes == 2:
+        t_ops = cb / PEAK_BF16_FLOPS + rest / (PEAK_TF32_FLOPS / 2)
+    else:
+        t_ops = flops / PEAK_3XTF32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return (b_ms, b_by, bound(flops, nbytes, PEAK_3XTF32_FLOPS)[0],
+            bound(flops, nbytes)[0], flops, nbytes)
+
+
+def traced_ms(fn, names, calls: int = 10) -> dict:
+    """The mean device time of each kernel whose name holds one of
+    ``names``, over ``calls`` calls of ``fn`` under ``torch.profiler``
+    (None for a kernel that did not run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    spans[n].append((e.time_range.end - e.time_range.start) / 1e3)
+    return {n: sum(v) / len(v) if v else None for n, v in spans.items()}
 
 
 def replay_twice(fn) -> bool:
@@ -692,21 +756,25 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
     d_ms = graph_ms(launch)
     plan = ssd_k.ssd.last_launch
     p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK))
-    flops, nbytes = ssd_work(b, S, H, P, N, SSM_CHUNK)
-    # both kernels' contractions run in 3xTF32 on the tensor cores
-    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
-    b67 = bound(flops, nbytes)[0]
+    b_ms, b_by, b3x, b67, flops, nbytes = ssd_bound(b, S, H, P, N, SSM_CHUNK)
+    traced = traced_ms(launch, K7_KERNEL_NAMES)
+    if any(ms is None for ms in traced.values()):
+        fail(f"ssd's kernels were not all traced at mamba2-370m's forward shape: {traced}")
     ctas = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
     print(f"[time] ssd ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} bf16: kernel "
           f"{k_ms:.4f} ms (device {d_ms:.4f} ms, both kernels: {ctas} chunk CTAs, "
-          f"pass grid {plan['pass_grid']}) plain {p_ms:.4f} ms library - (no single "
-          f"PyTorch call computes the SSD scan) bound {b_ms:.4f} ms ({b_by}; "
-          f"{b67:.4f} ms at 67 TFLOP/s; {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+          f"pass grid {plan['pass_grid']}; traced "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in traced.items())
+          + f") plain {p_ms:.4f} ms library - (no single PyTorch call computes the "
+          f"SSD scan) bound {b_ms:.5f} ms ({b_by}, C·Bᵀ at the bf16 rate, the rest "
+          f"at half the TF32 rate; {b3x:.5f} ms at the 3xTF32 rate, {b67:.5f} ms at "
+          f"67 TFLOP/s; {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
     if ctas < 128:
         fail(f"ssd's chunk kernel ran {ctas} CTAs at mamba2-370m's forward shape")
     return dict(kernel="ssd", blocks=[SSM_CHUNK], ms=k_ms, device_ms=d_ms,
                 plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                bound_f32_ms=b67, chunk_ctas=ctas, flops=flops, weight=0)
+                bound_3xtf32_ms=b3x, bound_f32_ms=b67, traced_ms=traced,
+                chunk_ctas=ctas, flops=flops, weight=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +1978,7 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     errs = phase_kernels(gen)
 
-    phase_decode_kernels(gen, errs)
+    decode_tiles = phase_decode_kernels(gen, errs)
     ssd_row = phase_ssd_kernel(gen, errs)
     clock("phases 2-3c")
 
@@ -2014,7 +2082,7 @@ def main(argv=None) -> int:
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
-            **{k: r[k] for k in ("variant", "bound_f32_ms", "splits") if k in r},
+            **{k: r[k] for k in ("variant", "bound_f32_ms", "bound_3xtf32_ms", "splits") if k in r},
         ))
     total_s = time.perf_counter() - t_start
     print(f"[done] build {build_s:.1f} s, total {total_s:.1f} s")
@@ -2031,6 +2099,7 @@ def main(argv=None) -> int:
                            ssm_tune_best=ssm_best, ssm_serve=ssm_serve,
                            ssm_serve_tune_best=ssm_serve_best,
                            launches_by_path=paths, fixed_tiles=fixed,
+                           decode_tiles=decode_tiles,
                            matmul_variants=dict(
                                forward=fwd["matmul_variants"],
                                decode_tick=serve["tick_check"]["matmul_variants"],

@@ -328,7 +328,7 @@ def lower_attention_decode(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
     sampled = extract_decode_kv_block(sch)
     (bkv,) = snap_blocks((t,), (sampled or DEFAULT_DECODE_KV_BLOCK,))
     _check_grid(b * kvh * (t // bkv), (bkv,))
-    fa.decode_launch_config(b, kvh, g, t, d, bkv)
+    fa.check_decode_tile(g, t, d, bkv)
     meta = _block_meta(
         "decode_flash_attention",
         None if sampled is None else (sampled,),

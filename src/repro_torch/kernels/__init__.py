@@ -40,4 +40,23 @@ def sm_count(device) -> int:
     return _SM_COUNTS[index]
 
 
+_TILE_COUNTERS = {}
+
+
+def tile_counters(device, stream: int, tiles: int):
+    """At least ``tiles`` zeroed int32 counters on ``device`` for launches
+    on ``stream``: one a split-K output tile (K1, K2) or a (batch, kv head)
+    split over kv (K5, K6), whose last CTA sums the partials.  Each launch
+    leaves its counters zero, and launches on one stream run one after
+    another, so no two launches share a counter at once, and a CUDA graph
+    that captured a launch finds them zero at every replay."""
+    import torch
+
+    buf = _TILE_COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _TILE_COUNTERS[(device, stream)] = buf
+    return buf
+
+
 from . import ref  # noqa: E402,F401

@@ -57,15 +57,17 @@
 // Bound on an H100: at mamba2-370m's forward shape (batch 1, S 256, H 32,
 // P 64, N 128, chunk 64, bf16) the function needs 0.24 GFLOP (C.B^T once a
 // chunk, the rest per head; the state of the last chunk and C.h of the
-// first are not needed), 3.5 us at 67 TFLOP/s or 1.4 us at the 3xTF32
-// rate, against 2.3 MB read and written once, 0.7 us at 3.35 TB/s: bound
-// by operations.  The first kernel (one CTA per (batch, head) walking its
-// chunks with scalar FMAs, 32 CTAs on 132 SMs) ran 81x that bound; these
-// two run about 13 us each there (PERF.md).  What is left is latency: a
-// chunk-kernel CTA waits for its copies, then each warp runs a chain of
-// dependent mma steps; a pass CTA still walks the chunks in order, with
-// two barriers a chunk.  The scratch (y_intra 2 MB, states 4 MB at that
-// shape) stays in the 50 MB L2.  wgmma and TMA come later.
+// first are not needed), 0.95 us at the rates of its operand types (C.B^T,
+// bf16 by bf16, at 989 TFLOP/s; the other three, f32 by bf16, two TF32
+// products each as here, at 495 / 2), against 2.3 MB read and written
+// once, 0.7 us at 3.35 TB/s: bound by operations.  The first kernel (one
+// CTA per (batch, head) walking its chunks with scalar FMAs, 32 CTAs on
+// 132 SMs) ran 0.45 ms; these two run about 13 us each there (PERF.md).
+// What is left is latency: a chunk-kernel CTA waits for its copies, then
+// each warp runs a chain of dependent mma steps; a pass CTA still walks
+// the chunks in order, with two barriers a chunk.  The scratch (y_intra
+// 2 MB, states 4 MB at that shape) stays in the 50 MB L2.  wgmma and TMA
+// come later.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from . import ScheduleRejected, ref, sm_count
+from . import ScheduleRejected, ref, sm_count, tile_counters
 
 NEG_INF = ref.NEG_INF
 MAX_SMEM_BYTES = 227 * 1024
@@ -176,9 +176,6 @@ flash_attention.last_launch = None
 # ---------------------------------------------------------------------------
 
 
-H100_SMS = 132
-
-
 def decode_splits(bh: int, T: int, bkv: int, sms: int):
     """(rows a split, splits) of a decode launch over ``bh`` = batch·kv
     heads and ``T`` kv rows in tiles of ``bkv`` on a card of ``sms`` SMs.
@@ -200,16 +197,13 @@ def decode_smem_bytes(g: int, bkv: int, d: int) -> int:
     return 4 * (2 * g * d + bkv * (d + 1) + bkv * d + g * bkv + 3 * g)
 
 
-def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int,
-                         sms: int = H100_SMS) -> dict:
-    """Grid (B·KVH, splits), threads, shared memory, the rows a split
-    (:func:`decode_splits`) and the f32 scratch of the partials
-    (B·KVH·splits·(2G + G·D), none with one split) of a decode launch with
-    kv tile ``bkv`` on a card of ``sms`` SMs; raises ``ScheduleRejected``
-    for a tile the card cannot run."""
+def check_decode_tile(G: int, T: int, D: int, bkv: int) -> int:
+    """The shared memory of a decode CTA with kv tile ``bkv``; raises
+    ``ScheduleRejected`` for a tile that does not divide T or does not fit
+    in shared memory.  Whether a tile runs does not depend on the card's
+    SM count, so the lowering checks it with no card."""
     if T % bkv:
         raise ScheduleRejected("divide", f"block_kv {bkv} must divide T={T}")
-    rows, splits = decode_splits(B * KVH, T, bkv, sms)
     smem = decode_smem_bytes(G, bkv, D)
     if smem > MAX_SMEM_BYTES:
         raise ScheduleRejected(
@@ -217,6 +211,18 @@ def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int,
             f"decode block_kv {bkv} at G={G}, D={D} needs {smem} bytes of "
             f"shared memory; cap {MAX_SMEM_BYTES}"
         )
+    return smem
+
+
+def decode_launch_config(B: int, KVH: int, G: int, T: int, D: int, bkv: int,
+                         sms: int) -> dict:
+    """Grid (B·KVH, splits), threads, shared memory, the rows a split
+    (:func:`decode_splits`) and the f32 scratch of the partials
+    (B·KVH·splits·(2G + G·D), none with one split) of a decode launch with
+    kv tile ``bkv`` on a card of ``sms`` SMs; raises ``ScheduleRejected``
+    for a tile the card cannot run (:func:`check_decode_tile`)."""
+    smem = check_decode_tile(G, T, D, bkv)
+    rows, splits = decode_splits(B * KVH, T, bkv, sms)
     grid = (B * KVH, splits)
     if grid[0] > _GRID_X_MAX or grid[1] > _GRID_Y_MAX:
         raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
@@ -242,15 +248,14 @@ def _decode_lib():
 def _decode_buffers(cfg: dict, q: torch.Tensor, stream: int):
     """The output, the partials' scratch behind it in one allocation, and
     the per-(batch, kv head) counters of a decode launch; no scratch and no
-    counters with one split.  The counters are :mod:`matmul`'s split-K
-    ones: kept per device and stream, each launch leaves them zero."""
+    counters with one split.  The counters are K1's split-K
+    ones (:func:`tile_counters`): kept per device and stream, each launch
+    leaves them zero."""
     if cfg["splits"] == 1:
         return torch.empty_like(q), None, None
-    from .matmul import _tile_counters
-
     buf = torch.empty(q.numel() + cfg["scratch_bytes"] // 4, dtype=torch.float32,
                       device=q.device)
-    counters = _tile_counters(q.device, stream, cfg["grid"][0])
+    counters = tile_counters(q.device, stream, cfg["grid"][0])
     return buf[: q.numel()].view(q.shape), buf[q.numel():], counters
 
 

@@ -34,11 +34,11 @@ launches, and raises on a refused launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import ScheduleRejected, ref
+from . import ScheduleRejected, ref, tile_counters
 
 DEFAULT_BLOCKS = (128, 128, 128)
 
@@ -211,20 +211,6 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
 
 
-# one zeroed int a split-K output tile, per (device, stream); each launch
-# leaves it zero, and launches on one stream run one after another, so no
-# two launches share a counter at once
-_TILE_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _tile_counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    buf = _TILE_COUNTERS.get((device, stream))
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
-        _TILE_COUNTERS[(device, stream)] = buf
-    return buf
-
-
 def _clamp(blocks, M, N, K):
     bm, bn, bk = blocks
     return (min(bm, M), min(bn, N), min(bk, K))
@@ -247,8 +233,8 @@ def _launch(name: str, cfg: dict, x, w, bias, y, dims: Tuple[int, int, int, int]
             splits = cfg["splits"]
             part = (torch.empty((splits, B, M, N), dtype=torch.float32,
                                 device=x.device) if splits > 1 else None)
-            counters = _tile_counters(x.device, stream,
-                                      cfg["grid"][0] * cfg["grid"][1])
+            counters = tile_counters(x.device, stream,
+                                     cfg["grid"][0] * cfg["grid"][1])
             err = lib.repro_matmul_splitk(
                 *ptrs, None if part is None else part.data_ptr(),
                 counters.data_ptr(), *sizes, *strides, act, float(softcap),

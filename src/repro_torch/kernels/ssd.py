@@ -37,7 +37,6 @@ THREADS = 384  # the chunk kernel's CTA: 12 warps share a chunk's mma tiles
 MAX_GROUP = 32  # heads a chunk-kernel CTA may own
 MAX_PASS_THREADS = 512  # the pass kernel: a warp for every 16 x 8 of a chunk's y
 MAX_STAGES = 4  # chunks a pass-kernel CTA keeps in flight
-H100_SMS = 132
 P_SLICES = (64, 32, 16, 8)
 _GRID_YZ_MAX = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,7 +55,7 @@ def _row_pad(elem_bytes: int) -> int:
     return 4 if elem_bytes == 4 else 8
 
 
-def chunk_smem_bytes(L: int, N: int, P: int, group: int, elem_bytes: int = 4) -> int:
+def chunk_smem_bytes(L: int, N: int, P: int, group: int, elem_bytes: int) -> int:
     """Shared memory of a chunk-kernel CTA, with L, N and P padded to
     multiples of 16 (Lp, Np, Pp) and x, B and C in their own type of
     ``elem_bytes``: C and B (Lp·(Np+pad) each), in f32 B again (Lp·(Np+8)),
@@ -70,8 +69,7 @@ def chunk_smem_bytes(L: int, N: int, P: int, group: int, elem_bytes: int = 4) ->
     return elem_bytes * t_elems + 4 * f_elems
 
 
-def pass_smem_bytes(L: int, N: int, p_slice: int, stages: int,
-                    elem_bytes: int = 4) -> int:
+def pass_smem_bytes(L: int, N: int, p_slice: int, stages: int, elem_bytes: int) -> int:
     """Shared memory of a pass-kernel CTA: ``stages`` chunks in flight, each
     its C in its own type (Lp·(Np+pad)), its y_intra and state slices
     (Lp·p_slice and Np·p_slice f32) and its cum (Lp f32); then the state's
@@ -83,7 +81,7 @@ def pass_smem_bytes(L: int, N: int, p_slice: int, stages: int,
     return stages * stage + 4 * Np * hs
 
 
-def pass_stages(L: int, N: int, p_slice: int, n_chunks: int, elem_bytes: int = 4) -> int:
+def pass_stages(L: int, N: int, p_slice: int, n_chunks: int, elem_bytes: int) -> int:
     """Chunks a pass-kernel CTA keeps in flight: the most, up to
     ``MAX_STAGES`` and the chunk count, that leave room for two CTAs an SM;
     1 when even that does not."""
@@ -139,7 +137,7 @@ def p_slice(batch: int, H: int, P: int, L: int, sms: int) -> int:
 
 
 def launch_config(batch: int, S: int, H: int, P: int, N: int, chunk: int,
-                  sms: int = H100_SMS, elem_bytes: int = 4) -> dict:
+                  sms: int, elem_bytes: int) -> dict:
     """The launch plan of a call with chunk length ``min(chunk, S)`` on a
     card of ``sms`` SMs, x, B and C of ``elem_bytes`` (4 for f32, 2 for
     bf16): the chunk kernel's grid (head groups, chunks, batch), threads,

@@ -129,17 +129,17 @@ def test_paged_decode_equals_decode_on_the_gathered_view():
 def test_decode_launch_config_follows_and_rejects():
     # the serving shape on 132 SMs: bkv 64 gives 4 tiles, fewer than the 11
     # splits the card wants, so a split is 24 rows, part of one tile
-    cfg = fa.decode_launch_config(4, 3, 3, 256, 64, 64)
+    cfg = fa.decode_launch_config(4, 3, 3, 256, 64, 64, 132)
     assert cfg["grid"] == (12, 11) and cfg["blocks"] == (64,)
     assert cfg["splits"] == 11 and cfg["rows_per_split"] == 24
     assert cfg["smem_bytes"] == fa.decode_smem_bytes(3, 64, 64)
     assert cfg["smem_bytes"] == 4 * (2 * 3 * 64 + 64 * 65 + 64 * 64 + 3 * 64 + 9)
     assert cfg["scratch_bytes"] == 4 * 12 * 11 * (2 * 3 + 3 * 64)
     with pytest.raises(ScheduleRejected) as e:
-        fa.decode_launch_config(1, 1, 3, 4096, 64, 4096)
+        fa.decode_launch_config(1, 1, 3, 4096, 64, 4096, 132)
     assert e.value.reason == "shared_memory"
     with pytest.raises(ScheduleRejected) as e:
-        fa.decode_launch_config(1, 1, 3, 256, 64, 48)
+        fa.decode_launch_config(1, 1, 3, 256, 64, 48, 132)
     assert e.value.reason == "divide"
 
 

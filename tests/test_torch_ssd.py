@@ -179,9 +179,9 @@ def test_launch_config_follows_the_chunk():
     assert cfg["pass_smem_bytes"] == tssd.pass_smem_bytes(64, 128, 16, 2, 4)
     assert tssd.pass_smem_bytes(64, 128, 16, 3, 4) > tssd.MAX_SMEM_BYTES // 2
     # min(chunk, S): a 48-token prompt runs one chunk of 48, and one kernel
-    cfg = tssd.launch_config(2, 48, 25, 64, 16, 64)
+    cfg = tssd.launch_config(2, 48, 25, 64, 16, 64, 132, 4)
     assert cfg["blocks"] == (48,) and cfg["grid"] == (25, 1, 2)
-    assert cfg["smem_bytes"] == tssd.chunk_smem_bytes(48, 16, 64, 1)
+    assert cfg["smem_bytes"] == tssd.chunk_smem_bytes(48, 16, 64, 1, 4)
     assert cfg["kernels"] == 1 and cfg["pass_grid"] is None
     assert cfg["scratch_bytes"] == 0 and cfg["stages"] == 0
 
@@ -213,7 +213,7 @@ def test_pass_stages_follow_the_chunks_and_shared_memory(S, chunk, elem_bytes, s
     (1, 37, 25, 132, 1, (25, 1, 1)),     # a 37-token prompt: chunk 37
 ])
 def test_head_groups_fill_one_wave(batch, S, H, sms, group, grid):
-    cfg = tssd.launch_config(batch, S, H, 64, 128, 64, sms)
+    cfg = tssd.launch_config(batch, S, H, 64, 128, 64, sms, 4)
     assert cfg["head_group"] == tssd.head_group(batch, S // min(64, S), H, sms) == group
     assert cfg["grid"] == grid
     ctas = grid[0] * grid[1] * grid[2]
@@ -221,7 +221,7 @@ def test_head_groups_fill_one_wave(batch, S, H, sms, group, grid):
     assert ctas >= sms or group == 1
     if group < min(H, tssd.MAX_GROUP):
         assert batch * grid[1] * -(-H // (group + 1)) < sms
-    assert cfg["smem_bytes"] == tssd.chunk_smem_bytes(min(64, S), 128, 64, group)
+    assert cfg["smem_bytes"] == tssd.chunk_smem_bytes(min(64, S), 128, 64, group, 4)
 
 
 @pytest.mark.parametrize("batch,H,P,sms,ps", [
@@ -234,12 +234,12 @@ def test_head_groups_fill_one_wave(batch, S, H, sms, group, grid):
 ])
 def test_pass_slices_fill_half_a_wave(batch, H, P, sms, ps):
     assert tssd.p_slice(batch, H, P, 64, sms) == ps
-    cfg = tssd.launch_config(batch, 256, H, P, 16, 64, sms)
+    cfg = tssd.launch_config(batch, 256, H, P, 16, 64, sms, 4)
     Pp = -(-P // 16) * 16
     assert cfg["pass_grid"] == (Pp // ps, H, batch)
     assert cfg["pass_threads"] == tssd.pass_threads(64, ps) == 32 * 4 * (ps // 8)
     assert cfg["pass_threads"] <= tssd.MAX_PASS_THREADS
-    assert cfg["pass_smem_bytes"] == tssd.pass_smem_bytes(64, 16, ps, cfg["stages"])
+    assert cfg["pass_smem_bytes"] == tssd.pass_smem_bytes(64, 16, ps, cfg["stages"], 4)
 
 
 def test_every_chunk_the_pass_kernel_cannot_run_is_rejected_for_shared_memory():
@@ -267,7 +267,7 @@ def test_scratch_holds_y_intra_states_and_cum():
 ])
 def test_launch_config_rejects_what_the_card_cannot_run(S, N, chunk, reason):
     with pytest.raises(ScheduleRejected) as e:
-        tssd.launch_config(1, S, 32, 64, N, chunk)
+        tssd.launch_config(1, S, 32, 64, N, chunk, 132, 4)
     assert e.value.reason == reason
 
 
