@@ -21,7 +21,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    in one split and many, ``fma`` at a ragged tile, each run twice for the
    same bits; K4, the row softmax, also in bfloat16, on its registers
    variant at row blocks 36-288 and its shared-memory variant at N = 258,
-   where a block too large for shared memory must be rejected);
+   where a block too large for shared memory must be rejected; K3 on its
+   tc variant (causal, window, softcap, full, at S 256 and 96) and its fma
+   variant, each run twice for the same bits);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window, at kv
@@ -37,6 +39,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    chunk that does not divide S and one too large for shared memory must
    be rejected; its chunk kernel must run at least 128 CTAs at mamba2's
    forward shape, where each of its two kernels is also traced;
+3d. K3 at smollm-135m's forward shape (causal) at every tile that its tc
+   variant takes, each against its plain version, with its device time
+   beside ``scaled_dot_product_attention``'s and the bound;
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -44,8 +49,8 @@ Phases, in order; a failing phase makes the run exit non-zero:
    goes through the structural lowering (``torch-fallback``), sfm through
    K4;
 5. the forward path, part two: the full-width 30-layer bf16 forward under
-   ``DispatchContext`` (rmsnorm dispatched at all 61 sites) against the
-   same forward with no context;
+   ``DispatchContext`` (rmsnorm dispatched at all 61 sites, K3's 30 launches
+   all tc, traced) against the same forward with no context;
 7. the serving path: extract smollm-135m's decode tasks (4 slots, max_seq
    256, paged, 32-token prefill chunks), tune them the same way, serve 8
    requests through ``ContinuousBatchingScheduler`` on the paged arena
@@ -59,14 +64,14 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
    unembed follows phases 9 and 10), beside its plain version, the one
    PyTorch call that computes the same function (where there is one), and
-   the least time the card could take (the tc variant of K1 and K2 at the
-   3xTF32 rate, K7 at the rate of each product's operand types, each also
-   at 67 TFLOP/s); device times (kernel
+   the least time the card could take (the tc variant of K1, K2 and K3 at
+   the 3xTF32 rate, K7 at the rate of each product's operand types, each
+   also at 67 TFLOP/s); device times (kernel
    and library call) from CUDA events around a CUDA graph of 20 calls;
    then the same device times at fixed
    tiles (``FIXED_TILES``: the tiles of the per-shape tables PERF.md keeps
-   for K1, K2 and K4), so runs whose search picked other tiles compare at
-   the same tile;
+   for K1, K2, K3 and K4), so runs whose search picked other tiles compare
+   at the same tile;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
    seq 256), tune them the same way, then the full-width 48-layer bf16
    forward under ``DispatchContext`` (49 rmsnorm hits, the unembed, K7 at
@@ -82,10 +87,11 @@ Phases, in order; a failing phase makes the run exit non-zero:
 Every kernel wrapper counts its launches; the counts are zeroed just before
 each of the five paths (forward: phases 4-5; serving: phase 7; operators:
 phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10) and read just
-after it; K1's and K2's launches are also counted by variant: K1's are
-printed for the tuned forward, one decode-only tick (every one ``splitk``)
-and the mamba2 forward, K2's for phase 3 (every variant) and the serving
-path's tuning (every one ``splitk``).  TF32 is off for float32 matmuls in
+after it; K1's, K2's and K3's launches are also counted by variant: K1's
+are printed for the tuned forward, one decode-only tick (every one
+``splitk``) and the mamba2 forward, K2's for phase 3 (every variant) and
+the serving path's tuning (every one ``splitk``), K3's for phase 3 (both
+variants) and the tuned forward (every one ``tc``).  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -262,7 +268,7 @@ def phase_kernels(gen) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, sm_count
 
     dev = "cuda"
     errs = {"matmul": 0.0, "batch_matmul": 0.0, "flash_attention": 0.0}
@@ -386,29 +392,47 @@ def phase_kernels(gen) -> dict:
     if min(k2_variants.values()) <= 0:
         fail(f"batch_matmul variants launched in phase 3: {k2_variants}")
 
-    # K3: causal, sliding window, softcap, GQA 9/3, at S=256 and S=96
+    # K3: causal, sliding window, softcap, GQA 9/3, at S=256 and S=96, on
+    # the tc variant (the S=96 tiles leave the last m16 tile of a CTA part
+    # filled) and on fma (a kv tile of 4), each run twice for the same bits
+    k3_before = read_variants("flash_attention")
+    sms = sm_count(dev)
     for S in (SEQ, 96):
         q = randn(BATCH, H, S, D)
         k, v = randn(BATCH, KVH, S, D), randn(BATCH, KVH, S, D)
-        for label, kw, blocks in (
-            ("causal", dict(causal=True), (64, 32)),
-            ("causal window=64", dict(causal=True, window=64), (32, 64)),
-            ("causal softcap=50", dict(causal=True, softcap=50.0), (48, 96)),
-            ("full", dict(causal=False), (128, 128)),
+        for label, kw, blocks, var in (
+            ("causal", dict(causal=True), (64, 32), "tc"),
+            ("causal window=64", dict(causal=True, window=64), (8, 64), "tc"),
+            ("causal softcap=50", dict(causal=True, softcap=50.0), (48, 96), "tc"),
+            ("full", dict(causal=False), (128, 128), "tc"),
+            ("causal", dict(causal=True), (32, 4), "fma"),
         ):
             bq, bkv = blocks
             got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+            again = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+            plan = fa.flash_attention.last_launch
+            snapped = plan["blocks"]
+            if plan != fa.launch_config(BATCH, H, KVH, S, D, *snapped, sms) or \
+                    plan["variant"] != var:
+                fail(f"flash_attention {snapped} on S={S} launched {plan}, want {var}")
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"flash_attention {var} {snapped} on S={S}: two runs differ")
             want = ref.flash_attention(q, k, v, **kw)
             lib_ms = None
             if "window" not in kw and "softcap" not in kw:
                 lib_ms = median_ms(lambda: sdpa(q, k, v, kw["causal"]))
-            snapped = fa.flash_attention.last_launch["blocks"]
             report("flash_attention",
-                   f"(1,{H},{S},{D}) kvh {KVH} {label} blocks {snapped}",
+                   f"{var} (1,{H},{S},{D}) kvh {KVH} {label} blocks {snapped} grid "
+                   f"{plan['grid']} threads {plan['threads']} splits {plan['splits']}",
                    got, want, TOL_ATTN,
                    median_ms(lambda: fa.flash_attention(
                        q, k, v, block_q=bq, block_kv=bkv, **kw)),
                    median_ms(lambda: ref.flash_attention(q, k, v, **kw)), lib_ms)
+    k3_variants = {k: n - k3_before[k] for k, n in read_variants("flash_attention").items()}
+    print(f"[kernels] flash_attention launches by variant in phase 3: {k3_variants}")
+    if min(k3_variants.values()) <= 0:
+        fail(f"flash_attention variants launched in phase 3: {k3_variants}")
 
     # K4: the attention softmax rows of one kv chunk (M = B·H·S, N = chunk),
     # at row blocks that divide 2304 = 2^8·3^2 and are not powers of two, on
@@ -450,6 +474,67 @@ def phase_kernels(gen) -> dict:
         else:
             fail(f"row_softmax block_rows {bm} at N={xx.shape[1]} was not rejected")
     return errs
+
+
+def attention_work(b, h, kvh, s, d):
+    """(flops, bytes) of one causal K3 call: q·k and p·v over the s(s+1)/2
+    unmasked pairs of each head; q, k and v read once, o written once."""
+    return 4 * b * h * d * (s * (s + 1) // 2), 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
+
+
+def attention_bound(variant, b, h, kvh, s, d):
+    """(bound ms, by, bound ms at 67 TFLOP/s) of one causal K3 call: tc at
+    the 3xTF32 rate, fma at the f32 rate."""
+    flops, nbytes = attention_work(b, h, kvh, s, d)
+    peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
+    b_ms, b_by = bound(flops, nbytes, peak)
+    return b_ms, b_by, bound(flops, nbytes)[0]
+
+
+def phase_attention_tiles(gen, errs: dict) -> dict:
+    """Phase 3d: K3 at smollm-135m's forward shape (causal) at every tile
+    that the tc variant takes, each held against the plain version within
+    TOL_ATTN, its device time by graph replay beside SDPA's."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, sm_count
+
+    H, KVH, D = 9, 3, 64
+    q = torch.randn(BATCH, H, SEQ, D, generator=gen, device="cuda")
+    k = torch.randn(BATCH, KVH, SEQ, D, generator=gen, device="cuda")
+    v = torch.randn(BATCH, KVH, SEQ, D, generator=gen, device="cuda")
+    want = ref.flash_attention(q, k, v)
+    divisors = [t for t in range(1, SEQ + 1) if SEQ % t == 0]
+    tiles = {}
+    for bq in divisors:
+        for bkv in divisors:
+            plan = fa.launch_config(BATCH, H, KVH, SEQ, D, bq, bkv, sm_count("cuda"))
+            if plan["variant"] != "tc":
+                continue
+            got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            if not math.isfinite(err) or err > TOL_ATTN or \
+                    fa.flash_attention.last_launch != plan:
+                fail(f"flash_attention tc ({bq}, {bkv}): max_abs_err {err}, "
+                     f"launched {fa.flash_attention.last_launch}")
+            tiles[f"{bq},{bkv}"] = ms = graph_ms(
+                lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv))
+            print(f"[time] flash_attention tc ({BATCH},{H},{SEQ},{D}) kvh {KVH} causal "
+                  f"({bq}, {bkv}): device {ms:.4f} ms, grid {plan['grid']} threads "
+                  f"{plan['threads']} splits {plan['splits']} ({plan['tiles']} runs x "
+                  f"{plan['sub']} parts) stages {plan['stages']}; max_abs_err {err:.3e} "
+                  f"(tol {TOL_ATTN:g})")
+    sdpa_ms = graph_ms(lambda: sdpa(q, k, v, True))
+    b_ms, b_by, b67 = attention_bound("tc", BATCH, H, KVH, SEQ, D)
+    best = min(tiles, key=tiles.get)
+    print(f"[time] flash_attention tc at {len(tiles)} tiles: {min(tiles.values()):.4f}-"
+          f"{max(tiles.values()):.4f} ms (fastest ({best})); sdpa device {sdpa_ms:.4f} ms; "
+          f"bound {b_ms:.5f} ms ({b_by}; {b67:.5f} ms at 67 TFLOP/s)")
+    return dict(tile_device_ms=tiles, sdpa_device_ms=sdpa_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_f32_ms=b67)
 
 
 def decode_bias(lengths, T, window: int = 0):
@@ -784,6 +869,8 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
 FORWARD_KERNELS = ("matmul", "batch_matmul", "flash_attention", "row_softmax")
 KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_attention",
                              "ssd")
+# the kernels that count their launches by variant
+VARIANT_KERNELS = ("matmul", "batch_matmul", "flash_attention")
 # workloads of the path with no hand-written kernel: the structural lowering
 STRUCTURAL_OPS = ("rmsnorm",)
 
@@ -805,7 +892,7 @@ def _wrappers():
 def reset_counts() -> None:
     for w in _wrappers().values():
         w.launches = 0
-    for k in ("matmul", "batch_matmul"):
+    for k in VARIANT_KERNELS:
         w = _wrappers()[k]
         w.launches_by_variant = dict.fromkeys(w.launches_by_variant, 0)
 
@@ -815,8 +902,8 @@ def read_counts() -> dict:
 
 
 def read_variants(kernel: str = "matmul") -> dict:
-    """K1's (or K2's) launches by variant so far (``splitk``, ``tc``,
-    ``fma``)."""
+    """K1's, K2's or K3's launches by variant so far (``splitk``, ``tc``,
+    ``fma``; K3 ``tc``, ``fma``)."""
     return dict(_wrappers()[kernel].launches_by_variant)
 
 
@@ -921,9 +1008,9 @@ def check_tiles(tasks, db) -> dict:
         shapes = [b.shape for b in t.func.inputs]
         if kern == "flash_attention":
             b, kvh, g, s, d = shapes[0]
-            bq, bkv = snapped
-            want = dict(grid=(s // bq, b * kvh * g), threads=fa.THREADS,
-                        smem_bytes=fa.smem_bytes(bq, bkv, d))
+            cfg = fa.launch_config(b, kvh * g, kvh, s, d, *snapped, sm_count("cuda"))
+            want = {k: cfg[k] for k in ("variant", "grid", "threads", "smem_bytes",
+                                        "splits")}
         elif kern == "decode_flash_attention":
             b, kvh, g, d = shapes[0]
             (bkv,) = snapped
@@ -1037,9 +1124,16 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
         torch.cuda.synchronize()
         fwd_counts = read_counts()
         fwd_variants = read_variants()
+        k3_variants = read_variants("flash_attention")
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+        # K3's device time over the dispatched forward's launches
+        def run_tuned():
+            with ctx:
+                return T.forward(cfg, params, toks)
+
+        k3_traced = traced_ms(run_tuned, K3_KERNEL_NAMES)
     diff = (tuned.float() - plain.float()).abs()
     max_abs = float(diff.max())
     rel = max_abs / float(plain.float().abs().max())
@@ -1057,6 +1151,15 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
             reasons[r] = reasons.get(r, 0) + n
     print(f"[forward] kernel launches in one dispatched forward: {fwd_counts}; "
           f"K1 by variant {fwd_variants}")
+    n_k3 = fwd_counts["flash_attention"]
+    traced = {n: ms for n, ms in k3_traced.items() if ms is not None}
+    k3_ms = traced.get(K3_KERNEL_NAMES[0], 0.0) * n_k3
+    print(f"[forward] flash_attention launches by variant in one dispatched forward: "
+          f"{k3_variants}; traced device time {traced} ms a launch, "
+          f"{k3_ms:.4f} ms a forward")
+    if k3_variants != {"tc": cfg.n_layers, "fma": 0} or set(traced) != {K3_KERNEL_NAMES[0]}:
+        fail(f"the dispatched forward's flash_attention launches: {k3_variants}, "
+             f"traced {traced}; want {cfg.n_layers} tc")
     if not torch.isfinite(tuned.float()).all():
         fail("dispatched logits are not finite")
     if tuned.shape != (BATCH, SEQ, cfg.vocab):
@@ -1079,7 +1182,9 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
              f"{2 * cfg.n_layers + 1} and no not_in_slice")
     return dict(max_abs_err=max_abs, max_rel_err=rel, plain_ms=plain_ms,
                 dispatched_ms=tuned_ms, stats=stats, rmsnorm_hits=norm_hits,
-                reasons=reasons, matmul_variants=fwd_variants), fwd_counts
+                reasons=reasons, matmul_variants=fwd_variants,
+                flash_attention_variants=k3_variants, flash_attention_traced_ms=k3_ms,
+                flash_attention_traced_ms_a_launch=traced), fwd_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1181,10 +1286,11 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             k_ms = median_ms(launch)
             p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=True))
             l_ms = median_ms(library)
-            # causal: only the s(s+1)/2 unmasked pairs need work
-            flops = 4 * b * h * d * (s * (s + 1) // 2)
-            nbytes = 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
-        if kern not in ("matmul", "batch_matmul"):
+            var = fa.flash_attention.last_launch["variant"]
+            flops = attention_work(b, h, kvh, s, d)[0]
+            b_ms, b_by, b67 = attention_bound(var, b, h, kvh, s, d)
+            extra = dict(variant=var, bound_f32_ms=b67)
+        if kern not in ("matmul", "batch_matmul", "flash_attention"):
             b_ms, b_by = bound(flops, nbytes)
         # the kernel and the library call on one footing: device time by
         # CUDA-graph replay of 20 calls each
@@ -1206,9 +1312,10 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
 # Fixed tiles timed every run, so runs compare at the same tile whatever
 # the search picks: K1 at the tiles of the per-shape table PERF.md keeps for
 # its three variants, K2 and K4 at the tiles PERF.md records for their
-# kernels before the shared variants and the registers softmax.
+# kernels before the shared variants and the registers softmax, K3 at the
+# search's tile before its tc variant and at a 64-row q block.
 # (kernel, shape, blocks); K1's shape is (M, K, N, w layout), K2's (B, M,
-# K, N), K4's (M, N)
+# K, N), K4's (M, N), K3's (B, H, KVH, S, D), causal
 FIXED_TILES = (
     ("matmul", (256, 576, 1536, "n"), (64, 32, 64)),
     ("matmul", (256, 576, 49152, "k"), (64, 96, 16)),
@@ -1228,6 +1335,8 @@ FIXED_TILES = (
     ("matmul", (4, 1024, 50280, "k"), (4, 60, 64)),
     ("batch_matmul", (3, 768, 256, 64), (24, 32, 32)),
     ("row_softmax", (2304, 256), (12,)),
+    ("flash_attention", (1, 9, 3, 256, 64), (8, 128)),
+    ("flash_attention", (1, 9, 3, 256, 64), (64, 128)),
 )
 
 
@@ -1236,6 +1345,7 @@ def fixed_tile_timings(gen) -> list:
     library call's."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import softmax as sm
 
@@ -1255,6 +1365,12 @@ def fixed_tile_timings(gen) -> list:
             a, b = randn(B, M, K), randn(B, K, N)
             calls = (lambda: mm.batch_matmul(a, b, block_sizes=blocks),
                      lambda: torch.bmm(a, b))
+        elif kern == "flash_attention":
+            B, H, KVH, S, D = shape
+            q, k, v = randn(B, H, S, D), randn(B, KVH, S, D), randn(B, KVH, S, D)
+            calls = (lambda: fa.flash_attention(q, k, v, block_q=blocks[0],
+                                                block_kv=blocks[1]),
+                     lambda: sdpa(q, k, v, True))
         else:
             x = randn(*shape)
             calls = (lambda: sm.row_softmax(x, block_rows=blocks[0]),
@@ -1382,7 +1498,8 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
 # traced call (the decode-only tick checks that K2 has no launch in it, and
 # mamba2 has no batch_matmul site)
 K1_KERNEL_NAMES = ("matmul_splitk_kernel", "matmul_tc_kernel", "matmul_tile_kernel")
-# K5's and K6's one kernel, and K7's two
+# K3's two kernels, K5's and K6's one, and K7's two
+K3_KERNEL_NAMES = ("flash_attention_tc_kernel", "flash_attention_kernel")
 K5_KERNEL_NAMES = ("decode_attention_kernel",)
 K7_KERNEL_NAMES = ("ssd_chunk_kernel", "ssd_pass_kernel")
 
@@ -1980,7 +2097,8 @@ def main(argv=None) -> int:
 
     decode_tiles = phase_decode_kernels(gen, errs)
     ssd_row = phase_ssd_kernel(gen, errs)
-    clock("phases 2-3c")
+    attention_tiles = phase_attention_tiles(gen, errs)
+    clock("phases 2-3d")
 
     cfg = get_config("smollm-135m")
     db = Database()
@@ -2100,6 +2218,7 @@ def main(argv=None) -> int:
                            ssm_serve_tune_best=ssm_serve_best,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
+                           attention_tiles=attention_tiles,
                            matmul_variants=dict(
                                forward=fwd["matmul_variants"],
                                decode_tick=serve["tick_check"]["matmul_variants"],

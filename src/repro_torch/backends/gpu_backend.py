@@ -266,7 +266,7 @@ def lower_attention(sch: Schedule) -> Tuple[Callable, Dict[str, Any]]:
     blocks = snap_blocks((s, s), sampled or DEFAULT_ATTN_BLOCKS)
     bq, bkv = blocks
     _check_grid(b * kvh * g * (s // bq) * (s // bkv), blocks)
-    fa.launch_config(b, kvh * g, s, d, bq, bkv)
+    fa.check_tile(b, kvh * g, kvh, s, d, bq, bkv)
     meta = _block_meta("flash_attention", sampled, blocks)
 
     def fn(inputs: Dict):

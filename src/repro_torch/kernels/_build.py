@@ -5,7 +5,9 @@ its own shared library with a plain C interface, loaded through
 ``ctypes``.  Sources are built from this package only; nothing is
 fetched.  The libraries go to ``build/repro_torch_kernels/`` at the root
 of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash
-of source and flags so an edited source rebuilds.  :func:`build_all`
+of the source, the headers it includes with ``#include "..."`` (such as
+``csrc/tf32_mma.cuh``) and the flags, so an edited source or header
+rebuilds.  :func:`build_all`
 starts one ``nvcc`` per source, all at once, and waits for them.
 
 Nothing here runs at import: this module is imported on machines without
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -71,10 +74,31 @@ def nvcc() -> str:
     )
 
 
+_QUOTED_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def included_headers(path: Path) -> list:
+    """The headers ``path`` includes with ``#include "..."``, found beside
+    the file that includes them, and theirs in turn, each once, in the
+    order they are first included."""
+    seen, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _QUOTED_INCLUDE.findall(cur.read_bytes()):
+            header = (cur.parent / inc.decode()).resolve()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    h = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{name}-{h}.so"
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in included_headers(src):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

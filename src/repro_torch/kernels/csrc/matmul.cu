@@ -55,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_SOFTCAP = 4 };
@@ -442,44 +444,7 @@ int launch_splitk_mr(const float* x, const float* w, const float* bias,
 
 constexpr int TC_MAX_WARPS = 16;
 
-// v = big + small, both TF32: big is v truncated to TF32's 10 mantissa
-// bits, small the exact remainder v - big truncated the same way, so
-// |v - big - small| <= 2^-20 |v|; 3xTF32 sums big*big + big*small +
-// small*big.  Masks, not cvt.rna (a quarter-rate instruction that each warp
-// would repeat for every fragment element).  Finite inputs: an infinite v
-// gives a NaN small.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(v) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(float* s, const float* g) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(g));
-}
-
-__device__ __forceinline__ void cp_async4(float* s, const float* g) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(g));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// split_tf32, mma_tf32 and the cp.async helpers: tf32_mma.cuh.
 
 // Start copying an R x C tile, element (r, c) at g[r*gr + c*gc], to shared
 // memory s[r*sp + c].  vec: gc == 1, C % 4 == 0 and every row 16-byte
@@ -581,9 +546,9 @@ __global__ void __launch_bounds__(TC_MAX_WARPS * 32) matmul_tc_kernel(
   for (int kt = 0; kt < KT; ++kt) {
     if (stages == 2 && kt + 1 < KT) {
       load_stage((kt + 1) & 1, (kt + 1) * bk);  // overlaps this step's math
-      cp_async_wait<1>();
+      cp_async_wait(1);
     } else {
-      cp_async_wait<0>();
+      cp_async_wait(0);
     }
     __syncthreads();
     const float* xs = smem + (stages == 2 ? (kt & 1) : 0) * stage_floats;

@@ -38,7 +38,7 @@
 // launched.  All four contractions (C.B^T, scores . x, the state's
 // (w x)^T . B, C . h) run on the tensor cores through mma.sync.m16n8k8 in
 // 3xTF32 (v = big + small, both TF32; big*big + big*small + small*big
-// summed in f32), the helpers of matmul.cu's tc variant.  The tensor
+// summed in f32), the helpers of tf32_mma.cuh.  The tensor
 // cores' accumulator truncates, so each 8-deep step is summed from zero
 // and added to f32 registers.  A bf16 operand is exact in TF32, so its
 // small part is zero and that product is skipped.  x, B and C stay in
@@ -74,6 +74,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kChunkThreads = 384;
@@ -104,30 +106,6 @@ __host__ __device__ inline int pad16(int v) { return (v + 15) & ~15; }
 template <typename T>
 __host__ __device__ constexpr int row_pad() {
   return sizeof(T) == 4 ? 4 : 8;
-}
-
-__device__ __forceinline__ void cp_async16(void* s, const void* g) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(g));
-}
-
-__device__ __forceinline__ void cp_async4(void* s, const void* g) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(g));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most n (< kMaxStages) copy groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
-  }
 }
 
 // Start copying an R x C block of T, element (r, c) at g[r*gr + c*gc], to
@@ -166,22 +144,6 @@ __device__ __forceinline__ void zero_pad(T* s, int ds, int R, int C, int Rp, int
     const int r = e / pc;
     s[r * ds + C + e - r * pc] = z;
   }
-}
-
-// The 3xTF32 helpers of matmul.cu's tc variant.  v = big + small, both
-// TF32 (masks, not cvt.rna); finite inputs.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(v) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One warp: acc = sum_{k < K} A(m, k) B(k, n) for the 16 x 8*NT block,

@@ -2,12 +2,19 @@
 
 K3 ``flash_attention`` (source ``csrc/flash_attention.cu``, CUDA C++ for
 ``sm_90a``) replaces the Pallas kernel ``flash_attention`` of the JAX
-package's ``kernels/flash_attention.py``.  One CTA owns one (batch·head,
-block of ``block_q`` query rows) and loops over the kv blocks of
-``block_kv`` itself, with the running max, sum and accumulator in shared
-memory; GQA maps head h to kv head h // G by offset.  The tuned (block_q,
-block_kv) are runtime arguments that set the grid (S/block_q, B·H) and the
-shared memory of a CTA.
+package's ``kernels/flash_attention.py``.  The tuned (block_q, block_kv)
+are runtime arguments that set the grid and the shared memory of a CTA, and
+:func:`variant` picks one of two kernels from the head dim and the kv tile:
+
+* ``tc`` for block_kv % 8 == 0 and D of 8, 16, 32 or 64: 3xTF32 tensor
+  cores.  A CTA takes the G query heads of one kv head over one q block,
+  its G·block_q rows position-major in m16 tiles (one or two a CTA,
+  ``groups`` CTAs a q block), with ``splits`` warps a tile, each over a
+  contiguous share of the CTA's kv range (runs of whole kv tiles, or parts
+  of a tile where the tiles are few), combined in split order
+  (:func:`launch_config`);
+* ``fma`` otherwise: the first kernel, one CTA per (batch·head, block of
+  block_q query rows) with plain FMAs, grid (S/block_q, B·H).
 
 K5 ``decode_flash_attention`` and K6 ``paged_decode_flash_attention``
 (source ``csrc/decode_attention.cu``) replace the Pallas kernels of the
@@ -25,8 +32,8 @@ bounds the kernel and what its design does about it.
 
 Beside each wrapper: the plain PyTorch version (``kernels/ref.py``), which
 the wrapper runs for CPU tensors only, and the launch counter
-``<wrapper>.launches``; ``last_launch`` records the latest launch
-configuration.
+``<wrapper>.launches`` (K3's also ``launches_by_variant``);
+``last_launch`` records the latest launch configuration.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from . import ScheduleRejected, ref, sm_count, tile_counters
 
 NEG_INF = ref.NEG_INF
 MAX_SMEM_BYTES = 227 * 1024
-THREADS = 256  # fixed CTA size of the kernel (csrc/flash_attention.cu)
+THREADS = 256  # the fma kernel's CTA, and K5/K6's (csrc/*attention.cu)
 _GRID_Y_MAX = 65535
 _GRID_X_MAX = 2**31 - 1
 
@@ -58,33 +65,120 @@ def best_divisor(n: int, target: int) -> int:
     return best
 
 
+VARIANTS = ("tc", "fma")
+TC_HEAD_DIMS = (8, 16, 32, 64)  # compiled tc head dims (Q's fragments in registers)
+TC_MAX_WARPS = 8  # m16 tiles x kv splits a CTA (kTcMaxWarps in the source)
+TC_WARPS_PER_SM = 8  # the splits aim at this many warps an SM
+TC_PAD = 4  # floats a K or V row is padded by in shared memory
+
+
 def smem_bytes(bq: int, bkv: int, d: int) -> int:
-    """Shared memory of one CTA: q and acc (bq·D each), the K tile padded to
-    D+1 a row, the V tile, the bq·bkv score tile and three bq-vectors."""
+    """Shared memory of one ``fma`` CTA: q and acc (bq·D each), the K tile
+    padded to D+1 a row, the V tile, the bq·bkv score tile and three
+    bq-vectors."""
     return 4 * (2 * bq * d + bkv * (d + 1) + bkv * d + bq * bkv + 3 * bq)
 
 
-def launch_config(B: int, H: int, S: int, D: int, bq: int, bkv: int) -> dict:
-    """Grid, threads and shared memory of a launch with (bq, bkv); raises
-    ``ScheduleRejected`` for blocks the card cannot run."""
+def variant(D: int, bkv: int) -> str:
+    """K3's variant for head dim ``D`` and kv tile ``bkv``."""
+    if bkv % 8 == 0 and D in TC_HEAD_DIMS:
+        return "tc"
+    return "fma"
+
+
+def kv_step(span: int) -> int:
+    """Keys a ``tc`` warp takes a softmax step: 32, 16 or 8, the largest
+    that divides ``span``, the keys it takes of a staged kv tile."""
+    return 32 if span % 32 == 0 else 16 if span % 16 == 0 else 8
+
+
+def tc_smem_bytes(bkv: int, d: int, m_warps: int, tiles: int, splits: int,
+                  stages: int) -> int:
+    """Shared memory of one ``tc`` CTA: Q's 16 rows an m16 tile, then the
+    larger of the ring (``stages`` x ``tiles`` x a K and a V tile of bkv
+    rows) and, with more than one split, the partials every split hands
+    over after it (16 rows of acc, 16 maxima and 16 sums an m16 tile);
+    rows of D + 4 floats."""
+    ld = d + TC_PAD
+    ring = stages * tiles * 2 * bkv * ld
+    partials = splits * m_warps * (16 * ld + 32) if splits > 1 else 0
+    return 4 * (m_warps * 16 * ld + max(ring, partials))
+
+
+def tc_splits(n_tiles: int, bkv: int, d: int, m_warps: int, want: int):
+    """(tiles, sub, stages) of a ``tc`` CTA: ``want`` kv splits (at most
+    ``TC_MAX_WARPS`` warps a CTA) as ``tiles`` runs of whole kv tiles, one
+    tile of each staged a round, each tile shared by ``sub`` warps that take
+    a contiguous part of it of whole 8-key steps.  As many runs as the
+    CTA's ``n_tiles`` allow and shared memory holds, the rest of the splits
+    as parts; two stages unless a run is one tile long or two do not fit."""
+    splits = max(1, min(TC_MAX_WARPS // m_warps, want))
+    for tiles in range(min(n_tiles, splits), 0, -1):
+        sub = splits // tiles
+        while bkv % (8 * sub):
+            sub -= 1
+        rounds = -(-n_tiles // tiles)
+        for stages in ((2, 1) if rounds > 1 else (1,)):
+            smem = tc_smem_bytes(bkv, d, m_warps, tiles, tiles * sub, stages)
+            if smem <= MAX_SMEM_BYTES:
+                return tiles, sub, stages
+    return 1, 1, 1
+
+
+def launch_config(B: int, H: int, KVH: int, S: int, D: int, bq: int, bkv: int,
+                  sms: int) -> dict:
+    """The :func:`variant`, grid, threads, shared memory, kv splits and
+    stages of a K3 launch with (bq, bkv) on a card of ``sms`` SMs; the same
+    keys for both variants.
+
+    ``tc``: the G·bq rows of a q block fill ceil(G·bq/16) m16 tiles, two a
+    CTA where they pair up and one otherwise (``m_warps``), ``groups`` CTAs
+    a q block; grid (S/bq · B·KVH · groups,), the heaviest q blocks first.
+    ``splits`` warps a tile, as many as bring the card to
+    ``TC_WARPS_PER_SM`` warps an SM within ``TC_MAX_WARPS`` a CTA, laid
+    out by :func:`tc_splits`; ``kv_step`` keys a softmax step.  ``fma``:
+    grid (S/bq, B·H), 256 threads.
+
+    Raises ``ScheduleRejected`` for a tile that does not divide S, or that
+    the card cannot run (shared memory, grid)."""
     if S % bq or S % bkv:
         raise ScheduleRejected("divide", f"blocks ({bq}, {bkv}) must divide S={S}")
-    smem = smem_bytes(bq, bkv, D)
+    var = variant(D, bkv)
+    cfg = {"variant": var, "blocks": (bq, bkv), "splits": 1, "tiles": 1, "sub": 1,
+           "stages": 1, "groups": 1, "m_warps": None, "kv_step": None}
+    if var == "fma":
+        smem = smem_bytes(bq, bkv, D)
+        grid = (S // bq, B * H)
+        cfg.update(grid=grid, threads=THREADS, smem_bytes=smem)
+    else:
+        m_tiles = -(-(H // KVH) * bq // 16)
+        mw = 2 if m_tiles % 2 == 0 else 1
+        groups = m_tiles // mw
+        ctas = (S // bq) * B * KVH * groups
+        want = -(-TC_WARPS_PER_SM * sms // (ctas * mw))
+        tiles, sub, stages = tc_splits(S // bkv, bkv, D, mw, want)
+        smem = tc_smem_bytes(bkv, D, mw, tiles, tiles * sub, stages)
+        grid = (ctas,)
+        cfg.update(grid=grid, threads=32 * mw * tiles * sub, smem_bytes=smem,
+                   splits=tiles * sub, tiles=tiles, sub=sub, stages=stages,
+                   groups=groups, m_warps=mw, kv_step=kv_step(bkv // sub))
     if smem > MAX_SMEM_BYTES:
         raise ScheduleRejected(
             "shared_memory",
             f"attention blocks ({bq}, {bkv}) at D={D} need {smem} bytes of "
-            f"shared memory; cap {MAX_SMEM_BYTES}"
+            f"shared memory ({var}); cap {MAX_SMEM_BYTES}"
         )
-    grid = (S // bq, B * H)
-    if grid[1] > _GRID_Y_MAX:
+    if grid[0] > _GRID_X_MAX or (len(grid) > 1 and grid[1] > _GRID_Y_MAX):
         raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
-    return {
-        "blocks": (bq, bkv),
-        "grid": grid,
-        "threads": THREADS,
-        "smem_bytes": smem,
-    }
+    return cfg
+
+
+def check_tile(B: int, H: int, KVH: int, S: int, D: int, bq: int, bkv: int) -> dict:
+    """The launch plan of (bq, bkv) on a card of one SM; raises
+    ``ScheduleRejected`` for a tile the card cannot run.  The SM count
+    only adds kv splits, and splits shrink to what fits, so whether a tile
+    runs does not depend on it: the lowering checks a tile with no card."""
+    return launch_config(B, H, KVH, S, D, bq, bkv, sms=1)
 
 
 def _lib():
@@ -96,7 +190,9 @@ def _lib():
         lib.repro_flash_attention.argtypes = [
             P, P, P, P, I, I, I, I, I, I, I, Fl, I, I, Fl, P
         ]
-        lib.repro_flash_attention.restype = I
+        lib.repro_flash_attention_tc.argtypes = [P] * 4 + [I] * 14 + [Fl, I, I, Fl, I, P]
+        for fn in (lib.repro_flash_attention, lib.repro_flash_attention_tc):
+            fn.restype = I
         lib._repro_typed = True
     return lib
 
@@ -150,24 +246,34 @@ def flash_attention(
     _check_cuda_operands("flash_attention", (q, k, v), (torch.float32,) * 3)
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
-    cfg = launch_config(B, H, S, D, bq, bkv)
+    cfg = launch_config(B, H, KVH, S, D, bq, bkv, sm_count(q.device))
     o = torch.empty_like(q)
+    args = (float(scale), int(bool(causal)), int(window or 0), float(softcap or 0.0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, H, KVH, S, D, bq, bkv, float(scale), int(bool(causal)),
-            int(window or 0), float(softcap or 0.0), stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        if cfg["variant"] == "tc":
+            vec = int(all(p % 16 == 0 for p in ptrs[:3]))
+            err = _lib().repro_flash_attention_tc(
+                *ptrs, B, H, KVH, S, D, bq, bkv, cfg["groups"], cfg["m_warps"],
+                cfg["tiles"], cfg["sub"], cfg["stages"], cfg["kv_step"], vec, *args,
+                cfg["smem_bytes"], stream,
+            )
+        else:
+            err = _lib().repro_flash_attention(
+                *ptrs, B, H, KVH, S, D, bq, bkv, *args, stream,
+            )
     from ._build import check
 
-    check(err, f"flash_attention ({bq}, {bkv}) on {tuple(q.shape)}")
+    check(err, f"flash_attention {cfg['variant']} ({bq}, {bkv}) on {tuple(q.shape)}")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[cfg["variant"]] += 1
     flash_attention.last_launch = cfg
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 flash_attention.last_launch = None
 
 

@@ -15,8 +15,9 @@ are convex combinations of v.  K7 (ssd) against its plain version: 1e-5
 of the output's largest magnitude in f32 (sums of up to N + L terms in
 another order), 8e-3 of it with bf16 x/B/C (both round y to bf16 once: one
 ulp is 2^-8 of |y|); the f32 state within 1e-5 of its largest magnitude.
-The kernels that split their work over CTAs (K5, K6, K7) must give the
-same bits on a second call and on two replays of one CUDA graph.
+The kernels that split their work over CTAs (K5, K6, K7) or over warps
+(K3) must give the same bits on a second call and on two replays of one
+CUDA graph.
 """
 
 import math
@@ -312,7 +313,115 @@ def test_cuda_flash_attention_against_plain():
     for kw in (dict(causal=True), dict(causal=True, window=32, softcap=50.0)):
         got = fa.flash_attention(q, k, v, block_q=48, block_kv=32, **kw)
         want = tref.flash_attention(q, k, v, **kw)
+        assert fa.flash_attention.last_launch["variant"] == "tc"
         assert float((got - want).abs().max()) < 1e-4
+
+
+def _divisors(n):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+def _k3_operands(dev, seed, H, KVH, S, D=64):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(1, H, S, D, generator=g, device=dev),
+            torch.randn(1, KVH, S, D, generator=g, device=dev),
+            torch.randn(1, KVH, S, D, generator=g, device=dev))
+
+
+def _k3_against_plain(q, k, v, bq, bkv, variant, **kw):
+    """K3 at (bq, bkv) against the plain version within 1e-4, its launch
+    counted under ``variant`` with the plan of ``launch_config``, and a
+    second call giving the same bits."""
+    B, H, S, D = q.shape
+    plan = fa.launch_config(B, H, k.shape[1], S, D, bq, bkv,
+                            repro_torch.kernels.sm_count(q.device))
+    assert plan["variant"] == variant
+    n, by = fa.flash_attention.launches, dict(fa.flash_attention.launches_by_variant)
+    got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+    again = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 2
+    assert fa.flash_attention.launches_by_variant[variant] == by[variant] + 2
+    assert fa.flash_attention.last_launch == plan
+    assert torch.equal(got, again)
+    want = tref.flash_attention(q, k, v, **kw)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("bq,bkv,variant", [(8, 128, "tc"), (64, 128, "tc"), (64, 4, "fma"),
+                                            (8, 2, "fma")])
+def test_cuda_flash_attention_variants_count_their_launches(bq, bkv, variant):
+    dev = _cuda()
+    _k3_against_plain(*_k3_operands(dev, bq + bkv, 9, 3, 256), bq, bkv, variant,
+                      causal=True)
+
+
+# every tile of smollm-135m's forward shape (H 9, KVH 3, S 256, D 64) that
+# the tc variant takes: both sides divide 256, bkv a multiple of 8
+@pytest.mark.parametrize("bq", _divisors(256))
+@pytest.mark.parametrize("bkv", [d for d in _divisors(256) if d % 8 == 0])
+def test_cuda_flash_attention_tc_at_every_forward_tile(bq, bkv):
+    dev = _cuda()
+    _k3_against_plain(*_k3_operands(dev, 3, 9, 3, 256), bq, bkv, "tc", causal=True)
+
+
+# S 96 and 48 (the last m16 tile of a CTA partly filled: G·bq rows of 24,
+# 8, 72 or 4), each mask, G 3 and G 1
+@pytest.mark.parametrize("S,bq,bkv", [(96, 8, 32), (96, 24, 48), (96, 4, 96), (48, 8, 8),
+                                      (48, 24, 16), (48, 48, 24)])
+@pytest.mark.parametrize("H,KVH", [(9, 3), (4, 4)])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=20),
+                                dict(causal=True, softcap=50.0), dict(causal=False),
+                                dict(causal=False, window=17, softcap=30.0)],
+                         ids=["causal", "window", "softcap", "full", "full-window-softcap"])
+def test_cuda_flash_attention_tc_masks_and_ragged_tiles(S, bq, bkv, H, KVH, kw):
+    dev = _cuda()
+    _k3_against_plain(*_k3_operands(dev, S + bq, H, KVH, S), bq, bkv, "tc", **kw)
+
+
+def test_cuda_flash_attention_small_head_dims_and_batch():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    for B, H, KVH, S, D, bq, bkv in ((2, 4, 2, 64, 16, 8, 16), (2, 6, 3, 48, 8, 16, 24),
+                                     (3, 4, 1, 32, 32, 32, 8)):
+        q = torch.randn(B, H, S, D, generator=g, device=dev)
+        k = torch.randn(B, KVH, S, D, generator=g, device=dev)
+        v = torch.randn(B, KVH, S, D, generator=g, device=dev)
+        _k3_against_plain(q, k, v, bq, bkv, "tc", causal=True, window=9)
+
+
+def test_cuda_flash_attention_reads_unaligned_operands():
+    # a view 4 bytes into its storage takes the 4-byte copies
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, 9, 9, 3, 96)
+    buf = torch.empty(k.numel() + 1, device=dev)
+    k1 = buf[1:].view(k.shape)
+    k1.copy_(k)
+    assert k1.data_ptr() % 16
+    got = fa.flash_attention(q, k1, v, block_q=16, block_kv=32)
+    assert float((got - tref.flash_attention(q, k, v)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("bq,bkv", [(8, 128), (16, 16)])
+def test_cuda_flash_attention_replays_from_a_graph(bq, bkv):
+    # the split's partials live in shared memory: two replays of one graph
+    # give the eager call's bits
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, 21, 9, 3, 256)
+    want = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
@@ -345,10 +454,6 @@ def _bias(lengths, T, dev, window=0):
     if window:
         ok &= pos > lv - 1 - window
     return torch.where(ok, 0.0, -1e30).float()
-
-
-def _divisors(n):
-    return [d for d in range(1, n + 1) if n % d == 0]
 
 
 # every kv tile that divides T = 256 and 192, so every split the plan makes

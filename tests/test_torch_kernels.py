@@ -144,20 +144,218 @@ def test_launch_config_follows_the_tile():
     assert cfg["smem_bytes"] == cfg["stages"] * mm.tc_stage_bytes(96, 64, 32)
     (wm, wn), threads = mm.warp_tile(96, 64)
     assert cfg["threads"] == threads == 32 * (96 // (16 * wm)) * (64 // (8 * wn)) <= 512
-    acfg = fa.launch_config(1, 9, 256, 64, 64, 128)
-    assert acfg["grid"] == (4, 9)
-    assert acfg["smem_bytes"] == fa.smem_bytes(64, 128, 64)
+    # K3 at smollm's forward shape: 64 positions x 3 heads = 12 m16 tiles a
+    # q block, two a CTA; 72 CTAs of 4 kv splits, 2 runs of 128-key tiles
+    # with 2 parts each, one round (one stage)
+    acfg = fa.launch_config(1, 9, 3, 256, 64, 64, 128, 132)
+    assert acfg["variant"] == "tc" and acfg["grid"] == (4 * 3 * 6,)
+    assert (acfg["m_warps"], acfg["groups"], acfg["tiles"], acfg["sub"]) == (2, 6, 2, 2)
+    assert acfg["splits"] == 4 and acfg["threads"] == 32 * 2 * 4
+    assert acfg["stages"] == 1 and acfg["kv_step"] == 32
+    assert acfg["smem_bytes"] == fa.tc_smem_bytes(128, 64, 2, 2, 4, 1) == 4 * (2 * 16 + 2 * 2 * 128) * 68
+    fcfg = fa.launch_config(1, 9, 3, 256, 64, 64, 4, 132)
+    assert fcfg["variant"] == "fma" and fcfg["grid"] == (4, 9)
+    assert fcfg["threads"] == fa.THREADS and fcfg["smem_bytes"] == fa.smem_bytes(64, 4, 64)
 
 
 @pytest.mark.parametrize("call", [
     lambda: mm.launch_config(1, 256, 1536, 576, (256, 1536, 576)),  # smem
     lambda: mm.launch_config(1, 1024, 1024, 4, (512, 512, 4)),  # threads
     lambda: mm.launch_config(1, 256, 256, 64, (96, 64, 32)),  # divisibility
-    lambda: fa.launch_config(1, 9, 256, 64, 256, 256),  # smem
+    lambda: fa.launch_config(1, 9, 3, 512, 64, 512, 512, 132),  # smem
 ])
 def test_launch_config_rejects_what_the_card_cannot_run(call):
     with pytest.raises(ValueError):
         call()
+
+
+def _divisors(n):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+# K3's plan at smollm-135m's forward shape (B 1, H 9, KVH 3, S 256, D 64) on
+# 132 SMs, for every tile whose sides divide 256
+@pytest.mark.parametrize("bq", _divisors(256))
+@pytest.mark.parametrize("bkv", _divisors(256))
+def test_flash_attention_launch_config_at_the_forward_shape(bq, bkv):
+    cfg = fa.launch_config(1, 9, 3, 256, 64, bq, bkv, 132)
+    assert cfg["blocks"] == (bq, bkv) and cfg["smem_bytes"] <= fa.MAX_SMEM_BYTES
+    if bkv % 8:
+        assert cfg["variant"] == "fma" and cfg["grid"] == (256 // bq, 9)
+        assert cfg["threads"] == 256 and cfg["smem_bytes"] == fa.smem_bytes(bq, bkv, 64)
+        assert cfg["splits"] == cfg["stages"] == 1
+        return
+    assert cfg["variant"] == "tc"
+    m_tiles = -(-3 * bq // 16)
+    mw = cfg["m_warps"]
+    assert mw == (2 if m_tiles % 2 == 0 else 1) and cfg["groups"] == m_tiles // mw
+    ctas = (256 // bq) * 3 * cfg["groups"]
+    assert cfg["grid"] == (ctas,)
+    tiles, sub, splits = cfg["tiles"], cfg["sub"], cfg["splits"]
+    assert splits == tiles * sub and 1 <= tiles <= 256 // bkv
+    assert cfg["threads"] == 32 * mw * splits <= 32 * fa.TC_MAX_WARPS
+    # as many splits as bring the card to 8 warps an SM, within 8 warps a
+    # CTA, shrunk only to fit shared memory
+    want = min(fa.TC_MAX_WARPS // mw, -(-fa.TC_WARPS_PER_SM * 132 // (ctas * mw)))
+    assert splits <= want and (splits == want or cfg["smem_bytes"] > fa.MAX_SMEM_BYTES // 2)
+    assert bkv % (sub * cfg["kv_step"]) == 0 and cfg["kv_step"] in (8, 16, 32)
+    rounds = -(-(256 // bkv) // tiles)
+    assert cfg["stages"] == (2 if rounds > 1 else 1)
+    assert cfg["smem_bytes"] == fa.tc_smem_bytes(bkv, 64, mw, tiles, splits, cfg["stages"])
+
+
+@pytest.mark.parametrize("bq,bkv,plan", [
+    # the search's tile in PERF.md's run 15: 24 rows, two m16 tiles (the
+    # second half padded), 2 runs of one 128-key tile, 2 parts each
+    (8, 128, dict(grid=(96,), threads=256, m_warps=2, groups=1, tiles=2, sub=2,
+                  stages=1, kv_step=32, smem_bytes=4 * (2 * 16 + 2 * 2 * 128) * 68)),
+    # 48 rows: three m16 tiles a q block, one a CTA; 8 runs of 16-key
+    # tiles, two rounds at the last q block
+    (16, 16, dict(grid=(144,), threads=256, m_warps=1, groups=3, tiles=8, sub=1,
+                  stages=2, kv_step=16, smem_bytes=4 * (16 + 2 * 8 * 2 * 16) * 68)),
+    # one whole-sequence kv tile: one run, 4 parts of 64 keys
+    (64, 256, dict(grid=(72,), threads=256, m_warps=2, groups=6, tiles=1, sub=4,
+                   stages=1, kv_step=32, smem_bytes=4 * (2 * 16 + 2 * 256) * 68)),
+    (1, 8, dict(grid=(768,), threads=64, m_warps=1, groups=1, tiles=2, sub=1,
+                stages=2, kv_step=8, smem_bytes=4 * (16 + 2 * 2 * 2 * 8) * 68)),
+])
+def test_flash_attention_tc_plans(bq, bkv, plan):
+    cfg = fa.launch_config(1, 9, 3, 256, 64, bq, bkv, 132)
+    assert {k: cfg[k] for k in plan} == plan
+    assert cfg["splits"] == plan["tiles"] * plan["sub"]
+
+
+def test_flash_attention_splits_follow_the_sm_count():
+    # one SM wants no split; a card the CTAs alone fill wants none either
+    assert fa.launch_config(1, 9, 3, 256, 64, 16, 16, 1)["splits"] == 1
+    assert fa.launch_config(64, 9, 3, 256, 64, 16, 16, 132)["splits"] == 1
+    assert fa.launch_config(1, 9, 3, 256, 64, 16, 16, 132)["splits"] == 8
+    # check_tile: the plan of one SM, the least shared memory
+    assert fa.check_tile(1, 9, 3, 256, 64, 16, 16) == fa.launch_config(
+        1, 9, 3, 256, 64, 16, 16, 1)
+
+
+@pytest.mark.parametrize("D,bkv,variant", [(64, 8, "tc"), (64, 4, "fma"), (16, 24, "tc"),
+                                           (8, 16, "tc"), (48, 16, "fma"), (128, 64, "fma"),
+                                           (64, 12, "fma")])
+def test_flash_attention_variant_rule(D, bkv, variant):
+    assert fa.variant(D, bkv) == variant
+    assert fa.launch_config(1, 4, 2, 96 if bkv in (12, 24) else 64, D, 16, bkv,
+                            132)["variant"] == variant
+
+
+@pytest.mark.parametrize("args,reason", [
+    ((1, 9, 3, 256, 64, 48, 64), "divide"),
+    ((1, 9, 3, 256, 64, 64, 48), "divide"),
+    ((1, 9, 3, 512, 64, 16, 512), "shared_memory"),  # tc: one 512-row K and V tile
+    ((1, 4, 2, 256, 128, 256, 256), "shared_memory"),  # fma (D 128)
+    ((8000, 9, 3, 16, 128, 16, 4), "grid"),  # fma: B·H > 65535
+])
+def test_flash_attention_launch_config_rejections(args, reason):
+    with pytest.raises(ScheduleRejected) as e:
+        fa.launch_config(*args, 132)
+    assert e.value.reason == reason
+    with pytest.raises(ScheduleRejected):
+        fa.check_tile(*args)
+
+
+def _split_run(n, ns, s):
+    base, rem = divmod(n, ns)
+    return s * base + min(s, rem), base + (1 if s < rem else 0)
+
+
+def _tc_split_plain(q, k, v, cfg, causal, window, softcap):
+    """A plain model of the tc kernel's order of work (csrc/flash_attention.cu):
+    per CTA and m16 tile, each kv split's online softmax over its chunks of
+    kv_step keys (the kernel's skips included), then the partials combined
+    in split order."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    G = H // KVH
+    bq, bkv = cfg["blocks"]
+    mw, groups, tiles, sub, step = (cfg[x] for x in ("m_warps", "groups", "tiles", "sub",
+                                                     "kv_step"))
+    scale, R, span, neg = D ** -0.5, G * bq, bkv // sub, -1e30
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for kvh in range(KVH):
+            for q0 in range(0, S, bq):
+                for grp in range(groups):
+                    c_r0 = grp * mw * 16
+                    c_r1 = min(R, c_r0 + mw * 16)
+                    kv_hi = q0 + (c_r1 - 1) // G + 1 if causal else S
+                    kv_lo = max(0, q0 + c_r0 // G - window + 1) if window else 0
+                    t_lo = kv_lo // bkv
+                    n_t = -(-kv_hi // bkv) - t_lo
+                    for wm in range(mw):
+                        rows = list(range(c_r0 + 16 * wm, min(R, c_r0 + 16 * wm + 16)))
+                        pos = torch.tensor([q0 + r // G for r in rows])
+                        heads = torch.tensor([kvh * G + r % G for r in rows])
+                        lo, hi = int(pos[0]), int(pos[-1])
+                        qr = q[b, heads, pos]
+                        parts = []
+                        for split in range(tiles * sub):
+                            run, part = divmod(split, sub)
+                            start, count = _split_run(n_t, tiles, run)
+                            m = torch.full((len(rows),), neg)
+                            l = torch.zeros(len(rows))
+                            acc = torch.zeros(len(rows), D)
+                            for r in range(count):
+                                key_t = (t_lo + start + r) * bkv
+                                for c0 in range(part * span, (part + 1) * span, step):
+                                    key0 = key_t + c0
+                                    if causal and key0 > hi:
+                                        break
+                                    if window and key0 + step - 1 < lo - window + 1:
+                                        continue
+                                    keys = torch.arange(key0, key0 + step)
+                                    s = (qr @ k[b, kvh, keys].T) * scale
+                                    if softcap:
+                                        s = softcap * torch.tanh(s / softcap)
+                                    keep = torch.ones_like(s, dtype=torch.bool)
+                                    if causal:
+                                        keep &= keys[None, :] <= pos[:, None]
+                                    if window:
+                                        keep &= pos[:, None] - keys[None, :] < window
+                                    s = torch.where(keep, s, torch.full_like(s, neg))
+                                    mn = torch.maximum(m, s.max(1).values)
+                                    alpha = torch.exp(m - mn)
+                                    p = torch.exp(s - mn[:, None])
+                                    l = l * alpha + p.sum(1)
+                                    acc = acc * alpha[:, None] + p @ v[b, kvh, keys]
+                                    m = mn
+                            parts.append((m, l, acc))
+                        mt = torch.stack([p[0] for p in parts]).max(0).values
+                        l_tot, acc_tot = torch.zeros_like(mt), torch.zeros(len(rows), D)
+                        for m_s, l_s, acc_s in parts:  # in split order
+                            w = torch.exp(m_s - mt)
+                            l_tot = l_tot + w * l_s
+                            acc_tot = acc_tot + w[:, None] * acc_s
+                        out[b, heads, pos] = acc_tot / torch.clamp(l_tot, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("B,H,KVH,S,D,causal,win,cap,bq,bkv", ATTN_CASES)
+def test_flash_attention_tc_split_and_combine_match_reference(
+    B, H, KVH, S, D, causal, win, cap, bq, bkv, sms
+):
+    """The tc kernel's split of each q block's kv range over warps and its
+    combine in split order, as plain PyTorch, against the JAX package's
+    reference: the same function up to summation order (rtol 1e-4, atol
+    1e-5).  A case whose tile the fma kernel takes uses kv tiles of 8."""
+    r = _rng(4)
+    q = r.standard_normal((B, H, S, D), dtype=np.float32) * 0.5
+    k = r.standard_normal((B, KVH, S, D), dtype=np.float32) * 0.5
+    v = r.standard_normal((B, KVH, S, D), dtype=np.float32)
+    bq, bkv = fa.best_divisor(S, bq), fa.best_divisor(S, bkv)
+    if fa.variant(D, bkv) != "tc":
+        bkv = 8
+    cfg = fa.launch_config(B, H, KVH, S, D, bq, bkv, sms)
+    assert cfg["variant"] == "tc"
+    got = _tc_split_plain(_t(q), _t(k), _t(v), cfg, causal, win, cap)
+    want = np.asarray(jref.flash_attention(q, k, v, causal=causal, window=win, softcap=cap))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 def test_cuda_entry_points_raise_without_a_card():
@@ -243,3 +441,35 @@ def test_row_softmax_launch_config_rejects_what_the_card_cannot_run(M, N, bm, re
     with pytest.raises(ScheduleRejected) as e:
         sm.launch_config(M, N, bm)
     assert e.value.reason == reason
+
+
+def test_library_path_follows_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header rebuilds every library whose source includes it,
+    through a header of its own too, and no other."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "SOURCES",
+                        {n: csrc / p.name for n, p in _build.SOURCES.items()})
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    users = {"matmul", "flash_attention", "ssd"}
+    header = csrc / "tf32_mma.cuh"
+    for name, src in _build.SOURCES.items():
+        assert (header.resolve() in _build.included_headers(src)) == (name in users)
+
+    def paths():
+        return {n: _build.library_path(n) for n in _build.SOURCES}
+
+    before = paths()
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = paths()
+    assert {n for n in before if before[n] != after[n]} == users
+    # a header the header includes counts as well
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    header.write_text(header.read_text() + '#include "inner.cuh"\n')
+    again = paths()
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert {n for n, p in paths().items() if p != again[n]} == users
