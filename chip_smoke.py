@@ -18,17 +18,20 @@ Phases, in order; a failing phase makes the run exit non-zero:
    float64 product as a witness; K2 in each of the same variants: ``tc`` at
    the two attention contractions (b3 m768) in one and two stages and at
    hymba-1.5b's (b5 m1280), ``splitk`` at the decode contraction (b12 m3)
-   in one split and many, ``fma`` at a ragged tile, each run twice for the
-   same bits; K4, the row softmax, also in bfloat16, on its registers
-   variant at row blocks 36-288 and its shared-memory variant at N = 258,
-   where a block too large for shared memory must be rejected; K3 on its
-   tc variant (causal, window, softcap, full, at S 256 and 96) and its fma
-   variant, each run twice for the same bits);
+   in one split and many, ``fma`` at a ragged tile, and at olmoe-1b-7b's
+   expert products (``tc`` at b64 m64 k2048 n1024, ``splitk`` at b64 m4 in
+   one split and in 128), each run twice for the same bits; K4, the row
+   softmax, also in bfloat16, on its registers variant at row blocks
+   36-288 and its shared-memory variant at N = 258, where a block too
+   large for shared memory must be rejected; K3 on its tc variant (causal,
+   window, softcap, full, at S 256 and 96) and its fma variant, and at
+   olmoe's (1, 16, 256, 128) on fma, each run twice for the same bits);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window, at kv
    tiles whose split of the kv axis leaves whole splits masked (a length-1
-   slot, the window); each replayed twice from one CUDA graph for the
+   slot, the window), and K5 at olmoe's decode tick (b4, 16 kv heads of
+   one query head, D 128); each replayed twice from one CUDA graph for the
    eager call's bits; K5's device time at every kv tile that divides 256,
    beside ``scaled_dot_product_attention`` on the same inputs;
 3c. K7, the chunked SSD scan, against its plain version on the card, in
@@ -82,16 +85,35 @@ Phases, in order; a failing phase makes the run exit non-zero:
 10. the mamba2-370m serving path: extract its decode tasks (4 slots,
    max_seq 256: the slot arena, whole-prompt prefill), tune them, serve 8
    requests through ``ContinuousBatchingScheduler`` under the tuned context
-   (K7 in every admitted prompt's prefill), then with no context.
+   (K7 in every admitted prompt's prefill), then with no context;
+11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
+   1, seq 256), tune them at half the other paths' budget, then the
+   full-width 16-layer bf16 forward under ``DispatchContext`` (K2 at every
+   expert product, 48 launches, printed by variant; K3 16 launches, all
+   fma, at head dim 128), traced, against the same forward with no
+   context.  Top-k routing is discontinuous, so the numbers are held in
+   f32, on the parameters cast to f32: each MoE layer dispatched against
+   plain on the same input (routing runs plain in both) within
+   ``TOL_MOE_REL``, and the whole forward within ``TOL_LOGITS_REL`` when no
+   token's routing differs between the two runs, with the flips of every
+   layer printed;
+12. the olmoe-1b-7b serving path: extract its 16 decode tasks (4 slots,
+   max_seq 256, paged, 32-token chunks), tune them the same way, serve 8
+   requests on the paged arena under the tuned context and with no
+   context; one decode-only tick launches K2 48 times, all ``splitk``, and
+   K5 16 times, and is held against the plain tick in f32 as in phase 11;
+   then phase 6 at olmoe's shapes.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the five paths (forward: phases 4-5; serving: phase 7; operators:
-phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10) and read just
-after it; K1's, K2's and K3's launches are also counted by variant: K1's
+each of the seven paths (forward: phases 4-5; serving: phase 7; operators:
+phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10; olmoe forward:
+phase 11; olmoe serving: phase 12) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
-``splitk``) and the mamba2 forward, K2's for phase 3 (every variant) and
-the serving path's tuning (every one ``splitk``), K3's for phase 3 (both
-variants) and the tuned forward (every one ``tc``).  TF32 is off for float32 matmuls in
+``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
+serving path's tuning (every one ``splitk``), the olmoe forward and its
+decode-only tick (every one ``splitk``), K3's for phase 3 (both variants),
+the tuned forward (every one ``tc``) and the olmoe forward (every one
+``fma``).  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -108,7 +130,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -129,7 +151,7 @@ PEAK_HBM_BYTES = 3.35e12
 SEQ = 256
 BATCH = 1
 M_FWD = BATCH * SEQ  # the rows of every forward matmul
-TOL_MATMUL = 2e-3  # f32, K <= 1536, N(0,1) inputs: |y| up to ~200
+TOL_MATMUL = 2e-3  # f32, K <= 2048, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
 TOL_LOGITS_REL = 5e-2  # bf16 plain forward vs f32 kernels cast to bf16
 TOL_SOFTMAX_F32 = 1e-5  # f32 softmax values lie in [0, 1]
@@ -161,6 +183,18 @@ SSM_ARCH = "mamba2-370m"
 SSM_CHUNK = 64
 SSM_FORWARD_TASKS = 14
 SSM_DECODE_TASKS = 7
+
+# the olmoe-1b-7b paths (phases 11 and 12): the forward at batch 1, seq 256,
+# and the serving path's paged arena, at half the other paths' tuning budget
+MOE_ARCH = "olmoe-1b-7b"
+MOE_FORWARD_TASKS = 11
+MOE_DECODE_TASKS = 16
+MOE_ROUNDS_PER_TASK = 2
+# one MoE layer dispatched against plain on the same f32 input, relative to
+# the output's largest magnitude: K·2^-24 at K = 2048, the bound on the
+# relative rounding error of one f32 dot product of 2048 terms (the expert
+# products reduce over d_model 2048, then d_ff 1024), summed in another order
+TOL_MOE_REL = 2048 * 2.0**-24
 
 
 def fail(msg: str) -> None:
@@ -368,6 +402,11 @@ def phase_kernels(gen) -> dict:
         ((12, 3, 256, 64), (3, 64, 32), "splitk"),
         ((12, 3, 256, 64), (1, 16, 64), "splitk"),
         ((KVH, G * SEQ, SEQ, D), (24, 32, 32), "fma"),
+        # olmoe-1b-7b's expert products: the forward's wi/wg (m64) and a
+        # decode tick's (m4) in one split and in 128
+        ((64, 64, 2048, 1024), (64, 64, 32), "tc"),
+        ((64, 4, 2048, 1024), (4, 1024, 2048), "splitk"),
+        ((64, 4, 2048, 1024), (4, 64, 16), "splitk"),
     ):
         a, b = randn(Bb, Mm, Kk), randn(Bb, Kk, Nn)
         cfg = mm.launch_config(Bb, Mm, Nn, Kk, bs)
@@ -429,6 +468,24 @@ def phase_kernels(gen) -> dict:
                    median_ms(lambda: fa.flash_attention(
                        q, k, v, block_q=bq, block_kv=bkv, **kw)),
                    median_ms(lambda: ref.flash_attention(q, k, v, **kw)), lib_ms)
+    # olmoe-1b-7b's attention, (1, 16, 256, 128) kvh 16 causal: tc takes no
+    # D above 64, so K3 runs fma there
+    q = randn(BATCH, 16, SEQ, 128)
+    k, v = randn(BATCH, 16, SEQ, 128), randn(BATCH, 16, SEQ, 128)
+    got = fa.flash_attention(q, k, v, block_q=32, block_kv=32)
+    again = fa.flash_attention(q, k, v, block_q=32, block_kv=32)
+    plan = fa.flash_attention.last_launch
+    if plan != fa.launch_config(BATCH, 16, 16, SEQ, 128, 32, 32, sms) or plan["variant"] != "fma":
+        fail(f"flash_attention (32, 32) at D 128 launched {plan}, want fma")
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("flash_attention fma at D 128: two runs differ")
+    report("flash_attention",
+           f"fma (1,16,{SEQ},128) kvh 16 causal blocks (32, 32) grid {plan['grid']}",
+           got, ref.flash_attention(q, k, v), TOL_ATTN,
+           median_ms(lambda: fa.flash_attention(q, k, v, block_q=32, block_kv=32)),
+           median_ms(lambda: ref.flash_attention(q, k, v)),
+           median_ms(lambda: sdpa(q, k, v, True)))
     k3_variants = {k: n - k3_before[k] for k, n in read_variants("flash_attention").items()}
     print(f"[kernels] flash_attention launches by variant in phase 3: {k3_variants}")
     if min(k3_variants.values()) <= 0:
@@ -622,6 +679,23 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
               f"from one CUDA graph: {'the same bits' if same else 'DIFFERENT bits'}")
         if not same:
             fail("decode_flash_attention: a graph replay differs from the eager call")
+    # olmoe-1b-7b's decode tick: 16 kv heads of one query head, D 128
+    T = SERVE_MAX_SEQ
+    q128 = randn(B, 16, 1, 128)
+    k128, v128 = randn(B, 16, T, 128), randn(B, 16, T, 128)
+    for bkv in (16, 64, 128):
+        for label, bias in (("full", decode_bias([T] * B, T)),
+                            ("ragged", decode_bias([T, 1, 77, T - 5], T))):
+            got = fa.decode_flash_attention(q128, k128, v128, bias, block_kv=bkv)
+            again = fa.decode_flash_attention(q128, k128, v128, bias, block_kv=bkv)
+            plan = fa.decode_flash_attention.last_launch
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"decode_flash_attention D 128 block_kv {bkv}: two runs differ")
+            report("decode_flash_attention",
+                   f"({B},16,1,{T},128) block_kv {bkv}, {plan['splits']} splits of "
+                   f"{plan['rows_per_split']} rows, {label}", got,
+                   ref.decode_attention(q128, k128, v128, bias))
     # K6: pages scattered over a pool, sentinel entries, ragged lengths
     P = SERVE_MAX_SEQ // SERVE_PAGE
     n_pages = B * P + 3
@@ -907,11 +981,11 @@ def read_variants(kernel: str = "matmul") -> dict:
     return dict(_wrappers()[kernel].launches_by_variant)
 
 
-def variants_since(before: dict) -> dict:
-    return {k: n - before.get(k, 0) for k, n in read_variants().items()}
+def variants_since(before: dict, kernel: str = "matmul") -> dict:
+    return {k: n - before.get(k, 0) for k, n in read_variants(kernel).items()}
 
 
-def phase_tune(cfg, db, extract=None, tag="tune"):
+def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
@@ -938,7 +1012,7 @@ def phase_tune(cfg, db, extract=None, tag="tune"):
     )
     t0 = time.perf_counter()
     sched = repro_torch.TaskScheduler(tasks, database=db, config=config)
-    best = sched.tune(total_rounds=4 * len(tasks))
+    best = sched.tune(total_rounds=rounds_per_task * len(tasks))
     print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
           f"runner stats {sched.runner.stats()}")
     for key, lat in best.items():
@@ -1504,12 +1578,31 @@ K5_KERNEL_NAMES = ("decode_attention_kernel",)
 K7_KERNEL_NAMES = ("ssd_chunk_kernel", "ssd_pass_kernel")
 
 
-def profile_device(fn) -> dict:
+def kernel_grids(prof) -> list:
+    """(name, grid, duration in us) of each kernel of a profile, read from
+    its chrome trace (the launch grid is in each kernel's ``args``), which
+    is written under the git-ignored ``build/`` and removed."""
+    path = ROOT / "build" / f"profile_{os.getpid()}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        path.unlink()
+    return [(e["name"], tuple(e["args"]["grid"]), e.get("dur", 0.0)) for e in events
+            if e.get("cat") == "kernel" and "grid" in e.get("args", {})]
+
+
+def profile_device(fn, grids_k2=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's events
     (kernels, copies), their summed time by name, the time the device was
     busy (the union of their intervals), the span from the first event's
     start to the last one's end, and the summed time of K1's, K5's and
-    K7's kernels.  Empty when the profiler saw no device event."""
+    K7's kernels.  K1 and K2 launch the same kernels: with ``grids_k2``
+    (the grids of K2's launches on the path) a matmul kernel whose grid is
+    one of them counts as K2's (``batch_matmul_ms``, None where none
+    does).  Empty when the profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1535,10 +1628,42 @@ def profile_device(fn) -> dict:
             if any(k in name for k in names):
                 by_kernel[key] += t1 - t0
     span = end - spans[0][0]
-    return dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
-                idle_share=1.0 - busy / span if span > 0 else 0.0,
-                **{k: v / 1e3 for k, v in by_kernel.items()},
-                top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
+    out = dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
+               idle_share=1.0 - busy / span if span > 0 else 0.0,
+               **{k: v / 1e3 for k, v in by_kernel.items()},
+               top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
+    if grids_k2 is not None:
+        k2 = [dur for name, grid, dur in kernel_grids(prof)
+              if grid in grids_k2 and any(k in name for k in K1_KERNEL_NAMES)]
+        out.update(batch_matmul_ms=sum(k2) / 1e3 if k2 else None,
+                   batch_matmul_events=len(k2))
+        if k2:
+            out["matmul_ms"] -= out["batch_matmul_ms"]
+    return out
+
+
+def k2_grids(runs, keys):
+    """The grids of the tuned K2 launches of ``keys`` in ``runs``
+    (``check_tiles``), or None (K2's traced time not measured) where one of
+    them is also a grid of a K1 launch of ``keys``, which the trace could
+    not tell apart."""
+    from repro_torch.kernels import matmul as mm
+
+    grids = {"matmul": set(), "batch_matmul": set()}
+    for kern, snapped, shapes in (runs[k] for k in keys if k in runs):
+        if kern == "matmul":
+            (M, K), (_, N), B = shapes[0], shapes[1], 1
+        elif kern == "batch_matmul":
+            (B, M, K), N = shapes[0], shapes[1][2]
+        else:
+            continue
+        grids[kern].add(tuple(mm.launch_config(B, M, N, K, snapped)["grid"]))
+    shared = grids["matmul"] & grids["batch_matmul"]
+    if shared:
+        print(f"[trace] K1 and K2 share launch grids {sorted(shared)}: K2's traced "
+              "time is not measured")
+        return None
+    return grids["batch_matmul"]
 
 
 def snapshot_tick(sched) -> dict:
@@ -1555,22 +1680,26 @@ def snapshot_tick(sched) -> dict:
 
 
 def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
-                     norm_key: str) -> dict:
+                     norm_key: str, runs=None, params32=None) -> dict:
     """Run a snapshotted decode-only tick on copies of its arena, under
     ``ctx`` and with no context, and compare the logits; then time the same
     tick both ways on the host clock (median of 3, each on a fresh copy,
     under ``timing_ctx`` so ``ctx``'s counts stay the check's) and trace it
-    once each way with the profiler."""
+    once each way with the profiler (with ``runs``, the tuned tiles, K2's
+    kernels told from K1's by their grids).  With ``params32`` (an
+    MoE model) the logits are also compared on those f32 parameters and an
+    f32 copy of the arena, with each layer's routing flips."""
     import torch
 
     toks, valid = snap["toks"], snap["valid"]
 
-    def copy():
-        return {k: v.clone() for k, v in snap["cache"].items()}
+    def copy(dtype=None):
+        return {k: v.to(dtype) if dtype and v.is_floating_point() else v.clone()
+                for k, v in snap["cache"].items()}
 
-    def run(dispatch, cache):
+    def run(dispatch, cache, params=None):
         with torch.no_grad(), (dispatch if dispatch is not None else nullcontext()):
-            return sched.model.serve_step(sched.params, cache, toks, valid)[0]
+            return sched.model.serve_step(params or sched.params, cache, toks, valid)[0]
 
     def tick_ms(dispatch):
         ts = []
@@ -1583,37 +1712,60 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
             ts.append(time.perf_counter() - t0)
         return sorted(ts)[1] * 1e3
 
+    hits_before = dict(ctx.hits_by_key)
     hits0 = ctx.hits_by_key.get(attn_key, 0)
     norm0 = ctx.hits_by_key.get(norm_key, 0)
     counts0 = read_counts()
     variants0 = read_variants()
+    k2_variants0 = read_variants("batch_matmul")
     reasons0 = Counter(r for row in ctx.stats_by_key().values()
                        for r, n in row["reasons"].items() for _ in range(n))
     tuned = run(ctx, copy())
     torch.cuda.synchronize()
     hits = ctx.hits_by_key.get(attn_key, 0) - hits0
+    tick_keys = [k for k, n in ctx.hits_by_key.items() if n > hits_before.get(k, 0)]
     norm_hits = ctx.hits_by_key.get(norm_key, 0) - norm0
     launches = {k: n - counts0[k] for k, n in read_counts().items()}
     variants = variants_since(variants0)
+    k2_variants = variants_since(k2_variants0, "batch_matmul")
     reasons = Counter(r for row in ctx.stats_by_key().values()
                       for r, n in row["reasons"].items() for _ in range(n))
     plain = run(None, copy())
     live = valid.bool()
     d, p = tuned[live].float(), plain[live].float()
     rel = float((d - p).abs().max() / p.abs().max())
+    moe = {}
+    if params32 is not None:
+        # top-k routing is discontinuous: the MoE tick is held in f32, with
+        # the routing flips of each layer counted (phase 11 says why)
+        routes_t, routes_p = [], []
+        with moe_routes(routes_t):
+            d32 = run(timing_ctx, copy(torch.float32), params32)[live]
+        with moe_routes(routes_p):
+            p32 = run(None, copy(torch.float32), params32)[live]
+        moe = dict(f32_max_rel_err=float((d32 - p32).abs().max() / p32.abs().max()),
+                   f32_finite=bool(torch.isfinite(d32).all()),
+                   flips_by_layer=routing_flips(routes_t, routes_p))
     dispatched_ms, plain_ms = tick_ms(timing_ctx), tick_ms(None)
     caches = copy(), copy()
-    traced = profile_device(lambda: run(timing_ctx, caches[0]))
+    grids = k2_grids(runs, tick_keys) if runs is not None else None
+    traced = profile_device(lambda: run(timing_ctx, caches[0]), grids)
     traced_plain = profile_device(lambda: run(None, caches[1]))
     return dict(lanes=int(live.sum()), attention_decode_hits=hits,
                 rmsnorm_hits=norm_hits, launches=launches, matmul_variants=variants,
+                batch_matmul_variants=k2_variants,
                 new_reasons=dict(reasons - reasons0),
-                max_rel_err=rel, finite=bool(torch.isfinite(d).all()),
+                max_rel_err=rel, finite=bool(torch.isfinite(d).all()), **moe,
                 dispatched_ms=dispatched_ms, plain_ms=plain_ms,
                 profile=traced, profile_plain=traced_plain)
 
 
-def phase_serve(cfg, db, gen_seed: int = 0):
+def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve", rounds_per_task: int = 4):
+    """Phase 7 (smollm-135m) or 12 (olmoe-1b-7b): the model's decode tasks
+    tuned, its tuned tiles checked, 8 requests served on the paged arena
+    under the tuned context and with no context, then one decode-only tick
+    compared, timed and traced.  Returns the tasks, their bests, the
+    results, the tuning's launch counts and the checked tiles."""
     import numpy as np
     import torch
 
@@ -1621,20 +1773,33 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     from repro_torch.models import transformer as T
     from repro_torch.search.database import workload_key
 
-    def extract():
-        return repro_torch.extract_decode_tasks(
-            cfg, batch=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
-            chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=True,
-        )
+    moe = bool(cfg.moe_experts)
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="serve-tune")
+    def extract():
+        # olmoe: all 16 tasks the reference extracts (its three
+        # non-dispatchable contractions are tuning targets); smollm: the 13
+        # dispatchable ones
+        tasks = repro_torch.extract_decode_tasks(
+            cfg, batch=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
+            chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=not moe,
+        )
+        if moe and len(tasks) != MOE_DECODE_TASKS:
+            fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want the "
+                 f"reference's {MOE_DECODE_TASKS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
+                             rounds_per_task=rounds_per_task)
     tune_counts = read_counts()
-    # the decode contraction (M = 3) tunes on K2's split-K variant
     k2_tune = read_variants("batch_matmul")
-    print(f"[serve-tune] batch_matmul launches by variant while tuning: {k2_tune}")
-    if k2_tune["splitk"] <= 0 or k2_tune["splitk"] != tune_counts["batch_matmul"]:
+    print(f"[{tag}-tune] batch_matmul launches by variant while tuning: {k2_tune}")
+    # smollm's one K2 task, the decode contraction (M = 3), tunes on K2's
+    # split-K variant alone; olmoe's expert products also at m32
+    if not moe and (k2_tune["splitk"] <= 0
+                    or k2_tune["splitk"] != tune_counts["batch_matmul"]):
         fail(f"serving tuning launched K2 {tune_counts['batch_matmul']} times, by "
              f"variant {k2_tune}; want every launch splitk")
+    runs = check_tiles(tasks, db)
     attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
     norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
                             tokens=SERVE_SLOTS)
@@ -1644,7 +1809,7 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 97, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
-    print(f"[serve] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()}, "
+    print(f"[{tag}] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()}, "
           f"{SERVE_NEW_TOKENS} new tokens each, greedy")
     ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
     snap = {}
@@ -1666,7 +1831,10 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     # the check runs after both serving runs, so it perturbs neither their
     # times (its profiler trace included) nor the path's launch counts
     timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
-    check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key)
+    params32 = _tree_map(lambda t: t.float(), params) if moe else None
+    check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key,
+                             runs if moe else None, params32)
+    del params32
     done = sum(r.done for r in reqs)
     tokens = sum(len(r.generated) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
@@ -1692,54 +1860,63 @@ def phase_serve(cfg, db, gen_seed: int = 0):
         greedy_agreement=agree / max(total, 1), stats=stats, tick_check=check,
         launches=serve_counts, batch_matmul_tune_variants=k2_tune,
     )
-    print(f"[serve] completed {done}/{len(reqs)} requests, {tokens} tokens in "
+    print(f"[{tag}] completed {done}/{len(reqs)} requests, {tokens} tokens in "
           f"{wall:.2f} s ({s['decode_steps']} decode ticks, {s['mixed_ticks']} "
           f"mixed, {s['prefill_chunks']} prefill chunks)")
-    print(f"[serve] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
+    print(f"[{tag}] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
           f"{sched.prefill_tok_s:.1f} tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms "
           f"p95 {res['ttft_p95_s'] * 1e3:.1f} ms")
-    print(f"[serve] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
+    print(f"[{tag}] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
           f"{plain_sched.prefill_tok_s:.1f} tok/s, TTFT p50 "
           f"{res['plain_ttft_p50_s'] * 1e3:.1f} ms p95 "
           f"{res['plain_ttft_p95_s'] * 1e3:.1f} ms, wall {plain_wall:.2f} s")
-    print(f"[serve] dispatch stats {stats}")
+    print(f"[{tag}] dispatch stats {stats}")
     reasons = Counter()
     for key, row in by_key.items():
-        print(f"[serve]   {key}: hits {row['hits']} misses {row['misses']} "
+        print(f"[{tag}]   {key}: hits {row['hits']} misses {row['misses']} "
               f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
         reasons.update(row["reasons"])
-    print("[serve] decode-only tick check: "
+    print(f"[{tag}] decode-only tick check: "
           f"{ {k: v for k, v in check.items() if not k.startswith('profile')} }")
     for label in ("profile", "profile_plain"):
         prof = check[label]
         if not prof:
-            print(f"[serve] {label}: the profiler saw no device event (not measured)")
+            print(f"[{tag}] {label}: the profiler saw no device event (not measured)")
             continue
-        print(f"[serve] {label} of one decode-only tick: {prof['events']} device "
+        print(f"[{tag}] {label} of one decode-only tick: {prof['events']} device "
               f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
               f"span, idle share {prof['idle_share']:.3f}")
         for name, ms in prof["top_ms"].items():
-            print(f"[serve]   {ms:8.3f} ms  {name}")
+            print(f"[{tag}]   {ms:8.3f} ms  {name}")
     k1_ms = check["profile"].get("matmul_ms")
     k1_ms = "not measured" if k1_ms is None else f"{k1_ms:.3f} ms"
-    print(f"[serve] K1 in one decode-only tick: launches by variant "
+    print(f"[{tag}] K1 in one decode-only tick: launches by variant "
           f"{check['matmul_variants']}; device time {k1_ms} (traced; "
           f"{FMA_TICK_K1_MS} ms before the split-K variant)")
+    if moe:
+        k2_ms = check["profile"].get("batch_matmul_ms")
+        k2_ms = "not measured" if k2_ms is None else f"{k2_ms:.3f} ms"
+        print(f"[{tag}] K2 in one decode-only tick: launches by variant "
+              f"{check['batch_matmul_variants']}; device time {k2_ms} (traced, "
+              f"{check['profile'].get('batch_matmul_events')} kernels told by grid)")
     k5_ms = check["profile"].get("decode_attention_ms")
     k5_ms = "not measured" if k5_ms is None else f"{k5_ms:.3f} ms"
-    print(f"[serve] K5 in one decode-only tick: "
+    print(f"[{tag}] K5 in one decode-only tick: "
           f"{check['launches']['decode_flash_attention']} launches, device time "
           f"{k5_ms} (traced)")
-    print(f"[serve] one decode-only tick ({check['lanes']} lanes, host clock, median "
+    print(f"[{tag}] one decode-only tick ({check['lanes']} lanes, host clock, median "
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
           f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
           f"{NO_NORM_TICK_MS} ms)")
-    print(f"[serve] greedy tokens agreeing with the plain run: {agree}/{total} "
+    print(f"[{tag}] greedy tokens agreeing with the plain run: {agree}/{total} "
           f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
           f"f32 kernels)")
-    print(f"[serve] kernel launches while serving: {serve_counts}")
-    if done != len(reqs) or any(len(r.generated) != SERVE_NEW_TOKENS for r in reqs):
-        fail(f"{done} of {len(reqs)} requests finished with {SERVE_NEW_TOKENS} tokens")
+    print(f"[{tag}] kernel launches while serving: {serve_counts}")
+    for label, rs in (("dispatched", reqs), ("plain", plain_reqs)):
+        served = sum(r.done and len(r.generated) == SERVE_NEW_TOKENS for r in rs)
+        if served != len(rs):
+            fail(f"{label}: {served} of {len(rs)} requests finished with "
+                 f"{SERVE_NEW_TOKENS} tokens")
     if serve_counts["decode_flash_attention"] <= 0:
         fail("decode_flash_attention was not launched while serving")
     if serve_counts["matmul"] <= 0:
@@ -1749,9 +1926,13 @@ def phase_serve(cfg, db, gen_seed: int = 0):
     if check["matmul_variants"]["splitk"] != check["launches"]["matmul"]:
         fail(f"decode-only tick: K1 launches by variant {check['matmul_variants']}; "
              "every one should be splitk")
-    if check["launches"]["batch_matmul"]:
-        fail(f"decode-only tick: {check['launches']['batch_matmul']} K2 launches; the "
-             "tick's K1 device time counts matmul.cu's kernels as K1's")
+    # olmoe: the three expert products of every layer on K2's split-K
+    # variant; smollm: no K2 (its plain decode contractions ride in K5)
+    k2_want = 3 * cfg.n_layers if moe else 0
+    if check["launches"]["batch_matmul"] != k2_want or \
+            check["batch_matmul_variants"]["splitk"] != k2_want:
+        fail(f"decode-only tick: {check['launches']['batch_matmul']} K2 launches, by "
+             f"variant {check['batch_matmul_variants']}; want {k2_want} splitk")
     k5_tick = check["launches"]["decode_flash_attention"]
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
@@ -1761,9 +1942,18 @@ def phase_serve(cfg, db, gen_seed: int = 0):
              f"{2 * cfg.n_layers + 1}")
     if check["new_reasons"].get("lowering_failed") or check["new_reasons"].get("not_in_slice"):
         fail(f"decode-only tick reasons {check['new_reasons']}")
-    if not check["finite"] or check["max_rel_err"] > TOL_LOGITS_REL:
+    if moe:
+        flips = sum(check["flips_by_layer"])
+        print(f"[{tag}] decode-only tick in f32: max_rel_err "
+              f"{check['f32_max_rel_err']:.4e} (tol {TOL_LOGITS_REL:g} when no token's "
+              f"routing differs); routing flips by layer {check['flips_by_layer']}; "
+              f"bf16 max_rel_err {check['max_rel_err']:.4e} (reported, not gated)")
+        if not check["f32_finite"] or (not flips and check["f32_max_rel_err"] > TOL_LOGITS_REL):
+            fail(f"decode-only tick f32 logits rel err {check['f32_max_rel_err']}, "
+                 f"{flips} routing flips")
+    elif not check["finite"] or check["max_rel_err"] > TOL_LOGITS_REL:
         fail(f"decode-only tick logits rel err {check['max_rel_err']} > {TOL_LOGITS_REL}")
-    return tasks, best, res, tune_counts
+    return tasks, best, res, tune_counts, runs
 
 
 # ---------------------------------------------------------------------------
@@ -2009,6 +2199,205 @@ def phase_ssm_serve(cfg, db, gen_seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-12: the olmoe-1b-7b paths
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def moe_routes(record: list, inputs: list = None):
+    """While active, every ``layers.moe`` call appends its gate indices
+    (T, k) to ``record`` (and its input to ``inputs``): the same routing,
+    run again on the same input, plain (its einsum is never dispatched)."""
+    from repro_torch.models import layers as L
+
+    moe = L.moe
+
+    def spy(p, x, top_k, *args, **kw):
+        record.append(L.moe_route(p, x.reshape(-1, x.shape[-1]), top_k)[1])
+        if inputs is not None:
+            inputs.append(x.detach().clone())
+        return moe(p, x, top_k, *args, **kw)
+
+    L.moe = spy
+    try:
+        yield record
+    finally:
+        L.moe = moe
+
+
+def routing_flips(a: list, b: list) -> list:
+    """Per layer, the tokens whose set of chosen experts differs between
+    two runs' gate indices."""
+    if len(a) != len(b):
+        fail(f"routing recorded for {len(a)} and {len(b)} MoE calls")
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b)]
+
+
+def phase_moe_forward(cfg, db, gen_seed: int = 0):
+    """Phase 11: olmoe-1b-7b's 11 forward tasks tuned and their tiles
+    checked, then the full-width 16-layer bf16 forward under the tuned
+    context (K2 48 times, K3 16 times, all fma) against the same forward
+    with no context, traced; then the numerical check in f32: each MoE
+    layer dispatched against plain on the same input, and the whole
+    forward with each layer's routing flips counted."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    def extract():
+        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
+        if len(tasks) != MOE_FORWARD_TASKS:
+            fail(f"{cfg.name} forward extraction gave {len(tasks)} tasks, want the "
+                 f"reference's {MOE_FORWARD_TASKS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="moe-tune",
+                             rounds_per_task=MOE_ROUNDS_PER_TASK)
+    tune_counts = read_counts()
+    print(f"[moe-tune] batch_matmul launches by variant while tuning: "
+          f"{read_variants('batch_matmul')}")
+    runs = check_tiles(tasks, db)
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed + 1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
+
+    def timed(fn, n=3):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return out, sorted(ts)[len(ts) // 2] * 1e3
+
+    n_moe = 3 * cfg.n_layers  # wi, wg and wo of every layer
+    with torch.no_grad():
+        T.forward(cfg, params, toks)  # warm the plain path
+        plain, plain_ms = timed(lambda: T.forward(cfg, params, toks))
+        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        counts0 = read_counts()
+        k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
+        with ctx:
+            tuned = T.forward(cfg, params, toks)
+        torch.cuda.synchronize()
+        fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+        k1v = variants_since(k1v0)
+        k2v = variants_since(k2v0, "batch_matmul")
+        k3v = variants_since(k3v0, "flash_attention")
+        stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
+        with ctx:
+            _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+
+        def traced_fwd():
+            with timing_ctx:
+                T.forward(cfg, params, toks)
+
+        grids = k2_grids(runs, [k for k, row in by_key.items() if row["hits"]])
+        profiles = dict(dispatched=profile_device(traced_fwd, grids),
+                        plain=profile_device(lambda: T.forward(cfg, params, toks)))
+        bf16_rel = float((tuned.float() - plain.float()).abs().max()
+                         / plain.float().abs().max())
+        finite = bool(torch.isfinite(tuned.float()).all())
+        shape = tuple(tuned.shape)
+        del plain, tuned
+        # the numerical check, in f32 (the f32 parameters take 27.6 GB; the
+        # bf16 ones go first).  Routing runs plain in both runs of a layer,
+        # so on the same input it is the same by construction
+        params32 = _tree_map(lambda t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        routes_t, routes_p, inputs = [], [], []
+        with moe_routes(routes_t, inputs), repro_torch.DispatchContext(
+                db, tasks=tasks, backend="cuda"):
+            tuned32 = T.forward(cfg, params32, toks)
+        with moe_routes(routes_p):
+            plain32 = T.forward(cfg, params32, toks)
+        flips = routing_flips(routes_t, routes_p)
+        layer_rel = []
+        layer_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        for i, h2 in enumerate(inputs):
+            p = T._layer(params32["layers"], i)["moe"]
+            args = (cfg.moe_top_k, cfg.moe_capacity_factor)
+            want = L.moe(p, h2, *args, act=cfg.act)
+            n = read_counts()["batch_matmul"]
+            with layer_ctx:
+                got = L.moe(p, h2, *args, act=cfg.act)
+            torch.cuda.synchronize()
+            if read_counts()["batch_matmul"] - n != 3:
+                fail(f"{cfg.name} layer {i}: the dispatched MoE launched K2 "
+                     f"{read_counts()['batch_matmul'] - n} times, want 3")
+            layer_rel.append(float((got - want).abs().max() / want.abs().max()))
+        del params32, inputs
+        torch.cuda.empty_cache()
+    diff = (tuned32 - plain32).abs()
+    max_abs = float(diff.max())
+    rel = max_abs / float(plain32.abs().max())
+    reasons = dispatch_reasons(by_key)
+    k2_ms = profiles["dispatched"].get("batch_matmul_ms")
+    print(f"[moe-forward] logits {shape}: bf16 max_rel_err {bf16_rel:.4e} against the "
+          f"plain bf16 forward (reported, not gated: routing flips); in f32 max_abs_err "
+          f"{max_abs:.4e} max_rel_err {rel:.4e} (tol {TOL_LOGITS_REL:g} when no token's "
+          f"routing differs)")
+    print(f"[moe-forward] routing flips by layer between the dispatched and the plain "
+          f"f32 forward ({BATCH * SEQ} tokens, top-{cfg.moe_top_k} of "
+          f"{cfg.moe_experts}): {flips}")
+    print(f"[moe-forward] each MoE layer dispatched against plain on the same f32 "
+          f"input: max_rel_err by layer {[f'{r:.2e}' for r in layer_rel]} (tol "
+          f"{TOL_MOE_REL:.3e})")
+    print(f"[moe-forward] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms "
+          f"(median of 3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers)")
+    for key, row in by_key.items():
+        print(f"[moe-forward]   {key}: hits {row['hits']} misses {row['misses']} "
+              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[moe-forward] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[moe-forward] profile of one {label} forward: {prof['events']} device "
+              f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+              f"span, idle share {prof['idle_share']:.3f}")
+        for name, ms in prof["top_ms"].items():
+            print(f"[moe-forward]   {ms:8.3f} ms  {name}")
+    print(f"[moe-forward] kernel launches in one dispatched forward: {fwd_counts}; by "
+          f"variant K1 {k1v}, K2 {k2v}, K3 {k3v}; K2 traced "
+          + ("not measured" if k2_ms is None else
+             f"{k2_ms:.3f} ms over {profiles['dispatched']['batch_matmul_events']} "
+             "kernels told by grid"))
+    if not finite or shape != (BATCH, SEQ, cfg.vocab):
+        fail(f"{cfg.name} dispatched logits not finite or of shape {shape}")
+    if fwd_counts["batch_matmul"] != n_moe or sum(k2v.values()) != n_moe:
+        fail(f"{cfg.name} forward launched K2 {fwd_counts['batch_matmul']} times "
+             f"({k2v}), want {n_moe}")
+    if fwd_counts["flash_attention"] != cfg.n_layers or k3v.get("fma") != cfg.n_layers:
+        fail(f"{cfg.name} forward launched K3 {fwd_counts['flash_attention']} times "
+             f"({k3v}), want {cfg.n_layers} fma")
+    if k2_ms is not None and profiles["dispatched"]["batch_matmul_events"] != n_moe:
+        fail(f"{cfg.name}: {profiles['dispatched']['batch_matmul_events']} K2 kernels "
+             f"traced, want {n_moe}")
+    if reasons.get("lowering_failed"):
+        fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
+    if len(layer_rel) != cfg.n_layers or not all(math.isfinite(r) and r <= TOL_MOE_REL
+                                                 for r in layer_rel):
+        fail(f"{cfg.name} MoE layers dispatched against plain: {layer_rel}")
+    if not sum(flips) and not rel <= TOL_LOGITS_REL:
+        fail(f"{cfg.name} f32 logits rel err {rel} > {TOL_LOGITS_REL} with no routing flip")
+    res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
+               routing_flips=flips, moe_layer_max_rel_err=layer_rel,
+               plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
+               reasons=dict(reasons), profiles=profiles, launches=fwd_counts,
+               matmul_variants=k1v, batch_matmul_variants=k2v,
+               flash_attention_variants=k3v, batch_matmul_traced_ms=k2_ms,
+               tasks=len(tasks))
+    return tasks, best, res, tune_counts, fwd_counts, runs
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the operator path
 # ---------------------------------------------------------------------------
 
@@ -2116,8 +2505,9 @@ def main(argv=None) -> int:
 
     serve_db = Database()
     reset_counts()  # the serving path starts here
-    serve_tasks, serve_best, serve, serve_tune_counts = phase_serve(cfg, serve_db)
-    runs.update(check_tiles(serve_tasks, serve_db))
+    serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_serve(
+        cfg, serve_db)
+    runs.update(serve_runs)
     clock("phase 7")
 
     reset_counts()  # the operator path starts here
@@ -2158,6 +2548,26 @@ def main(argv=None) -> int:
         ssm_serve_runs, gen, ssm_cfg.vocab))
     clock("phase 10")
 
+    moe_cfg = get_config(MOE_ARCH)
+    moe_db = Database()
+    reset_counts()  # the olmoe forward path starts here
+    moe_tasks, moe_best, moe_fwd, moe_tune_counts, moe_fwd_counts, moe_runs = \
+        phase_moe_forward(moe_cfg, moe_db)
+    clock("phase 11")
+
+    moe_serve_db = Database()
+    reset_counts()  # the olmoe serving path starts here
+    moe_serve_tasks, moe_serve_best, moe_serve, moe_serve_tune_counts, moe_serve_runs = \
+        phase_serve(moe_cfg, moe_serve_db, tag="moe-serve",
+                    rounds_per_task=MOE_ROUNDS_PER_TASK)
+    clock("phase 12")
+    # phase 6 at olmoe's shapes: K2's expert products (m64, m32, m4), K3's
+    # fma at D 128, K5 at G 1 and D 128, K1's projections and unembed
+    torch.cuda.empty_cache()
+    rows.update(phase_timings(moe_tasks, moe_runs, gen, moe_cfg.vocab))
+    rows.update(phase_timings(moe_serve_tasks, moe_serve_runs, gen, moe_cfg.vocab))
+    clock("phase 6 (olmoe)")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -2165,6 +2575,9 @@ def main(argv=None) -> int:
         "mamba2_forward": {k: ssm_tune_counts[k] + ssm_fwd_counts[k] for k in KERNELS},
         "mamba2_serving": {k: ssm_serve_tune_counts[k] + ssm_serve["launches"][k]
                            for k in KERNELS},
+        "olmoe_forward": {k: moe_tune_counts[k] + moe_fwd_counts[k] for k in KERNELS},
+        "olmoe_serving": {k: moe_serve_tune_counts[k] + moe_serve["launches"][k]
+                          for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -2195,6 +2608,8 @@ def main(argv=None) -> int:
         entries.append(dict(
             name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
             launches=launches[k], forward_launches=fwd_counts[k],
+            olmoe_forward_launches=moe_fwd_counts[k],
+            olmoe_tick_launches=moe_serve["tick_check"]["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -2216,13 +2631,21 @@ def main(argv=None) -> int:
                            structural=structural, ssm_forward=ssm_fwd,
                            ssm_tune_best=ssm_best, ssm_serve=ssm_serve,
                            ssm_serve_tune_best=ssm_serve_best,
+                           moe_forward=moe_fwd, moe_tune_best=moe_best,
+                           moe_serve=moe_serve, moe_serve_tune_best=moe_serve_best,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,
                            matmul_variants=dict(
                                forward=fwd["matmul_variants"],
                                decode_tick=serve["tick_check"]["matmul_variants"],
-                               mamba2_forward=ssm_fwd["matmul_variants"])), f, indent=1)
+                               mamba2_forward=ssm_fwd["matmul_variants"],
+                               olmoe_forward=moe_fwd["matmul_variants"],
+                               olmoe_decode_tick=moe_serve["tick_check"]["matmul_variants"]),
+                           batch_matmul_variants=dict(
+                               olmoe_forward=moe_fwd["batch_matmul_variants"],
+                               olmoe_decode_tick=moe_serve["tick_check"][
+                                   "batch_matmul_variants"])), f, indent=1)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

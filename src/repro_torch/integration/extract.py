@@ -9,7 +9,8 @@ to it, mapped to registered tensor-program workloads:
 * ``dense_op`` / ``unembed`` -> ``dense`` (m = rows of x, the tied unembed
   read transposed);
 * ``bmm_op``                 -> ``batch_matmul`` (the attention score and
-  value contractions in canonical layout);
+  value contractions in canonical layout, and the MoE's three expert
+  products on its (E, C, D) buffer);
 * ``chunked_attention``      -> ``attention`` (see :func:`attention_sites`);
 * ``decode_attention``       -> ``attention_decode`` (see
   :func:`decode_attention_sites`), plus its plain path's two cache
@@ -22,9 +23,10 @@ to it, mapped to registered tensor-program workloads:
   the ``exp`` of its online softmax.  Not dispatchable: the site is a
   tuning target only, as in the reference;
 * the Mamba-2 SSD mixer's plain einsums and exps (its projections, its
-  chunked scan, its decode recurrence), which the reference writes as
-  ``jnp.einsum`` and ``jnp.exp`` and whose jaxpr its walk reads: the
-  mixer reports each with its operand shapes, and :func:`einsum_sites` /
+  chunked scan, its decode recurrence) and the MoE router's einsum and
+  softmax exp, which the reference writes as ``jnp.einsum`` and
+  ``jnp.exp`` (``jax.nn.softmax``) and whose jaxpr its walk reads: the
+  layer reports each with its operand shapes, and :func:`einsum_sites` /
   :func:`exp_site` derive the same ``dense`` / ``batch_matmul`` / ``sfm``
   sites.
 

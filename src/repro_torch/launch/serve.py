@@ -6,7 +6,8 @@
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises.  ``--arch mamba2-370m`` serves the state-space model
 (its SSD state in the cache; the prompt length must be at most 64 or a
-multiple of 64, the scan's chunk rule).
+multiple of 64, the scan's chunk rule); ``--arch olmoe-1b-7b`` and
+``--arch arctic-480b`` serve the mixture-of-experts smoke models.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ The tuned-kernel hooks keep the reference's names — ``dense_op``,
 active :class:`~repro_torch.integration.dispatch.DispatchContext` (or the
 extraction recorder) through ``sys.modules`` under ``repro_torch.…``.
 Attention is the chunked online-softmax over kv blocks, whose score and
-value contractions go through :func:`bmm_op`.  The Mamba-2 SSD mixer runs
-its chunked scan through ``kernels/ops.py:ssd`` (K7 on the card).
+value contractions go through :func:`bmm_op`, as do the three expert FFN
+products of the mixture-of-experts layer (:func:`moe`).  The Mamba-2 SSD
+mixer runs its chunked scan through ``kernels/ops.py:ssd`` (K7 on the
+card).
 """
 
 from __future__ import annotations
@@ -354,7 +356,7 @@ def qkv_proj(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
 
 
 # ---------------------------------------------------------------------------
-# MLP (gated)
+# MLP (gated) and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -384,6 +386,111 @@ def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = actf(h)
     return dense_op(h, p["wo"])
+
+
+def moe_init(gen, cfg, device="cpu", layers: int = 1) -> Dict:
+    """The reference's MoE subtree: ``router`` (D, E) f32, ``wi`` and
+    ``wg`` (E, D, F) bf16, ``wo`` (E, F, D) bf16, each stacked on L.  The
+    expert weights are drawn one layer at a time (no f32 copy of the whole
+    stack), at the fan-in scale 1/sqrt(D); ``wo`` at the reference's
+    1/sqrt(F)."""
+    D, E, F_ = cfg.d_model, cfg.moe_experts, cfg.d_ff
+    L = (layers,)
+    dev = torch.device(device)
+
+    def experts(shape, scale):
+        out = torch.empty(L + shape, dtype=torch.bfloat16, device=dev)
+        if dev.type != "meta":
+            for i in range(layers):
+                out[i] = _init(gen, shape, scale=scale, device=dev)
+        return out
+
+    return {
+        "router": _init(gen, L + (D, E), dtype=torch.float32, device=dev),
+        "wi": experts((E, D, F_), 1.0 / math.sqrt(D)),
+        "wg": experts((E, D, F_), 1.0 / math.sqrt(D)),
+        "wo": experts((E, F_, D), 1.0 / math.sqrt(F_)),
+    }
+
+
+def moe_route(p: Dict, xt: torch.Tensor, top_k: int):
+    """The router of :func:`moe` on tokens ``xt`` (T, D): f32 logits
+    through the plain einsum (as in the reference, no ``dense_op``), the
+    softmax with its exp recorded, then the top ``top_k`` experts of each
+    token, the lower index first on a tie as ``jax.lax.top_k`` takes them
+    (a stable descending sort), and their renormalised gates.  Returns
+    (gate_vals, gate_idx), each (T, k)."""
+    logits = _einsum("td,de->te", xt.float(), p["router"])
+    e = _exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return gate_vals, gate_idx
+
+
+def moe_capacity(T: int, top_k: int, E: int, capacity_factor: float) -> int:
+    """Slots an expert takes: ``max(int(cf·k·T/E), 4)``, or every token
+    (dropless) when ``capacity_factor <= 0``."""
+    if capacity_factor <= 0:
+        return T
+    return max(int(capacity_factor * top_k * T / E), 4)
+
+
+def moe(
+    p: Dict,
+    x: torch.Tensor,
+    top_k: int,
+    capacity_factor: float = 2.0,
+    act: str = "silu",
+) -> torch.Tensor:
+    """Capacity-bounded top-k MoE with scatter dispatch, step for step the
+    reference's ``moe``: route (:func:`moe_route`), place each (token,
+    slot) pair at its position in its expert's queue (a cumsum over the
+    pairs in token order), scatter the kept pairs into an (E, C, D)
+    buffer, run the expert FFNs as three :func:`bmm_op` calls (``wi``,
+    ``wg``, then ``wo`` after the activation; f32 accumulate cast back to
+    x's dtype), gather, weight and combine in f32.
+
+    A pair past its expert's capacity is dropped: the reference scatters it
+    to expert E (out of bounds, dropped) and gathers it back from there,
+    which JAX clamps to ``out_e[E-1, C-1]``, weighted by a gate of 0.  The
+    port writes the dropped pairs to a spare row of the buffer and clamps
+    the gather the same way, so a non-finite expert output reaches the
+    result as it does in the reference.  The k contributions of a token
+    are summed in f32 over a (T, k, D) view, with no atomics: the same
+    bits every run."""
+    B, S, D = x.shape
+    E = p["router"].shape[1]
+    T = B * S
+    xt = x.reshape(T, D)
+    gate_vals, gate_idx = moe_route(p, xt, top_k)
+    C = moe_capacity(T, top_k, E, capacity_factor)
+    eid = gate_idx.reshape(T * top_k)
+    # position of each (token, slot) pair within its expert's queue
+    flat = (eid[:, None] == torch.arange(E, device=x.device)).to(torch.int32)
+    pos = (torch.cumsum(flat, dim=0) - flat).gather(1, eid[:, None])[:, 0]
+    keep = pos < C
+    src = xt[:, None].expand(T, top_k, D).reshape(T * top_k, D)  # token-major
+    # kept pairs take distinct slots; every dropped one lands on the spare
+    # row E·C, which is cut off
+    dst = torch.where(keep, eid * C + pos, torch.full_like(eid, E * C))
+    buf = x.new_zeros((E * C + 1, D))
+    buf[dst] = src
+    buf = buf[: E * C].reshape(E, C, D)
+    h = bmm_op(buf, p["wi"]).to(buf.dtype)
+    g = bmm_op(buf, p["wg"]).to(buf.dtype)
+    h = _ACTS[act](g) * h
+    out_e = bmm_op(h, p["wo"]).to(buf.dtype)  # (E, C, D)
+    # the reference's gather at (E, C) for a dropped pair, clamped as JAX
+    # clamps an out-of-bounds gather
+    e_g = torch.where(keep, eid, torch.full_like(eid, E - 1))
+    p_g = torch.where(keep, pos, torch.full_like(pos, C - 1))
+    gathered = out_e.reshape(E * C, D)[e_g * C + p_g]
+    w = torch.where(keep, gate_vals.reshape(T * top_k), 0.0)
+    gathered = gathered * w[:, None].to(gathered.dtype)
+    out = gathered.float().reshape(T, top_k, D).sum(dim=1)
+    return out.reshape(B, S, D).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder LM of the dense (smollm, stablelm, qwen1.5, gemma-2), state-space
+"""Decoder LM of the dense (smollm, stablelm, qwen1.5, gemma-2),
+mixture-of-experts (olmoe; arctic with its dense residual MLP), state-space
 (mamba2) and hybrid (hymba) families.
 
 The port of the JAX package's ``models/transformer.py`` for those families
@@ -7,11 +8,13 @@ The port of the JAX package's ``models/transformer.py`` for those families
 reference's names, shapes and dtypes, with layers stacked along a leading L
 axis; the reference's ``lax.scan`` over the stack becomes a Python loop over
 it, and the per-layer window reaches each layer as a Python int.  A layer
-mixes with attention, the Mamba-2 SSD mixer, or both summed (hymba); an
-attention-free model has no KV cache, only the (L, B, H, N, P) f32 SSD
-state.  There is one card, so the reference's sharding constraints have no
-counterpart.  Mixture-of-experts, encoder-decoder and multimodal families
-belong to later slices and raise.
+mixes with attention, the Mamba-2 SSD mixer, or both summed (hymba), then
+runs its FFN: the gated MLP, or the capacity-bounded top-k MoE (plus the
+MLP on the same input with ``moe_dense_residual``), whose expert products
+dispatch through ``bmm_op``.  An attention-free model has no KV cache, only
+the (L, B, H, N, P) f32 SSD state.  There is one card, so the reference's
+sharding constraints have no counterpart.  Encoder-decoder and multimodal
+families belong to later slices and raise.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ def _check_family(cfg: ModelConfig) -> None:
     unsupported = [
         name
         for name, on in (
-            ("moe", cfg.moe_experts),
             ("encoder-decoder", cfg.enc_layers),
             ("mrope", cfg.mrope),
             ("embedding inputs", cfg.embedding_inputs),
@@ -44,7 +46,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not in this slice "
-            "(dense, state-space and hybrid families only)"
+            "(dense, mixture-of-experts, state-space and hybrid families only)"
         )
 
 
@@ -81,7 +83,10 @@ def init_params(
         layers["ssd"] = L.ssd_init(gen, cfg, device=dev, layers=Ln)
     if cfg.d_ff:
         layers["ln2"] = ones(Ln, D)
-        layers["mlp"] = L.mlp_init(gen, D, cfg.d_ff, device=dev, layers=Ln)
+        if cfg.moe_experts:
+            layers["moe"] = L.moe_init(gen, cfg, device=dev, layers=Ln)
+        if not cfg.moe_experts or cfg.moe_dense_residual:
+            layers["mlp"] = L.mlp_init(gen, D, cfg.d_ff, device=dev, layers=Ln)
         if cfg.post_norms:
             layers["post_ln2"] = ones(Ln, D)
     return {
@@ -166,10 +171,19 @@ def _attn_full(cfg, p, x, pos, window: Optional[int], chunk=1024):
 
 
 def _ffn(cfg: ModelConfig, p: Params, x):
-    """The FFN half of a layer, with its residual."""
+    """The FFN half of a layer, with its residual: the MLP, or the MoE plus
+    (arctic) the dense residual MLP on the same input.  Every serving
+    column, padding included, is routed and takes expert capacity, as in
+    the reference."""
     if cfg.d_ff:
         h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        f = L.mlp(p["mlp"], h2, cfg.act)
+        if cfg.moe_experts:
+            f = L.moe(p["moe"], h2, cfg.moe_top_k, cfg.moe_capacity_factor,
+                      act=cfg.act)
+            if cfg.moe_dense_residual:
+                f = f + L.mlp(p["mlp"], h2, cfg.act)
+        else:
+            f = L.mlp(p["mlp"], h2, cfg.act)
         if cfg.post_norms:
             f = L.rmsnorm(f, p["post_ln2"], cfg.norm_eps)
         x = x + f

@@ -8,10 +8,12 @@ installed.  TF32 is switched off for float32 matmuls
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` set to False), so the plain versions
 run in full float32.  Tolerances: 1e-3 for f32 matrix products with
-K <= 72 (different summation orders), 2e-3 with K up to 1536 (N(0, 1)
+K <= 72 (different summation orders), 2e-3 with K up to 2048 (N(0, 1)
 inputs, |y| up to ~200: ``TOL_MATMUL`` of ``chip_smoke.py``; the ``tc``
-variant's 3xTF32 keeps f32 accuracy), 1e-4 for attention, whose outputs
-are convex combinations of v.  K7 (ssd) against its plain version: 1e-5
+variant's 3xTF32 keeps f32 accuracy; the sum's rounding grows as
+sqrt(K)·2^-24·|y|, 1e-4 at K 2048), 1e-4 for attention, whose outputs
+are convex combinations of v.  The olmoe-smoke MoE layer dispatched on
+the card against the same layer plain: 1e-5 (f32, sums of 64 products).  K7 (ssd) against its plain version: 1e-5
 of the output's largest magnitude in f32 (sums of up to N + L terms in
 another order), 8e-3 of it with bf16 x/B/C (both round y to bf16 once: one
 ulp is 2^-8 of |y|); the f32 state within 1e-5 of its largest magnitude.
@@ -757,3 +759,126 @@ def test_cuda_ssd_refuses_what_the_kernel_does_not_take():
         ssd_k.ssd(x.half(), la, B, C)
     with pytest.raises(TypeError):
         ssd_k.ssd(x, la.double(), B, C)
+
+
+# ---------------------------------------------------------------------------
+# olmoe-1b-7b's shapes: the expert products (K2), attention at D 128
+# (K3's fma variant, K5 at G 1), and an MoE layer dispatched
+# ---------------------------------------------------------------------------
+
+
+def _replays_the_same_bits(fn):
+    """Two replays of one CUDA graph that captured ``fn`` give its eager
+    output's bits."""
+    want = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = fn()
+    for _ in range(2):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            return False
+    return True
+
+
+# the forward's expert products (m64: wi and wg, then wo) and a prefill
+# chunk's (m32), on the tc variant; the decode tick's (m4) on splitk in one
+# split and in 128 and 512
+@pytest.mark.parametrize("B,M,K,N,blocks,variant", [
+    (64, 64, 2048, 1024, (64, 64, 32), "tc"),
+    (64, 64, 1024, 2048, (32, 128, 32), "tc"),
+    (64, 32, 2048, 1024, (32, 64, 64), "tc"),
+    (64, 32, 1024, 2048, (32, 32, 32), "tc"),
+    (64, 4, 2048, 1024, (4, 1024, 2048), "splitk"),
+    (64, 4, 2048, 1024, (4, 64, 16), "splitk"),
+    (64, 4, 1024, 2048, (2, 32, 2), "splitk"),
+])
+def test_cuda_batch_matmul_at_the_olmoe_expert_shapes(B, M, K, N, blocks, variant):
+    dev = _cuda()
+    x, w = _k2_operands(dev, M + K, B, M, K, N, "c")
+    cfg = _k2_against_plain(x, w, blocks, variant)
+    if variant == "splitk":
+        assert cfg["splits"] == K // blocks[2]
+    assert _replays_the_same_bits(lambda: mm.batch_matmul(x, w, block_sizes=blocks))
+
+
+@pytest.mark.parametrize("S,bq,bkv", [(256, 32, 32), (256, 64, 64), (256, 16, 128),
+                                      (96, 32, 32), (96, 24, 48), (96, 96, 8)])
+def test_cuda_flash_attention_fma_at_head_dim_128(S, bq, bkv):
+    # olmoe's attention: 16 heads of 128 over 16 kv heads, causal; tc takes
+    # no D above 64, so every tile is fma
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, S + bq + bkv, 16, 16, S, D=128)
+    _k3_against_plain(q, k, v, bq, bkv, "fma", causal=True)
+    assert _replays_the_same_bits(
+        lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv))
+
+
+@pytest.mark.parametrize("block_kv", [8, 16, 64, 128])
+def test_cuda_decode_attention_at_head_dim_128_group_1(block_kv):
+    # olmoe's decode tick: 4 slots, 16 kv heads of one query head, D 128
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(block_kv)
+    B, KVH, G, T, D = 4, 16, 1, 256, 128
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    k = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    v = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    bias = _bias([T, 1, 77, 200], T, dev)
+    got = fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert fa.decode_flash_attention.last_launch == fa.decode_launch_config(
+        B, KVH, G, T, D, block_kv, repro_torch.kernels.sm_count(dev))
+    assert float((got - tref.decode_attention(q, k, v, bias)).abs().max()) < 1e-4
+    assert _replays_the_same_bits(
+        lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
+
+
+def test_cuda_moe_layer_dispatched_against_plain():
+    """One olmoe-smoke MoE layer, f32, its two expert-product tasks tuned on
+    the card: under DispatchContext K2 runs its three products and the
+    output is the plain layer's within 1e-5; routing runs plain in both,
+    so the experts are the same.  A graph replay gives the same bits."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.integration.dispatch import DispatchContext
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as TT
+    from repro_torch.search.database import Database
+
+    dev = _cuda()
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    S = 16
+    tasks = [t for t in repro_torch.extract_tasks(cfg, batch=1, seq=S, min_task_elems=1)
+             if t.key.startswith(f"batch_matmul/b={cfg.moe_experts}/")]
+    assert len(tasks) == 2
+    db = Database()
+    repro_torch.TaskScheduler(tasks, database=db, config=repro_torch.TuneConfig(
+        search=SearchConfig(max_trials=4, init_random=2, population=4,
+                            measure_per_round=2),
+        runner_spec="cached+local", backend="cuda", device="cuda",
+    )).tune(total_rounds=2)
+    params = TT.init_params(cfg, seed=0, device="cuda")
+    p = {k: t.float() for k, t in TT._layer(params["layers"], 0)["moe"].items()}
+    g = torch.Generator(device=dev).manual_seed(3)
+    h2 = torch.randn(1, S, cfg.d_model, generator=g, device=dev)
+
+    def layer():
+        return TL.moe(p, h2, cfg.moe_top_k, cfg.moe_capacity_factor, act=cfg.act)
+
+    want = layer()
+    ctx = DispatchContext(db, tasks=tasks, backend="cuda")
+    n = mm.batch_matmul.launches
+    with ctx:
+        got = layer()
+        torch.cuda.synchronize()
+        assert mm.batch_matmul.launches == n + 3
+        assert _replays_the_same_bits(layer)
+    assert sum(ctx.hits_by_key.values()) >= 3
+    err = float((got - want).abs().max() / want.abs().max())
+    assert torch.isfinite(got).all() and err < 1e-5
