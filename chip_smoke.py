@@ -48,9 +48,11 @@ Phases, in order; a failing phase makes the run exit non-zero:
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
-   ``cuda`` backend through ``cached+local`` with a small budget; rmsnorm
-   goes through the structural lowering (``torch-fallback``), sfm through
-   K4;
+   ``cuda`` backend through ``cached+local`` with a small budget (a task
+   left with no tile the card runs gets up to ``COLD_SEARCHES`` further
+   searches with fresh seeds; every task must reach a finite best, on every
+   path); rmsnorm goes through the structural lowering (``torch-fallback``),
+   sfm through K4;
 5. the forward path, part two: the full-width 30-layer bf16 forward under
    ``DispatchContext`` (rmsnorm dispatched at all 61 sites, K3's 30 launches
    all tc, traced) against the same forward with no context;
@@ -102,18 +104,36 @@ Phases, in order; a failing phase makes the run exit non-zero:
    requests on the paged arena under the tuned context and with no
    context; one decode-only tick launches K2 48 times, all ``splitk``, and
    K5 16 times, and is held against the plain tick in f32 as in phase 11;
-   then phase 6 at olmoe's shapes.
+   then phase 6 at olmoe's shapes;
+13. the smollm-135m training path, at the launcher's batch 8, seq 128:
+   extract the reference's 10 tasks and tune them at half the budget; one
+   ``make_train_step`` under ``DispatchContext`` against the same step with
+   no context on f32 parameters (the loss within ``TOL_TRAIN_LOSS_REL``,
+   every gradient leaf within ``TOL_TRAIN_GRAD`` of its max |g|, the
+   updated parameters within 2·lr); its launches (K1 421, K3 60 ``tc``:
+   remat runs each layer's forward twice) and hits by key; bf16 steps
+   timed and one dispatched step traced; phase 6 at the step's shapes; then
+   ``launch/train.py``'s ``main`` at full width for 20 steps with a
+   checkpoint every 10, whose loss must fall, resumed from its step-10
+   checkpoint and held against the uninterrupted run (``TOL_RESUME_REL``),
+   with the checkpoint's round trip and the resumed batches bitwise;
+14. the mamba2-370m training path: one step's loss and gradients with the
+   scan on K7 (96 launches; backward the plain scan's autograd) against
+   the plain scan on f32 parameters, the six leaves that reach the loss
+   only through the scan named and non-zero; then 4 bf16 steps on one
+   batch, whose loss must fall.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the seven paths (forward: phases 4-5; serving: phase 7; operators:
+each of the nine paths (forward: phases 4-5; serving: phase 7; operators:
 phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10; olmoe forward:
-phase 11; olmoe serving: phase 12) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
+phase 11; olmoe serving: phase 12; smollm training: phase 13; mamba2
+training: phase 14) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
 ``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
 serving path's tuning (every one ``splitk``), the olmoe forward and its
 decode-only tick (every one ``splitk``), K3's for phase 3 (both variants),
-the tuned forward (every one ``tc``) and the olmoe forward (every one
-``fma``).  TF32 is off for float32 matmuls in
+the tuned forward (every one ``tc``), the olmoe forward (every one
+``fma``) and the dispatched train step (every one ``tc``).  TF32 is off for float32 matmuls in
 this script (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set to False), so the plain
 versions run in full float32.  The second-to-last line is a JSON object
@@ -123,6 +143,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -195,6 +216,30 @@ MOE_ROUNDS_PER_TASK = 2
 # relative rounding error of one f32 dot product of 2048 terms (the expert
 # products reduce over d_model 2048, then d_ff 1024), summed in another order
 TOL_MOE_REL = 2048 * 2.0**-24
+
+# the training paths (phases 13 and 14): the launcher's defaults, batch 8,
+# seq 128, lr 3e-4; smollm-135m's 10 forward tasks tuned at half the other
+# paths' budget.  The dispatched step (f32 kernels, f32 parameters) against
+# the plain one: the loss within 1e-4 relative and each gradient leaf within
+# 1e-3 of its max |g| (f32 sums in other orders through 30 or 48 layers and
+# their backward); the updated parameters within 2·lr, since the first AdamW
+# step moves each element by about sign(g)·lr and a rounding-level gradient
+# may flip sign.  A resumed launcher run against an uninterrupted one: the
+# loss sequence within 1e-3 relative (backward on the card need not be
+# deterministic)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+TRAIN_TASKS = 10
+TRAIN_LR = 3e-4
+TOL_TRAIN_LOSS_REL = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+LAUNCHER_STEPS = 20
+LAUNCHER_CKPT_EVERY = 10
+TOL_RESUME_REL = 1e-3
+SSM_TRAIN_STEPS = 4
+# the leaves of the SSD mixer that reach the loss only through the scan
+SSD_SCAN_LEAVES = ("wx", "wB", "wC", "wdt", "A_log", "dt_bias")
 
 
 def fail(msg: str) -> None:
@@ -1015,10 +1060,26 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
     best = sched.tune(total_rounds=rounds_per_task * len(tasks))
     print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
           f"runner stats {sched.runner.stats()}")
+    searches = list(sched.searches)
+    # a task whose space the card mostly rejects (smollm's unembed at m1024
+    # needs bm·bn·bk >= 110592 under the grid-steps cap; its untuned tile
+    # has 1536·64) can go stale before one candidate runs; it gets further
+    # searches with fresh seeds, each as long as the scheduler grants a
+    # cold task
+    for seed in range(1, COLD_SEARCHES + 1):
+        cold = [t for t in tasks if not math.isfinite(best[t.key])]
+        if not cold:
+            break
+        print(f"[{tag}] no tile the card runs yet for {[t.key for t in cold]}: "
+              f"search seed {seed}")
+        retry = repro_torch.TaskScheduler(cold, database=db, config=dataclasses.replace(
+            config, search=dataclasses.replace(search, seed=seed)))
+        best.update(retry.tune(total_rounds=(config.patience + 1) * len(cold)))
+        searches += retry.searches
     for key, lat in best.items():
         if not math.isfinite(lat):
             fail(f"task {key} has no finite best latency")
-    reasons = Counter(failure_reason(err) for search in sched.searches
+    reasons = Counter(failure_reason(err) for search in searches
                       for _, err in search.errors)
     print(f"[{tag}] failed candidates by reason: {dict(reasons)}")
     others = [r for r in reasons if not r.startswith(EXPECTED_FAILURES)]
@@ -1030,6 +1091,8 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
 # what a candidate may fail with: a tile the card cannot run, a trace the
 # validator refuses, or a first call over the runner's timeout
 EXPECTED_FAILURES = ("rejected (", "invalid trace", "timeout")
+# further searches for a task left with no tile the card runs
+COLD_SEARCHES = 3
 
 
 def failure_reason(err: str) -> str:
@@ -1598,8 +1661,8 @@ def profile_device(fn, grids_k2=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's events
     (kernels, copies), their summed time by name, the time the device was
     busy (the union of their intervals), the span from the first event's
-    start to the last one's end, and the summed time of K1's, K5's and
-    K7's kernels.  K1 and K2 launch the same kernels: with ``grids_k2``
+    start to the last one's end, and the summed time of K1's, K3's, K5's
+    and K7's kernels.  K1 and K2 launch the same kernels: with ``grids_k2``
     (the grids of K2's launches on the path) a matmul kernel whose grid is
     one of them counts as K2's (``batch_matmul_ms``, None where none
     does).  Empty when the profiler saw no device event."""
@@ -1618,7 +1681,7 @@ def profile_device(fn, grids_k2=None) -> dict:
     busy, end = 0.0, spans[0][0]
     by_name = Counter()
     groups = {"matmul_ms": K1_KERNEL_NAMES, "decode_attention_ms": K5_KERNEL_NAMES,
-              "ssd_ms": K7_KERNEL_NAMES}
+              "ssd_ms": K7_KERNEL_NAMES, "flash_attention_ms": K3_KERNEL_NAMES}
     by_kernel = dict.fromkeys(groups, 0.0)
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
@@ -2398,6 +2461,319 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phases 13 and 14: the training paths
+# ---------------------------------------------------------------------------
+
+
+def _device_batch(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each leaf's max |got - want| over its max |want| (the tolerance's
+    scale), by path."""
+    from repro_torch.training import checkpoint as ckpt
+
+    want = dict(ckpt._flatten_with_paths(want))
+    return {path: float((g.float() - want[path].float()).abs().max()
+                        / want[path].float().abs().max().clamp_min(1e-30))
+            for path, g in ckpt._flatten_with_paths(got)}
+
+
+def update_errors(got: dict, want: dict) -> tuple:
+    """(max |got - want| over the parameter leaves, elements off by more
+    than 1e-6, elements in all)."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    worst, far, total = 0.0, 0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-6).sum())
+        total += d.numel()
+    return worst, far, total
+
+
+def step_wall_ms(fn, n: int = 3) -> float:
+    import torch
+
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2] * 1e3
+
+
+def phase_train(cfg, db, gen, gen_seed: int = 0):
+    """Phase 13: smollm-135m's train step at batch 8, seq 128.  Its 10
+    forward tasks tuned at half the budget and their tiles checked; one
+    step under the tuned context against the same step with no context on
+    f32 parameters (loss, every gradient leaf, the updated parameters); the
+    dispatched step's launches and hits, the forward's sites twice (remat
+    recomputes every layer) and the final norm and unembed once; bf16
+    steps timed, one dispatched step traced; K1 and K3 timed at the step's
+    shapes; then the launcher's ``main`` at full width for 20 steps with a
+    checkpoint every 10, and again from its step-10 checkpoint."""
+    import shutil
+
+    import torch
+
+    import repro_torch
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.search.database import workload_key
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import OptConfig, adamw_init, schedule, tree_leaves
+    from repro_torch.training.train_loop import make_train_step, value_and_grad
+
+    def extract():
+        tasks = repro_torch.extract_tasks(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+        keys = {t.key for t in tasks}
+        sfm = f"sfm/m={TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ}/n={TRAIN_SEQ}"
+        if len(tasks) != TRAIN_TASKS or sfm not in keys:
+            fail(f"training extraction gave {sorted(keys)}; want the reference's "
+                 f"{TRAIN_TASKS} tasks with {sfm}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="train-tune",
+                             rounds_per_task=MOE_ROUNDS_PER_TASK)
+    tune_counts = read_counts()
+    runs = check_tiles(tasks, db)
+    model = build_model(cfg)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=LAUNCHER_STEPS)
+    lr1 = float(schedule(opt, 1))  # the first step's learning rate
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    params32 = _tree_map(lambda t: t.float(), params)
+    pipe = SyntheticTokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=gen_seed)
+    batch = _device_batch(pipe.batch_at(0))
+    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+
+    # one dispatched step on f32 parameters, counted
+    step_d = make_train_step(model, opt, dispatch=ctx)
+    step_p = make_train_step(model, opt)
+    counts0, hits0 = read_counts(), dict(ctx.hits_by_key)
+    k1v0, k3v0 = read_variants(), read_variants("flash_attention")
+    new_d, _, m_d = step_d(params32, adamw_init(params32), batch)
+    torch.cuda.synchronize()
+    step_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    k1v, k3v = variants_since(k1v0), variants_since(k3v0, "flash_attention")
+    step_hits = {k: n - hits0.get(k, 0) for k, n in ctx.hits_by_key.items()}
+    new_p, _, m_p = step_p(params32, adamw_init(params32), batch)
+    loss_d, loss_p = float(m_d["loss"]), float(m_p["loss"])
+    loss_rel = abs(loss_d - loss_p) / abs(loss_p)
+    worst, far, total = update_errors(new_d, new_p)
+    del new_d, new_p
+    # the same step's gradients, leaf by leaf
+    with ctx:
+        _, g_d = value_and_grad(model.loss, params32, batch)
+    _, g_p = value_and_grad(model.loss, params32, batch)
+    errs = grad_errors(g_d, g_p)
+    del g_d, g_p, params32
+    torch.cuda.empty_cache()
+
+    # bf16 steps, timed; one dispatched step traced
+    opt_state = adamw_init(params)
+    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    step_t = make_train_step(model, opt, dispatch=timing_ctx)
+    step_t(params, opt_state, batch)  # warm both paths
+    step_p(params, opt_state, batch)
+    dispatched_ms = step_wall_ms(lambda: step_t(params, opt_state, batch))
+    plain_ms = step_wall_ms(lambda: step_p(params, opt_state, batch))
+    profiles = dict(dispatched=profile_device(lambda: step_t(params, opt_state, batch)),
+                    plain=profile_device(lambda: step_p(params, opt_state, batch)))
+    del opt_state
+    rows = phase_timings(tasks, runs, gen, cfg.vocab)
+
+    # the launcher at full width, then resumed from its step-10 checkpoint
+    ck_dir = ROOT / "build" / f"train_ckpt_{os.getpid()}"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    args = ["--steps", str(LAUNCHER_STEPS), "--ckpt-every", str(LAUNCHER_CKPT_EVERY),
+            "--ckpt-dir", str(ck_dir), "--log-every", "5"]
+    try:
+        t0 = time.perf_counter()
+        full = launcher.main(args)
+        full_s = time.perf_counter() - t0
+        saved = sorted(os.listdir(ck_dir))
+        # a run cut after step 10: the step-20 checkpoint was never written
+        shutil.rmtree(ck_dir / f"step_{LAUNCHER_STEPS}")
+        (ck_dir / "LATEST").write_text(str(LAUNCHER_CKPT_EVERY))
+        resumed = launcher.main(args)
+        # the save/restore round trip of the resumed run's last state
+        _, state, _ = ckpt.restore(str(ck_dir), step=LAUNCHER_STEPS, device="cuda")
+        ckpt.save(str(ck_dir), LAUNCHER_STEPS + 1, state)
+        _, again, _ = ckpt.restore(str(ck_dir), step=LAUNCHER_STEPS + 1, device="cuda")
+        round_trip = all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(tree_leaves(state), tree_leaves(again)))
+        n_leaves = len(tree_leaves(state))
+        del state, again
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    batches_same = all(pipe.batch_at(k)["tokens"].tobytes()
+                       == next(pipe.iter_from(k))["tokens"].tobytes() for k in (10, 15))
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[LAUNCHER_CKPT_EVERY:]))
+    head, tail = full[:5], full[-5:]
+
+    dense = {t.key: int(t.weight) for t in tasks if t.key.startswith("dense/")}
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
+                            tokens=TRAIN_BATCH * TRAIN_SEQ)
+    unembed_key = workload_key("dense", k=cfg.d_model, m=TRAIN_BATCH * TRAIN_SEQ, n=cfg.vocab)
+    attn_key = next(t.key for t in tasks if t.key.startswith("attention/"))
+    # the forward's sites twice (the forward, remat's recompute), the final
+    # norm and the unembed, outside the checkpointed layers, once
+    want_hits = {k: 2 * w - (k == unembed_key) for k, w in dense.items()}
+    want_hits[norm_key] = 2 * (2 * cfg.n_layers) + 1
+    want_hits[attn_key] = 2 * cfg.n_layers
+    n_k1 = sum(want_hits[k] for k in dense)
+    print(f"[train] one step at batch {TRAIN_BATCH} seq {TRAIN_SEQ}, f32 parameters: "
+          f"loss dispatched {loss_d:.6f} plain {loss_p:.6f} rel {loss_rel:.3e} (tol "
+          f"{TOL_TRAIN_LOSS_REL:g})")
+    print(f"[train] gradient max err by leaf over the leaf's max |g| (tol "
+          f"{TOL_TRAIN_GRAD:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    print(f"[train] updated parameters: max |dispatched - plain| {worst:.3e} (tol 2·lr = "
+          f"{2 * lr1:.1e}); {far} of {total} elements differ by more than 1e-6")
+    print(f"[train] launches in one dispatched step: {step_counts}; K1 by variant {k1v}, "
+          f"K3 by variant {k3v}")
+    for key, n in sorted(step_hits.items()):
+        print(f"[train]   {key}: {n} hits in one step (want {want_hits.get(key)})")
+    print(f"[train] bf16 step wall ms (median of 3): dispatched {dispatched_ms:.2f}, "
+          f"plain {plain_ms:.2f}")
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[train] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[train] profile of one {label} bf16 step: {prof['events']} device events, "
+              f"busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms span, idle "
+              f"share {prof['idle_share']:.3f}; K1 {prof['matmul_ms']:.3f} ms, K3 "
+              f"{prof['flash_attention_ms']:.3f} ms traced")
+        for name, ms in prof["top_ms"].items():
+            print(f"[train]   {ms:8.3f} ms  {name}")
+    print(f"[train] launcher: {LAUNCHER_STEPS} steps in {full_s:.1f} s, checkpoints "
+          f"{saved}; losses {[round(x, 4) for x in full]}")
+    print(f"[train] resumed from step {LAUNCHER_CKPT_EVERY}: losses "
+          f"{[round(x, 4) for x in resumed]}; max rel diff to the uninterrupted run "
+          f"{resume_rel:.3e} (tol {TOL_RESUME_REL:g}); save/restore of {n_leaves} leaves "
+          f"bitwise {round_trip}; resumed batches bitwise {batches_same}")
+    bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN_GRAD}
+    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad:
+        fail(f"{cfg.name} dispatched step: loss rel {loss_rel}, gradient leaves out of "
+             f"tolerance {bad}")
+    if not worst <= 2 * lr1:
+        fail(f"{cfg.name} dispatched step: parameters {worst} from plain > 2·lr")
+    if step_counts["matmul"] != n_k1 or step_counts["flash_attention"] != 2 * cfg.n_layers \
+            or k3v.get("tc") != 2 * cfg.n_layers:
+        fail(f"{cfg.name} dispatched step launched K1 {step_counts['matmul']} times (want "
+             f"{n_k1}) and K3 {k3v} (want {2 * cfg.n_layers} tc)")
+    if step_hits != want_hits:
+        fail(f"{cfg.name} dispatched step hits {step_hits}, want {want_hits}")
+    if not all(math.isfinite(x) for x in full) or not sum(tail) < sum(head):
+        fail(f"{cfg.name} launcher losses do not fall: {full}")
+    if len(resumed) != LAUNCHER_STEPS - LAUNCHER_CKPT_EVERY or not resume_rel <= TOL_RESUME_REL:
+        fail(f"{cfg.name} resumed losses {resumed} against {full[LAUNCHER_CKPT_EVERY:]}")
+    if not (round_trip and batches_same):
+        fail(f"{cfg.name}: checkpoint round trip bitwise {round_trip}, resumed batches "
+             f"bitwise {batches_same}")
+    res = dict(loss_dispatched=loss_d, loss_plain=loss_p, loss_rel=loss_rel,
+               grad_rel_err=errs, update_max_abs=worst, update_far=far,
+               update_elements=total, lr=lr1, launches=step_counts,
+               matmul_variants=k1v, flash_attention_variants=k3v, hits=step_hits,
+               dispatched_ms=dispatched_ms, plain_ms=plain_ms, profiles=profiles,
+               launcher_losses=full, resumed_losses=resumed, resume_max_rel=resume_rel,
+               launcher_s=full_s, checkpoint_round_trip=round_trip, tasks=len(tasks))
+    return tasks, best, res, tune_counts, step_counts, rows
+
+
+def phase_ssm_train(cfg, gen_seed: int = 0):
+    """Phase 14: mamba2-370m's train step at batch 8, seq 128.  One step's
+    loss and gradients with the scan on K7 (forward the kernel, backward the
+    plain scan's autograd) against the plain scan, on f32 parameters; the
+    six leaves that reach the loss only through the scan named; K7's
+    launches in one step, the forward's 48 twice (remat); then a few bf16
+    steps on one batch, whose loss must fall."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import OptConfig, adamw_init, adamw_update, schedule
+    from repro_torch.training.train_loop import make_train_step, value_and_grad
+
+    model = build_model(cfg)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
+    lr1 = float(schedule(opt, 1))
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    params32 = _tree_map(lambda t: t.float(), params)
+    batch = _device_batch(SyntheticTokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                                 seed=gen_seed).batch_at(0))
+
+    def loss_on(backend):
+        return lambda p, b: T.loss_fn(cfg, p, b, ssd_backend=backend)
+
+    n0 = read_counts()["ssd"]
+    loss_k, g_k = value_and_grad(loss_on("cuda"), params32, batch)
+    torch.cuda.synchronize()
+    k7 = read_counts()["ssd"] - n0
+    loss_t, g_t = value_and_grad(loss_on("torch"), params32, batch)
+    loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
+    errs = grad_errors(g_k, g_t)
+    scan = {name: (errs[f"layers/ssd/{name}"], float(g_k["layers"]["ssd"][name].abs().max()))
+            for name in SSD_SCAN_LEAVES}
+    upd_k, _ = adamw_update(opt, g_k, adamw_init(params32), params32)
+    upd_t, _ = adamw_update(opt, g_t, adamw_init(params32), params32)
+    worst, far, total = update_errors(upd_k, upd_t)
+    del g_k, g_t, upd_k, upd_t, params32
+    torch.cuda.empty_cache()
+
+    # bf16 steps on one batch (K7 with its repaired gradient)
+    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=SSM_TRAIN_STEPS))
+    state, losses, walls = (params, adamw_init(params)), [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(*state, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        state = (p, o)
+    del state, p, o
+    print(f"[ssm-train] one step at batch {TRAIN_BATCH} seq {TRAIN_SEQ}, f32 parameters: "
+          f"loss K7 {float(loss_k):.6f} plain scan {float(loss_t):.6f} rel "
+          f"{loss_rel:.3e} (tol {TOL_TRAIN_LOSS_REL:g}); K7 launched {k7} times")
+    print(f"[ssm-train] gradient max err by leaf over the leaf's max |g| (tol "
+          f"{TOL_TRAIN_GRAD:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    print("[ssm-train] the leaves that reach the loss only through the scan: "
+          + ", ".join(f"{k} err {e:.2e} max |g| {g:.3e}" for k, (e, g) in scan.items()))
+    print(f"[ssm-train] updated parameters: max |K7 - plain| {worst:.3e} (tol 2·lr = "
+          f"{2 * lr1:.1e}); {far} of {total} elements differ by more than 1e-6")
+    print(f"[ssm-train] {SSM_TRAIN_STEPS} bf16 steps on one batch: losses "
+          f"{[round(x, 4) for x in losses]}; wall ms {[round(w, 2) for w in walls]}")
+    bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN_GRAD}
+    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad:
+        fail(f"{cfg.name} K7 step: loss rel {loss_rel}, gradient leaves out of "
+             f"tolerance {bad}")
+    if not all(g > 0 for _, g in scan.values()):
+        fail(f"{cfg.name}: a scan leaf has no gradient: {scan}")
+    if not worst <= 2 * lr1:
+        fail(f"{cfg.name} K7 step: parameters {worst} from plain > 2·lr")
+    if k7 != 2 * cfg.n_layers:
+        fail(f"{cfg.name} step launched K7 {k7} times, want {2 * cfg.n_layers}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{cfg.name} bf16 losses do not fall: {losses}")
+    return dict(loss_k7=float(loss_k), loss_plain=float(loss_t), loss_rel=loss_rel,
+                grad_rel_err=errs, scan_leaves=scan, update_max_abs=worst,
+                update_far=far, update_elements=total, lr=lr1, k7_launches=k7,
+                bf16_losses=losses, bf16_step_wall_ms=walls)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the operator path
 # ---------------------------------------------------------------------------
 
@@ -2568,6 +2944,19 @@ def main(argv=None) -> int:
     rows.update(phase_timings(moe_serve_tasks, moe_serve_runs, gen, moe_cfg.vocab))
     clock("phase 6 (olmoe)")
 
+    torch.cuda.empty_cache()
+    train_cfg = get_config(TRAIN_ARCH)
+    train_db = Database()
+    reset_counts()  # the smollm training path starts here
+    _, train_best, train, train_tune_counts, train_counts, train_rows = \
+        phase_train(train_cfg, train_db, gen)
+    clock("phase 13")
+    torch.cuda.empty_cache()
+    reset_counts()  # the mamba2 training path starts here
+    ssm_train = phase_ssm_train(ssm_cfg)
+    ssm_train_counts = read_counts()
+    clock("phase 14")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -2578,6 +2967,8 @@ def main(argv=None) -> int:
         "olmoe_forward": {k: moe_tune_counts[k] + moe_fwd_counts[k] for k in KERNELS},
         "olmoe_serving": {k: moe_serve_tune_counts[k] + moe_serve["launches"][k]
                           for k in KERNELS},
+        "smollm_train": {k: train_tune_counts[k] + train_counts[k] for k in KERNELS},
+        "mamba2_train": ssm_train_counts,
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -2610,6 +3001,8 @@ def main(argv=None) -> int:
             launches=launches[k], forward_launches=fwd_counts[k],
             olmoe_forward_launches=moe_fwd_counts[k],
             olmoe_tick_launches=moe_serve["tick_check"]["launches"][k],
+            smollm_train_step_launches=train_counts[k],
+            mamba2_train_step_launches=ssm_train["k7_launches"] if k == "ssd" else 0,
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -2633,6 +3026,8 @@ def main(argv=None) -> int:
                            ssm_serve_tune_best=ssm_serve_best,
                            moe_forward=moe_fwd, moe_tune_best=moe_best,
                            moe_serve=moe_serve, moe_serve_tune_best=moe_serve_best,
+                           train=train, train_tune_best=train_best,
+                           train_timings=train_rows, ssm_train=ssm_train,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

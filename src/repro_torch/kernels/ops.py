@@ -15,6 +15,8 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
+import torch
+
 from . import flash_attention as _fa
 from . import matmul as _mm
 from . import ref
@@ -112,8 +114,42 @@ def ssd(
     return_state: bool = False,
 ):
     """Chunked SSD scan with chunk ``min(chunk, S)``; ``return_state``
-    also returns the final (batch, H, N, P) f32 state."""
+    also returns the final (batch, H, N, P) f32 state.
+
+    K7 fills y (and the state) through ``ctypes``, so its outputs carry no
+    ``grad_fn``.  A call that needs a gradient (grad mode on and an input
+    that requires one) therefore launches it inside
+    :class:`_SSDWithReferenceGrad`, whose backward is the autograd of the
+    plain scan, as dispatch does for its kernels and as the reference's
+    model trains through the jnp scan.  Any other call is one raw launch."""
     if _plain(backend):
         return ref.ssd_chunked(x, log_a, B, C, chunk=min(chunk, x.shape[1]),
                                return_state=return_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_a, B, C)):
+        return _SSDWithReferenceGrad.apply(x, log_a, B, C, chunk, return_state)
     return _ssd.ssd(x, log_a, B, C, chunk=chunk, return_state=return_state)
+
+
+class _SSDWithReferenceGrad(torch.autograd.Function):
+    """Forward: the K7 wrapper (its plain version for CPU tensors).
+    Backward: autograd of ``ref.ssd_chunked`` on the saved inputs, for y's
+    gradient and, with ``return_state``, the state's where one is given."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, B, C, chunk, return_state):
+        ctx.save_for_backward(x, log_a, B, C)
+        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.set_materialize_grads(False)
+        return _ssd.ssd(x, log_a, B, C, chunk=chunk, return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = [a.detach().requires_grad_(True) for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.ssd_chunked(*args, chunk=min(ctx.chunk, args[0].shape[1]),
+                                  return_state=ctx.return_state)
+        outs = out if ctx.return_state else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        got = torch.autograd.grad([o for o, _ in pairs], args,
+                                  [g for _, g in pairs], allow_unused=True)
+        return (*got, None, None)

@@ -1,13 +1,16 @@
-"""Model facade: build a model from its config, init it, run its steps."""
+"""Model facade: build a model from its config, init it, run its steps,
+and the training batch's specs and a synthetic batch."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
+from ..device import resolve_device
 from . import transformer as T
 
 Params = Dict[str, Any]
@@ -19,6 +22,9 @@ class Model:
 
     def init(self, seed: int = 0, device: str = "cuda") -> Params:
         return T.init_params(self.cfg, seed=seed, device=device)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return T.loss_fn(self.cfg, params, batch)
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return T.forward(self.cfg, params, tokens)
@@ -42,3 +48,45 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The training batch of a (config x shape) cell as ``meta`` tensors:
+    ``tokens`` (B, S+1) int32, or ``embeds`` (B, S, D) bf16 with ``labels``
+    (B, S) int32, plus ``frames`` (B, enc_frames, D) bf16 for an encoder."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.embedding_inputs:
+        batch = {"embeds": spec((B, S, cfg.d_model), torch.bfloat16),
+                 "labels": spec((B, S), torch.int32)}
+    else:
+        batch = {"tokens": spec((B, S + 1), torch.int32)}
+    if cfg.enc_layers:
+        batch["frames"] = spec((B, cfg.enc_frames, cfg.d_model), torch.bfloat16)
+    return batch
+
+
+def make_train_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                     device: str = "cuda") -> Dict[str, torch.Tensor]:
+    """A concrete synthetic batch with :func:`train_batch_specs`' shapes,
+    drawn by the reference's ``np.random.default_rng(seed)`` calls in its
+    order, so the integers are the reference's."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    B, S = shape.global_batch, shape.seq_len
+
+    def put(a, dtype):
+        return torch.from_numpy(np.asarray(a)).to(dtype).to(dev)
+
+    if cfg.embedding_inputs:
+        batch = {"embeds": put(rng.standard_normal((B, S, cfg.d_model)), torch.bfloat16),
+                 "labels": put(rng.integers(0, cfg.vocab, (B, S)), torch.int32)}
+    else:
+        batch = {"tokens": put(rng.integers(0, cfg.vocab, (B, S + 1)), torch.int32)}
+    if cfg.enc_layers:
+        batch["frames"] = put(rng.standard_normal((B, cfg.enc_frames, cfg.d_model)),
+                              torch.bfloat16)
+    return batch

@@ -3,8 +3,9 @@ mixture-of-experts (olmoe; arctic with its dense residual MLP), state-space
 (mamba2) and hybrid (hymba) families.
 
 The port of the JAX package's ``models/transformer.py`` for those families
-— ``forward`` and the serving functions ``init_cache``, ``prefill``,
-``decode_step``, ``serve_step`` and ``page_view``: parameters have the
+— ``forward``, the training loss ``loss_fn`` and the serving functions
+``init_cache``, ``prefill``, ``decode_step``, ``serve_step`` and
+``page_view``: parameters have the
 reference's names, shapes and dtypes, with layers stacked along a leading L
 axis; the reference's ``lax.scan`` over the stack becomes a Python loop over
 it, and the per-layer window reaches each layer as a Python int.  A layer
@@ -20,11 +21,14 @@ families belong to later slices and raise.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -213,20 +217,66 @@ def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
 
 def forward(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-    ssd_backend: str = "cuda",
+    ssd_backend: str = "cuda", remat: bool = False,
 ) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V).  ``ssd_backend`` is the
     SSD scan's ``kernels/ops.py`` backend: ``cuda`` (K7 for CUDA tensors,
-    the plain version for CPU ones) or ``torch`` (the plain version)."""
+    the plain version for CPU ones) or ``torch`` (the plain version).
+    ``remat`` keeps only each layer's input for backward and recomputes
+    the layer there (the reference's ``nothing_saveable`` checkpoint); the
+    final norm and the unembed are not recomputed."""
     _check_family(cfg)
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B, S, _ = x.shape
     pos = _positions(B, S, x.device)
     windows = _windows(cfg)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer_fwd(cfg, _layer(params["layers"], i), x, pos, windows[i],
-                             ssd_backend=ssd_backend)
+        layer = partial(_layer_out, cfg, _layer(params["layers"], i), pos=pos,
+                        window=windows[i], ssd_backend=ssd_backend)
+        x = _recomputed(layer, x) if remat else layer(x)
     return _logits(cfg, params, x)
+
+
+def _layer_out(cfg, p, x, pos, window, ssd_backend):
+    return _layer_fwd(cfg, p, x, pos, window, ssd_backend=ssd_backend)[0]
+
+
+def _recomputed(layer, x):
+    """``layer(x)`` under non-reentrant activation checkpointing, with the
+    DispatchContext active now re-entered while backward recomputes it.
+    The context stack is thread-local, and autograd runs the backward of
+    CUDA tensors on a thread of its own, where the stack is empty: the
+    recompute would take the plain path, save other tensors than the
+    forward did and fail checkpoint's check (the reference captures the
+    context when it traces)."""
+    ctx = L._dispatch_ctx()
+
+    def run(x):
+        with ctx if ctx is not None else nullcontext():
+            return layer(x)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            ssd_backend: str = "cuda") -> torch.Tensor:
+    """Next-token cross entropy, in f32, of ``batch["tokens"]`` (B, S+1):
+    the forward with ``remat`` on ``tokens[:, :-1]`` against
+    ``tokens[:, 1:]``.  The reference's ``embeds`` / ``labels`` and
+    ``frames`` batches belong to families this slice does not run, and
+    raise as ``forward`` does."""
+    _check_family(cfg)
+    if "tokens" not in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: a batch without tokens ({sorted(batch)}) is not in "
+            "this slice"
+        )
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens[:, :-1], ssd_backend=ssd_backend,
+                     remat=True)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = tokens[:, 1:].long()
+    return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
 
 
 def _logits(cfg: ModelConfig, params: Params, x):

@@ -882,3 +882,91 @@ def test_cuda_moe_layer_dispatched_against_plain():
     assert sum(ctx.hits_by_key.values()) >= 3
     err = float((got - want).abs().max() / want.abs().max())
     assert torch.isfinite(got).all() and err < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# training: K7's gradient and a dispatched train step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("return_state", [False, True])
+def test_cuda_ssd_gradient_is_the_plain_scans(dtype, tol, return_state):
+    """K7 launched on inputs that need a gradient: one launch, and the
+    gradient of every input is the plain scan's (its backward is the plain
+    scan's autograd; y, and so dL/dy = y, differ by K7's forward error: 1e-5
+    of |y| in f32, one bf16 ulp in bf16, so the gradients within 1e-4 and
+    3e-2 of each input's max |g|)."""
+    from repro_torch.kernels import ops
+
+    dev = _cuda()
+    ins = _ssd_inputs(dev, 2, 128, 4, 64, 128)
+    ins = [ins[0].to(dtype), ins[1], ins[2].to(dtype), ins[3].to(dtype)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    proj = torch.randn(2, 4, 128, 64, generator=g, device=dev)
+    grads = []
+    for fn in (ops.ssd, tref.ssd_chunked):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        n = ssd_k.ssd.launches
+        out = fn(*leaves, chunk=64, return_state=return_state)
+        y, h = out if return_state else (out, None)
+        loss = y.float().square().sum() / 2 + ((h * proj).sum() if h is not None else 0)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert ssd_k.ssd.launches == n + (fn is ops.ssd)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+        assert float(want.abs().max()) > 0
+        assert _rel(got, want) <= tol
+
+
+def test_cuda_dispatched_train_step_against_plain():
+    """smollm-smoke's train step, f32, its forward tasks tuned on the card:
+    under DispatchContext K1 runs at every dense site and K3 (tc) at every
+    attention, twice a step with remat, and the step is the plain step's:
+    the loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+    max |g| (f32 kernels, sums in another order), the updated parameters
+    within 2·lr (the first AdamW step is about sign(g)·lr)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.integration.dispatch import DispatchContext
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.registry import build_model
+    from repro_torch.search.database import Database
+    from repro_torch.training.optimizer import OptConfig, adamw_init, tree_leaves, tree_map
+    from repro_torch.training.train_loop import make_train_step, value_and_grad
+
+    dev = _cuda()
+    cfg = get_config("smollm-135m", smoke=True)
+    B, S = 2, 32
+    tasks = repro_torch.extract_tasks(cfg, batch=B, seq=S, min_task_elems=16,
+                                      dispatchable_only=True)
+    db = Database()
+    repro_torch.TaskScheduler(tasks, database=db, config=repro_torch.TuneConfig(
+        search=SearchConfig(max_trials=4, init_random=2, population=4,
+                            measure_per_round=2),
+        runner_spec="cached+local", backend="cuda", device="cuda",
+    )).tune(total_rounds=len(tasks))
+    params = tree_map(lambda t: t.float(), TT.init_params(cfg, seed=0, device="cuda"))
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S + 1), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    model, opt = build_model(cfg), OptConfig(lr=1e-3, warmup_steps=1)
+    ctx = DispatchContext(db, tasks=tasks, backend="cuda")
+    n1, n3 = mm.matmul.launches, fa.flash_attention.launches
+    new_d, _, m_d = make_train_step(model, opt, dispatch=ctx)(
+        params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    dense_hits = sum(n for k, n in ctx.hits_by_key.items() if k.startswith("dense/"))
+    assert dense_hits == 2 * 7 * cfg.n_layers + 1
+    assert mm.matmul.launches - n1 == dense_hits
+    assert fa.flash_attention.launches - n3 == 2 * cfg.n_layers
+    new_p, _, m_p = make_train_step(model, opt)(params, adamw_init(params), batch)
+    assert abs(float(m_d["loss"]) - float(m_p["loss"])) <= 1e-5 * float(m_p["loss"])
+    for a, b in zip(tree_leaves(new_d), tree_leaves(new_p)):
+        assert float((a - b).abs().max()) <= 2 * opt.lr
+    with ctx:
+        _, g_d = value_and_grad(model.loss, params, batch)
+    _, g_p = value_and_grad(model.loss, params, batch)
+    for a, b in zip(tree_leaves(g_d), tree_leaves(g_p)):
+        assert float(b.abs().max()) > 0 and _rel(a, b) <= 1e-4

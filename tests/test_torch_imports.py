@@ -66,6 +66,14 @@ MODULES = [
     "repro_torch.serving.scheduler",
     "repro_torch.launch",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.training",
+    "repro_torch.training.optimizer",
+    "repro_torch.training.train_loop",
+    "repro_torch.training.checkpoint",
+    "repro_torch.training.fault_tolerance",
 ]
 
 _PROBE = """
@@ -76,7 +84,7 @@ for name in {mods!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
-             or m.startswith("repro."))
+             or m.startswith("repro.") or m == "ml_dtypes")
 print("LEAKED", bad)
 """
 
