@@ -24,14 +24,20 @@ Phases, in order; a failing phase makes the run exit non-zero:
    softmax, also in bfloat16, on its registers variant at row blocks
    36-288 and its shared-memory variant at N = 258, where a block too
    large for shared memory must be rejected; K3 on its tc variant (causal,
-   window, softcap, full, at S 256 and 96) and its fma variant, and at
-   olmoe's (1, 16, 256, 128) on fma, each run twice for the same bits);
+   window, softcap, full, at S 256 and 96) and its fma variant, at
+   olmoe's (1, 16, 256, 128) on fma, at whisper-medium's encoder shape
+   (1, 16, 1500, 64) not causal, where every tile is fma, and at
+   qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, each run twice for the
+   same bits);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window, at kv
    tiles whose split of the kv axis leaves whole splits masked (a length-1
    slot, the window), and K5 at olmoe's decode tick (b4, 16 kv heads of
-   one query head, D 128); each replayed twice from one CUDA graph for the
+   one query head, D 128), over whisper-medium's 1500-frame cross-attention
+   cache (b4, kvh 16, G 1, D 64) and at qwen2-vl-2b's tick (b4, kvh 2, G
+   6, D 128), each run twice for the same bits; each replayed twice from one
+   CUDA graph for the
    eager call's bits; K5's device time at every kv tile that divides 256,
    beside ``scaled_dot_product_attention`` on the same inputs;
 3c. K7, the chunked SSD scan, against its plain version on the card, in
@@ -48,11 +54,13 @@ Phases, in order; a failing phase makes the run exit non-zero:
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
-   ``cuda`` backend through ``cached+local`` with a small budget (a task
-   left with no tile the card runs gets up to ``COLD_SEARCHES`` further
-   searches with fresh seeds; every task must reach a finite best, on every
-   path); rmsnorm goes through the structural lowering (``torch-fallback``),
-   sfm through K4;
+   ``cuda`` backend through ``cached+local``, ``ROUNDS_PER_TASK`` search
+   rounds a task (a task left with no tile the card runs gets up to
+   ``COLD_SEARCHES`` further searches with fresh seeds; every task must
+   reach a finite best, on every path, but a matrix product that no
+   schedule reaches under the validator's tile cap and the lowering's grid
+   cap, which ``schedulable`` leaves out and prints); rmsnorm goes through
+   the structural lowering (``torch-fallback``), sfm through K4;
 5. the forward path, part two: the full-width 30-layer bf16 forward under
    ``DispatchContext`` (rmsnorm dispatched at all 61 sites, K3's 30 launches
    all tc, traced) against the same forward with no context;
@@ -89,7 +97,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    requests through ``ContinuousBatchingScheduler`` under the tuned context
    (K7 in every admitted prompt's prefill), then with no context;
 11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
-   1, seq 256), tune them at half the other paths' budget, then the
+   1, seq 256), tune them, then the
    full-width 16-layer bf16 forward under ``DispatchContext`` (K2 at every
    expert product, 48 launches, printed by variant; K3 16 launches, all
    fma, at head dim 128), traced, against the same forward with no
@@ -106,7 +114,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    K5 16 times, and is held against the plain tick in f32 as in phase 11;
    then phase 6 at olmoe's shapes;
 13. the smollm-135m training path, at the launcher's batch 8, seq 128:
-   extract the reference's 10 tasks and tune them at half the budget; one
+   extract the reference's 10 tasks and tune them; one
    ``make_train_step`` under ``DispatchContext`` against the same step with
    no context on f32 parameters (the loss within ``TOL_TRAIN_LOSS_REL``,
    every gradient leaf within ``TOL_TRAIN_GRAD`` of its max |g|, the
@@ -121,13 +129,35 @@ Phases, in order; a failing phase makes the run exit non-zero:
    scan on K7 (96 launches; backward the plain scan's autograd) against
    the plain scan on f32 parameters, the six leaves that reach the loss
    only through the scan named and non-zero; then 4 bf16 steps on one
-   batch, whose loss must fall.
+   batch, whose loss must fall;
+15. the qwen2-vl-2b paths (M-RoPE, embedding inputs): the reference's 10
+   forward tasks (batch 1, seq 256, seeded embeddings) tuned, the
+   full-width 28-layer bf16 forward under ``DispatchContext``
+   (K3 28 launches, fma at D 128 GQA 6; K1 196, the unembed plain: no
+   schedule fits both the tile and the grid cap; rmsnorm 57 hits) against
+   the same forward with no context, timed and traced, then both on f32
+   parameters within ``TOL_F32_LOGITS_REL``; its 9 decode tasks tuned and
+   8 requests served on the paged arena, dispatched
+   and plain, with one decode-only tick (K5 28 launches) compared;
+16. the whisper-medium paths (encoder, cross-attention): the reference's
+   20 forward tasks (batch 1, seq 256, 1500 seeded frames) tuned, the
+   full-width bf16 forward (24 encoder and 24 decoder
+   layers) dispatched against plain as in phase 15 (K3 48: 24 non-causal
+   fma at S 1500, 24 causal; K2 96 on the cross-attention's chunked
+   contractions; K1 361, the cross-attention's q/k/v plain as in the
+   reference; rmsnorm 122 hits); its 11 decode tasks tuned, then ``prefill`` of 4 prompts over 1500 frames and 16 greedy
+   ``decode_step`` calls, dispatched and plain: in f32 the tokens agree
+   (where one differs, the plain top-2 logits must be a near tie) and every
+   step launches K5 24 times over the 1500-frame cache and 24 over the
+   256-position one; bf16 steps timed and one traced; then phase 6 at the
+   two models' shapes.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the nine paths (forward: phases 4-5; serving: phase 7; operators:
-phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10; olmoe forward:
-phase 11; olmoe serving: phase 12; smollm training: phase 13; mamba2
-training: phase 14) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
+each of the thirteen paths (forward: phases 4-5; serving: phase 7;
+operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
+olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
+13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
+whisper forward and decoding: phase 16) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
 ``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
 serving path's tuning (every one ``splitk``), the olmoe forward and its
@@ -171,6 +201,11 @@ PEAK_HBM_BYTES = 3.35e12
 
 SEQ = 256
 BATCH = 1
+# search rounds a task: one on the paths of phases 4-14 and two on those of
+# phases 15-16.  Tuning takes most of the run (722 of 1139 s on an H100 at
+# two rounds a task), and all thirteen paths must fit its time limit
+ROUNDS_PER_TASK = 1
+ROUNDS_PER_TASK_15_16 = 2
 M_FWD = BATCH * SEQ  # the rows of every forward matmul
 TOL_MATMUL = 2e-3  # f32, K <= 2048, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
@@ -206,11 +241,10 @@ SSM_FORWARD_TASKS = 14
 SSM_DECODE_TASKS = 7
 
 # the olmoe-1b-7b paths (phases 11 and 12): the forward at batch 1, seq 256,
-# and the serving path's paged arena, at half the other paths' tuning budget
+# and the serving path's paged arena
 MOE_ARCH = "olmoe-1b-7b"
 MOE_FORWARD_TASKS = 11
 MOE_DECODE_TASKS = 16
-MOE_ROUNDS_PER_TASK = 2
 # one MoE layer dispatched against plain on the same f32 input, relative to
 # the output's largest magnitude: K·2^-24 at K = 2048, the bound on the
 # relative rounding error of one f32 dot product of 2048 terms (the expert
@@ -218,8 +252,7 @@ MOE_ROUNDS_PER_TASK = 2
 TOL_MOE_REL = 2048 * 2.0**-24
 
 # the training paths (phases 13 and 14): the launcher's defaults, batch 8,
-# seq 128, lr 3e-4; smollm-135m's 10 forward tasks tuned at half the other
-# paths' budget.  The dispatched step (f32 kernels, f32 parameters) against
+# seq 128, lr 3e-4; smollm-135m's 10 training tasks tuned.  The dispatched step (f32 kernels, f32 parameters) against
 # the plain one: the loss within 1e-4 relative and each gradient leaf within
 # 1e-3 of its max |g| (f32 sums in other orders through 30 or 48 layers and
 # their backward); the updated parameters within 2·lr, since the first AdamW
@@ -240,6 +273,21 @@ TOL_RESUME_REL = 1e-3
 SSM_TRAIN_STEPS = 4
 # the leaves of the SSD mixer that reach the loss only through the scan
 SSD_SCAN_LEAVES = ("wx", "wB", "wC", "wdt", "A_log", "dt_bias")
+# phases 15-16: qwen2-vl-2b (M-RoPE, embedding inputs) and whisper-medium
+# (encoder, cross-attention), their forwards and decode tasks tuned, their
+# logits held in f32 against plain
+VL_ARCH = "qwen2-vl-2b"
+VL_FORWARD_TASKS = 10
+VL_DECODE_TASKS = 9
+WHISPER_ARCH = "whisper-medium"
+WHISPER_FORWARD_TASKS = 20
+WHISPER_DECODE_TASKS = 11
+ENC_FRAMES = 1500  # whisper-medium's encoder frames
+WHISPER_PROMPT = 32
+WHISPER_STEPS = 16
+# f32 parameters, dispatched against plain: f32 sums in other orders (and
+# the encoder's 24 layers before the decoder's), relative to max |logit|
+TOL_F32_LOGITS_REL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -291,6 +339,21 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     from repro_torch.search.measure.local import time_call
 
     return float(np.median(time_call(fn, torch.device("cuda"), reps, warmup))) * 1e3
+
+
+def timed_ms(fn, n: int = 3):
+    """(the last output, median host ms) of ``n`` calls of ``fn``, each
+    ending in ``synchronize()``."""
+    import torch
+
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return out, sorted(ts)[len(ts) // 2] * 1e3
 
 
 def sdpa(q, k, v, causal: bool):
@@ -531,6 +594,36 @@ def phase_kernels(gen) -> dict:
            median_ms(lambda: fa.flash_attention(q, k, v, block_q=32, block_kv=32)),
            median_ms(lambda: ref.flash_attention(q, k, v)),
            median_ms(lambda: sdpa(q, k, v, True)))
+    # whisper-medium's encoder attention, (1, 16, 1500, 64) non-causal: no
+    # divisor of 1500 is a multiple of 8, so every tile K3 takes there is
+    # fma; and qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, fma at D 128
+    for (h, kvh, s, d, causal), tiles in (
+        ((16, 16, ENC_FRAMES, 64, False), ((60, 50), (125, 125))),
+        ((12, 2, SEQ, 128, True), ((32, 32), (64, 16))),
+    ):
+        q = randn(BATCH, h, s, d)
+        k, v = randn(BATCH, kvh, s, d), randn(BATCH, kvh, s, d)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        for bq, bkv in tiles:
+            got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+            again = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_kv=bkv)
+            plan = fa.flash_attention.last_launch
+            if plan != fa.launch_config(BATCH, h, kvh, s, d, bq, bkv, sms) or \
+                    plan["variant"] != "fma":
+                fail(f"flash_attention ({bq}, {bkv}) on {(h, kvh, s, d)} launched "
+                     f"{plan}, want fma")
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"flash_attention fma ({bq}, {bkv}) on {(h, kvh, s, d)}: two "
+                     "runs differ")
+            report("flash_attention",
+                   f"fma (1,{h},{s},{d}) kvh {kvh} {'causal' if causal else 'full'} "
+                   f"blocks ({bq}, {bkv}) grid {plan['grid']}, twice the same bits",
+                   got, want, TOL_ATTN,
+                   median_ms(lambda: fa.flash_attention(
+                       q, k, v, causal=causal, block_q=bq, block_kv=bkv)),
+                   median_ms(lambda: ref.flash_attention(q, k, v, causal=causal)),
+                   median_ms(lambda: sdpa(q, k, v, causal)))
     k3_variants = {k: n - k3_before[k] for k, n in read_variants("flash_attention").items()}
     print(f"[kernels] flash_attention launches by variant in phase 3: {k3_variants}")
     if min(k3_variants.values()) <= 0:
@@ -578,16 +671,18 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
-def attention_work(b, h, kvh, s, d):
-    """(flops, bytes) of one causal K3 call: q·k and p·v over the s(s+1)/2
-    unmasked pairs of each head; q, k and v read once, o written once."""
-    return 4 * b * h * d * (s * (s + 1) // 2), 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
+def attention_work(b, h, kvh, s, d, causal: bool = True):
+    """(flops, bytes) of one K3 call: q·k and p·v over the unmasked pairs
+    of each head, s(s+1)/2 causal and s² not; q, k and v read once, o
+    written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * d * pairs, 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
 
 
-def attention_bound(variant, b, h, kvh, s, d):
-    """(bound ms, by, bound ms at 67 TFLOP/s) of one causal K3 call: tc at
-    the 3xTF32 rate, fma at the f32 rate."""
-    flops, nbytes = attention_work(b, h, kvh, s, d)
+def attention_bound(variant, b, h, kvh, s, d, causal: bool = True):
+    """(bound ms, by, bound ms at 67 TFLOP/s) of one K3 call: tc at the
+    3xTF32 rate, fma at the f32 rate."""
+    flops, nbytes = attention_work(b, h, kvh, s, d, causal)
     peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
     b_ms, b_by = bound(flops, nbytes, peak)
     return b_ms, b_by, bound(flops, nbytes)[0]
@@ -741,6 +836,27 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
                    f"({B},16,1,{T},128) block_kv {bkv}, {plan['splits']} splits of "
                    f"{plan['rows_per_split']} rows, {label}", got,
                    ref.decode_attention(q128, k128, v128, bias))
+    # whisper-medium's cross-attention over the 1500 encoder frames (16 kv
+    # heads of one query head, D 64; a tile above 375 rows overflows shared
+    # memory) and qwen2-vl-2b's tick (2 kv heads of 6 query heads, D 128)
+    for (kvh, g, T, d), tiles in (((16, 1, ENC_FRAMES, 64), (50, 125, 300, 375)),
+                                  ((2, 6, SERVE_MAX_SEQ, 128), (16, 64, 128))):
+        qx = randn(B, kvh, g, d)
+        kx, vx = randn(B, kvh, T, d), randn(B, kvh, T, d)
+        for bkv in tiles:
+            for label, bias in (("full", decode_bias([T] * B, T)),
+                                ("ragged", decode_bias([T, 1, 77, T - 5], T))):
+                got = fa.decode_flash_attention(qx, kx, vx, bias, block_kv=bkv)
+                again = fa.decode_flash_attention(qx, kx, vx, bias, block_kv=bkv)
+                plan = fa.decode_flash_attention.last_launch
+                torch.cuda.synchronize()
+                if plan["blocks"] != (bkv,) or not torch.equal(got, again):
+                    fail(f"decode_flash_attention ({B},{kvh},{g},{T},{d}) block_kv "
+                         f"{bkv}: launched {plan['blocks']}, or two runs differ")
+                report("decode_flash_attention",
+                       f"({B},{kvh},{g},{T},{d}) block_kv {bkv}, {plan['splits']} "
+                       f"splits of {plan['rows_per_split']} rows, {label}, twice the "
+                       "same bits", got, ref.decode_attention(qx, kx, vx, bias))
     # K6: pages scattered over a pool, sentinel entries, ragged lengths
     P = SERVE_MAX_SEQ // SERVE_PAGE
     n_pages = B * P + 3
@@ -1030,7 +1146,7 @@ def variants_since(before: dict, kernel: str = "matmul") -> dict:
     return {k: n - before.get(k, 0) for k, n in read_variants(kernel).items()}
 
 
-def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
+def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_PER_TASK):
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
@@ -1047,6 +1163,15 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
     print(f"[{tag}] extracted {len(tasks)} tasks in {time.perf_counter() - t0:.1f} s")
     for t in tasks:
         print(f"[{tag}]   {t.key} weight {t.weight:g}")
+    none = [t for t in tasks if not schedulable(t)]
+    if none:
+        # no search can find what the two caps leave out: these sites keep
+        # the plain product under dispatch, as the reference's would
+        tile, grid = schedule_caps()
+        print(f"[{tag}] no schedule both the validator (a tile of at most {tile} "
+              f"elements) and the lowering (a grid of at most {grid} steps) "
+              f"accept, so not tuned: {[t.key for t in none]}")
+        tasks = [t for t in tasks if schedulable(t)]
     search = SearchConfig(
         max_trials=32, init_random=8, population=16, measure_per_round=8,
         rollout_factor=2,
@@ -1086,6 +1211,30 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = 4):
     if others:
         fail(f"candidates failed for reasons other than a rejection: {others}")
     return tasks, best
+
+
+def schedule_caps():
+    """(the validator's cap on a tile's elements, the lowering's cap on a
+    grid's tile steps), the reference's caps."""
+    from repro_torch.backends.gpu_backend import MAX_GRID_STEPS
+    from repro_torch.core.validator import MAX_TILE_ELEMS
+
+    return MAX_TILE_ELEMS, MAX_GRID_STEPS
+
+
+def schedulable(task) -> bool:
+    """Whether any schedule of a matrix-product task can reach the card: a
+    tile holds at most ``MAX_TILE_ELEMS`` elements (bm·bn·bk) and a grid
+    at most ``MAX_GRID_STEPS`` tiles, so a product of more multiply-adds
+    (B·M·N·K) than the two caps' product has no schedule at all:
+    qwen2-vl-2b's forward unembed, 256·151936·1536 > 2^17·2^18."""
+    from repro_torch.search.database import parse_workload_key
+
+    op, kw = parse_workload_key(task.key)
+    if op not in ("dense", "batch_matmul"):
+        return True
+    tile, grid = schedule_caps()
+    return kw.get("b", 1) * kw["m"] * kw["n"] * kw["k"] <= tile * grid
 
 
 # what a candidate may fail with: a tile the card cannot run, a trace the
@@ -1241,19 +1390,9 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
     g.manual_seed(gen_seed + 1)
     toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
 
-    def timed(fn, n=3):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return out, sorted(ts)[len(ts) // 2] * 1e3
-
     with torch.no_grad():
         T.forward(cfg, params, toks)  # warm the plain path
-        plain, plain_ms = timed(lambda: T.forward(cfg, params, toks))
+        plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, toks))
         ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
         reset_counts()
         with ctx:
@@ -1264,7 +1403,7 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
         k3_variants = read_variants("flash_attention")
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
-            _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+            _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
         # K3's device time over the dispatched forward's launches
         def run_tuned():
             with ctx:
@@ -1331,6 +1470,8 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
 
 def phase_timings(tasks, runs, gen, vocab: int) -> dict:
     import torch
+
+    from repro_torch.search.database import parse_workload_key
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
@@ -1411,21 +1552,22 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
         else:
             b, kvh, g, s, d = shapes[0]
             h = kvh * g
+            causal = bool(parse_workload_key(t.key)[1]["causal"])
             q = torch.randn(b, h, s, d, generator=gen, device="cuda")
             k = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             v = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             bq, bkv = snapped
             def launch():
-                return fa.flash_attention(q, k, v, causal=True, block_q=bq,
+                return fa.flash_attention(q, k, v, causal=causal, block_q=bq,
                                           block_kv=bkv)
             def library():
-                return sdpa(q, k, v, True)
+                return sdpa(q, k, v, causal)
             k_ms = median_ms(launch)
-            p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=True))
+            p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=causal))
             l_ms = median_ms(library)
             var = fa.flash_attention.last_launch["variant"]
-            flops = attention_work(b, h, kvh, s, d)[0]
-            b_ms, b_by, b67 = attention_bound(var, b, h, kvh, s, d)
+            flops = attention_work(b, h, kvh, s, d, causal)[0]
+            b_ms, b_by, b67 = attention_bound(var, b, h, kvh, s, d, causal)
             extra = dict(variant=var, bound_f32_ms=b67)
         if kern not in ("matmul", "batch_matmul", "flash_attention"):
             b_ms, b_by = bound(flops, nbytes)
@@ -1470,6 +1612,8 @@ FIXED_TILES = (
     ("matmul", (4, 576, 192, "n"), (2, 32, 64)),
     ("matmul", (256, 1024, 50280, "k"), (32, 120, 32)),
     ("matmul", (4, 1024, 50280, "k"), (4, 60, 64)),
+    # qwen2-vl-2b's forward unembed, which no schedule reaches (schedulable)
+    ("matmul", (256, 1536, 151936, "k"), (64, 128, 32)),
     ("batch_matmul", (3, 768, 256, 64), (24, 32, 32)),
     ("row_softmax", (2304, 256), (12,)),
     ("flash_attention", (1, 9, 3, 256, 64), (8, 128)),
@@ -1823,12 +1967,17 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
                 profile=traced, profile_plain=traced_plain)
 
 
-def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve", rounds_per_task: int = 4):
-    """Phase 7 (smollm-135m) or 12 (olmoe-1b-7b): the model's decode tasks
-    tuned, its tuned tiles checked, 8 requests served on the paged arena
-    under the tuned context and with no context, then one decode-only tick
-    compared, timed and traced.  Returns the tasks, their bests, the
-    results, the tuning's launch counts and the checked tiles."""
+def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
+                rounds_per_task: int = ROUNDS_PER_TASK, decode_tasks: int = 0):
+    """Phase 7 (smollm-135m), 12 (olmoe-1b-7b) or 15 (qwen2-vl-2b): the
+    model's decode tasks tuned, its tuned tiles checked, 8 requests served
+    on the paged arena under the tuned context and with no context, then
+    one decode-only tick compared, timed and traced.  The tasks are those of
+    a decode step and a 32-wide paged serving tick, or with
+    ``decode_tasks`` the ``decode_tasks`` ones of a decode step alone
+    (the tick's chunk sites then run plain).  Returns the tasks, their
+    bests, the results, the tuning's launch counts and the checked
+    tiles."""
     import numpy as np
     import torch
 
@@ -1839,6 +1988,13 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve", rounds_per_task:
     moe = bool(cfg.moe_experts)
 
     def extract():
+        if decode_tasks:
+            tasks = repro_torch.extract_decode_tasks(cfg, batch=SERVE_SLOTS,
+                                                     max_seq=SERVE_MAX_SEQ)
+            if len(tasks) != decode_tasks:
+                fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want "
+                     f"the reference's {decode_tasks}")
+            return tasks
         # olmoe: all 16 tasks the reference extracts (its three
         # non-dispatchable contractions are tuning targets); smollm: the 13
         # dispatchable ones
@@ -2056,22 +2212,12 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
     g.manual_seed(gen_seed + 1)
     toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
 
-    def timed(fn, n=3):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return out, sorted(ts)[len(ts) // 2] * 1e3
-
     with torch.no_grad():
         def plain_fwd(p):
             return T.forward(cfg, p, toks, ssd_backend="torch")
 
         plain_fwd(params)  # warm the plain path
-        plain, plain_ms = timed(lambda: plain_fwd(params))
+        plain, plain_ms = timed_ms(lambda: plain_fwd(params))
         ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         variants0 = read_variants()
@@ -2082,7 +2228,7 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
         fwd_variants = variants_since(variants0)
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
-            _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+            _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
         timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
 
         def traced_fwd():
@@ -2317,8 +2463,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
                  f"reference's {MOE_FORWARD_TASKS}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="moe-tune",
-                             rounds_per_task=MOE_ROUNDS_PER_TASK)
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="moe-tune")
     tune_counts = read_counts()
     print(f"[moe-tune] batch_matmul launches by variant while tuning: "
           f"{read_variants('batch_matmul')}")
@@ -2328,20 +2473,10 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
     g.manual_seed(gen_seed + 1)
     toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
 
-    def timed(fn, n=3):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return out, sorted(ts)[len(ts) // 2] * 1e3
-
     n_moe = 3 * cfg.n_layers  # wi, wg and wo of every layer
     with torch.no_grad():
         T.forward(cfg, params, toks)  # warm the plain path
-        plain, plain_ms = timed(lambda: T.forward(cfg, params, toks))
+        plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, toks))
         ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
@@ -2354,7 +2489,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
         k3v = variants_since(k3v0, "flash_attention")
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
-            _, tuned_ms = timed(lambda: T.forward(cfg, params, toks))
+            _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
         timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
 
         def traced_fwd():
@@ -2511,7 +2646,7 @@ def step_wall_ms(fn, n: int = 3) -> float:
 
 def phase_train(cfg, db, gen, gen_seed: int = 0):
     """Phase 13: smollm-135m's train step at batch 8, seq 128.  Its 10
-    forward tasks tuned at half the budget and their tiles checked; one
+    forward tasks tuned and their tiles checked; one
     step under the tuned context against the same step with no context on
     f32 parameters (loss, every gradient leaf, the updated parameters); the
     dispatched step's launches and hits, the forward's sites twice (remat
@@ -2542,8 +2677,7 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
                  f"{TRAIN_TASKS} tasks with {sfm}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="train-tune",
-                             rounds_per_task=MOE_ROUNDS_PER_TASK)
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="train-tune")
     tune_counts = read_counts()
     runs = check_tiles(tasks, db)
     model = build_model(cfg)
@@ -2774,6 +2908,300 @@ def phase_ssm_train(cfg, gen_seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phases 15 and 16: qwen2-vl-2b and whisper-medium
+# ---------------------------------------------------------------------------
+
+
+def model_inputs(cfg, batch: int, seed: int) -> dict:
+    """The forward's stub-frontend inputs from a seeded generator, bf16:
+    ``embeds`` (batch, SEQ, D), and whisper's ``frames`` (batch, 1500,
+    D), N(0, 1) as the reference's ``make_train_batch`` draws them."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    ins = {"embeds": torch.randn(batch, SEQ, cfg.d_model, generator=g, device="cuda")}
+    if cfg.enc_layers:
+        ins["frames"] = torch.randn(batch, cfg.enc_frames, cfg.d_model, generator=g,
+                                    device="cuda")
+    return {k: v.to(torch.bfloat16) for k, v in ins.items()}
+
+
+def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0):
+    """Phase 15 (qwen2-vl-2b) or 16 (whisper-medium), the forward: the
+    reference's ``n_tasks`` tasks (batch 1, seq 256, embeddings; whisper's
+    1500 frames) tuned and their tiles checked; the
+    full-width bf16 forward under the tuned context against the same
+    forward with no context, timed and traced; then both on the parameters
+    cast to f32, held within ``TOL_F32_LOGITS_REL``.  ``want`` holds the
+    dispatched forward's launches a kernel, K3's ``fma`` launches at least,
+    the rmsnorm hits and the attention hits by key."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as T
+
+    def extract():
+        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
+        if len(tasks) != n_tasks:
+            fail(f"{cfg.name} forward extraction gave {len(tasks)} tasks, want the "
+                 f"reference's {n_tasks}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
+                             rounds_per_task=ROUNDS_PER_TASK_15_16)
+    tune_counts = read_counts()
+    runs = check_tiles(tasks, db)
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    ins = model_inputs(cfg, BATCH, gen_seed + 1)
+
+    def fwd(c, p):
+        return T.forward(c, p, **ins)
+
+    with torch.no_grad():
+        fwd(cfg, params)  # warm the plain path
+        plain, plain_ms = timed_ms(lambda: fwd(cfg, params))
+        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        counts0 = read_counts()
+        k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
+        with ctx:
+            tuned = fwd(cfg, params)
+        torch.cuda.synchronize()
+        fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+        k1v = variants_since(k1v0)
+        k2v = variants_since(k2v0, "batch_matmul")
+        k3v = variants_since(k3v0, "flash_attention")
+        stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
+        with ctx:
+            _, tuned_ms = timed_ms(lambda: fwd(cfg, params))
+        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+
+        def traced_fwd():
+            with timing_ctx:
+                fwd(cfg, params)
+
+        grids = k2_grids(runs, [k for k, row in by_key.items() if row["hits"]])
+        profiles = dict(dispatched=profile_device(traced_fwd, grids),
+                        plain=profile_device(lambda: fwd(cfg, params)))
+        bf16_rel = float((tuned.float() - plain.float()).abs().max()
+                         / plain.float().abs().max())
+        finite = bool(torch.isfinite(tuned.float()).all())
+        shape = tuple(tuned.shape)
+        del plain, tuned
+        # the numerical check in f32: the config's dtype too, which the
+        # embeddings and frames are cast to
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _tree_map(lambda t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        with repro_torch.DispatchContext(db, tasks=tasks, backend="cuda"):
+            tuned32 = fwd(cfg32, params32)
+        plain32 = fwd(cfg32, params32)
+        del params32
+        torch.cuda.empty_cache()
+    max_abs = float((tuned32 - plain32).abs().max())
+    rel = max_abs / float(plain32.abs().max())
+    del tuned32, plain32
+    reasons = dispatch_reasons(by_key)
+    norm_hits = sum(row["hits"] for key, row in by_key.items()
+                    if key.startswith("rmsnorm/"))
+    attn_hits = {key: row["hits"] for key, row in by_key.items()
+                 if key.startswith("attention/")}
+    print(f"[{tag}] logits {shape}: f32 max_abs_err {max_abs:.4e} max_rel_err "
+          f"{rel:.4e} (tol {TOL_F32_LOGITS_REL:g}); bf16 max_rel_err {bf16_rel:.4e} "
+          "against the plain bf16 forward (reported, not gated)")
+    print(f"[{tag}] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms (median of "
+          f"3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers"
+          + (f" and {cfg.enc_layers} encoder layers over {cfg.enc_frames} frames)"
+             if cfg.enc_layers else ")"))
+    for key, row in by_key.items():
+        print(f"[{tag}]   {key}: hits {row['hits']} misses {row['misses']} "
+              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[{tag}] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[{tag}] profile of one {label} forward: {prof['events']} device "
+              f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+              f"span, idle share {prof['idle_share']:.3f}; traced K1 "
+              f"{prof['matmul_ms']:.3f} ms, K2 {prof.get('batch_matmul_ms')} ms, K3 "
+              f"{prof['flash_attention_ms']:.3f} ms")
+        for name, ms in prof["top_ms"].items():
+            print(f"[{tag}]   {ms:8.3f} ms  {name}")
+    print(f"[{tag}] kernel launches in one dispatched forward: {fwd_counts}; by "
+          f"variant K1 {k1v}, K2 {k2v}, K3 {k3v}; rmsnorm hits {norm_hits}; "
+          f"attention hits {attn_hits}")
+    if not finite or shape != (BATCH, SEQ, cfg.vocab):
+        fail(f"{cfg.name} dispatched logits not finite or of shape {shape}")
+    if not rel <= TOL_F32_LOGITS_REL:
+        fail(f"{cfg.name} f32 logits rel err {rel} > {TOL_F32_LOGITS_REL}")
+    for k in ("matmul", "batch_matmul", "flash_attention"):
+        if fwd_counts[k] != want[k]:
+            fail(f"{cfg.name} forward launched {k} {fwd_counts[k]} times, want {want[k]}")
+    if k3v["fma"] < want["flash_attention_fma"]:
+        fail(f"{cfg.name} forward: K3 by variant {k3v}, want at least "
+             f"{want['flash_attention_fma']} fma")
+    if norm_hits != want["rmsnorm"] or attn_hits != want["attention"]:
+        fail(f"{cfg.name} forward: rmsnorm hits {norm_hits}, attention hits "
+             f"{attn_hits}; want {want['rmsnorm']}, {want['attention']}")
+    if reasons.get("lowering_failed"):
+        fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
+    res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
+               plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
+               reasons=dict(reasons), profiles=profiles, launches=fwd_counts,
+               matmul_variants=k1v, batch_matmul_variants=k2v,
+               flash_attention_variants=k3v, rmsnorm_hits=norm_hits,
+               attention_hits=attn_hits, tasks=len(tasks))
+    return tasks, best, res, tune_counts, fwd_counts, runs
+
+
+def phase_whisper_decode(cfg, db, gen_seed: int = 0):
+    """Phase 16, decoding: whisper-medium's 11 decode tasks (batch 4, max_seq
+    256) tuned and their tiles checked; ``prefill``
+    of 4 prompts of ``WHISPER_PROMPT`` tokens over 1500 seeded frames, then
+    ``WHISPER_STEPS`` greedy ``decode_step`` calls, under the tuned context
+    and with no context: in f32 the greedy tokens must agree (where one
+    differs, that step's two top plain logits must lie within
+    ``TOL_F32_LOGITS_REL`` of max |logit| of each other), and every step
+    launches K5 24 times over the 1500-frame cross-attention cache and 24
+    over the 256-position self-attention cache; in bf16 the steps are
+    timed and one dispatched step traced."""
+    import torch
+
+    import repro_torch
+    from repro_torch.models import transformer as T
+    from repro_torch.search.database import workload_key
+
+    B = SERVE_SLOTS
+
+    def extract():
+        tasks = repro_torch.extract_decode_tasks(cfg, batch=B, max_seq=SERVE_MAX_SEQ)
+        if len(tasks) != WHISPER_DECODE_TASKS:
+            fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want the "
+                 f"reference's {WHISPER_DECODE_TASKS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="whisper-decode-tune",
+                             rounds_per_task=ROUNDS_PER_TASK_15_16)
+    tune_counts = read_counts()
+    runs = check_tiles(tasks, db)
+    attn_keys = {t: workload_key("attention_decode", b=B, h=cfg.n_heads,
+                                 kvh=cfg.n_kv_heads, t=t, d=cfg.head_dim, softcap=0.0)
+                 for t in (cfg.enc_frames, SERVE_MAX_SEQ)}
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed + 2)
+    prompt = torch.randint(0, cfg.vocab, (B, WHISPER_PROMPT), generator=g, device="cuda")
+    frames = torch.randn(B, cfg.enc_frames, cfg.d_model, generator=g, device="cuda")
+
+    def generate(c, p, dispatch, on_step=None):
+        """Greedy tokens (B, WHISPER_STEPS + 1), the logits they came from,
+        and each decode step's host ms."""
+        cache = T.init_cache(c, B, SERVE_MAX_SEQ)
+        toks, logits_seen, step_ms = [], [], []
+        with torch.no_grad(), (dispatch if dispatch is not None else nullcontext()):
+            logits, cache = T.prefill(c, p, cache, prompt, frames=frames)
+            for i in range(WHISPER_STEPS + 1):
+                logits = logits[:, -1].float()
+                logits_seen.append(logits)
+                toks.append(logits.argmax(-1))
+                if i == WHISPER_STEPS:
+                    break
+                if on_step is not None:
+                    on_step(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = T.decode_step(c, p, cache, toks[-1][:, None])
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(toks, 1), logits_seen, step_ms
+
+    # bf16: the steps timed, and one dispatched step traced
+    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    _, _, tuned_ms = generate(cfg, params, ctx)
+    _, _, plain_ms = generate(cfg, params, None)
+    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    cache = T.init_cache(cfg, B, SERVE_MAX_SEQ)
+    with torch.no_grad(), timing_ctx:
+        _, cache = T.prefill(cfg, params, cache, prompt, frames=frames)
+        nxt = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+        profile = profile_device(lambda: T.decode_step(cfg, params, cache, nxt))
+    del cache
+    # f32: the greedy tokens, dispatched against plain, and each step's
+    # launches and attention_decode hits
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    ctx32 = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    steps = []
+    marks = {}
+
+    def on_step(i):
+        if marks:
+            steps.append(dict(
+                launches={k: n - marks["counts"][k] for k, n in read_counts().items()},
+                hits={t: ctx32.hits_by_key.get(k, 0) - marks["hits"][t]
+                      for t, k in attn_keys.items()}))
+        marks.update(counts=read_counts(),
+                     hits={t: ctx32.hits_by_key.get(k, 0) for t, k in attn_keys.items()})
+
+    counts0 = read_counts()
+    toks_t, _, _ = generate(cfg32, params32, ctx32, on_step)
+    on_step(WHISPER_STEPS)  # the last step's counts
+    launches = {k: n - counts0[k] for k, n in read_counts().items()}
+    toks_p, logits_p, _ = generate(cfg32, params32, None)
+    del params32
+    torch.cuda.empty_cache()
+    agree = (toks_t == toks_p).all(0)  # by position, over the lanes
+    first = int((~agree).nonzero()[0]) if not bool(agree.all()) else None
+    ties = []  # the top-2 plain logits' gap of each lane that differs there
+    if first is not None:
+        lanes = (toks_t[:, first] != toks_p[:, first]).nonzero()[:, 0]
+        top2 = logits_p[first][lanes].topk(2, -1).values
+        scale = logits_p[first][lanes].abs().amax(-1)
+        ties = ((top2[:, 0] - top2[:, 1]) / scale).tolist()
+    tuned_step = sorted(tuned_ms)[len(tuned_ms) // 2]
+    plain_step = sorted(plain_ms)[len(plain_ms) // 2]
+    k5 = [s["launches"]["decode_flash_attention"] for s in steps]
+    print(f"[whisper-decode] {B} lanes, prompts of {WHISPER_PROMPT} tokens over "
+          f"{cfg.enc_frames} frames, {WHISPER_STEPS} greedy steps; f32 tokens "
+          f"dispatched {toks_t.tolist()}")
+    print(f"[whisper-decode] f32 tokens agreeing with plain by position: "
+          f"{agree.tolist()}" + ("" if first is None else
+                                 f"; first difference at {first}, top-2 plain logit "
+                                 f"gaps over max |logit| of the lanes that differ "
+                                 f"{ties}"))
+    print(f"[whisper-decode] bf16 decode step host ms, median of {WHISPER_STEPS}: "
+          f"dispatched {tuned_step:.2f}, plain {plain_step:.2f}")
+    if profile:
+        print(f"[whisper-decode] profile of one dispatched bf16 step: "
+              f"{profile['events']} device events, busy {profile['busy_ms']:.2f} ms of a "
+              f"{profile['span_ms']:.2f} ms span, idle share {profile['idle_share']:.3f}; "
+              f"traced K1 {profile['matmul_ms']:.3f} ms, K5 "
+              f"{profile['decode_attention_ms']:.3f} ms")
+    else:
+        print("[whisper-decode] the profiler saw no device event (not measured)")
+    print(f"[whisper-decode] K5 launches by f32 step {k5}; attention_decode hits by "
+          f"step {[s['hits'] for s in steps]}; launches over prefill and steps "
+          f"{launches}")
+    if len(steps) != WHISPER_STEPS or any(
+            s["hits"] != {t: cfg.n_layers for t in attn_keys}
+            or s["launches"]["decode_flash_attention"] != 2 * cfg.n_layers for s in steps):
+        fail(f"{cfg.name} decode steps: K5 launches {k5}, hits "
+             f"{[s['hits'] for s in steps]}; want {cfg.n_layers} at each of "
+             f"t={list(attn_keys)} a step")
+    if first is not None and not all(t <= TOL_F32_LOGITS_REL for t in ties):
+        fail(f"{cfg.name} f32 greedy tokens differ at step {first} where the plain "
+             f"top-2 logits are {ties} of max |logit| apart")
+    res = dict(agree=agree.tolist(), first_difference=first, top2_gaps=ties,
+               tokens=toks_t.tolist(), step_ms_dispatched=tuned_step,
+               step_ms_plain=plain_step, profile=profile, launches=launches,
+               k5_by_step=k5)
+    return tasks, best, res, tune_counts, launches, runs
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the operator path
 # ---------------------------------------------------------------------------
 
@@ -2934,8 +3362,7 @@ def main(argv=None) -> int:
     moe_serve_db = Database()
     reset_counts()  # the olmoe serving path starts here
     moe_serve_tasks, moe_serve_best, moe_serve, moe_serve_tune_counts, moe_serve_runs = \
-        phase_serve(moe_cfg, moe_serve_db, tag="moe-serve",
-                    rounds_per_task=MOE_ROUNDS_PER_TASK)
+        phase_serve(moe_cfg, moe_serve_db, tag="moe-serve")
     clock("phase 12")
     # phase 6 at olmoe's shapes: K2's expert products (m64, m32, m4), K3's
     # fma at D 128, K5 at G 1 and D 128, K1's projections and unembed
@@ -2957,6 +3384,62 @@ def main(argv=None) -> int:
     ssm_train_counts = read_counts()
     clock("phase 14")
 
+    torch.cuda.empty_cache()
+    vl_cfg = get_config(VL_ARCH)
+    vl_db = Database()
+    reset_counts()  # the qwen2-vl forward path starts here
+    vl_tasks, vl_best, vl_fwd, vl_tune_counts, vl_fwd_counts, vl_runs = \
+        phase_embeds_forward(vl_cfg, vl_db, "vl-forward", VL_FORWARD_TASKS, dict(
+            # q, k, v, o and the MLP of every layer; the unembed has no
+            # schedule (``schedulable``) and runs plain
+            matmul=7 * vl_cfg.n_layers, batch_matmul=0,
+            flash_attention=vl_cfg.n_layers, flash_attention_fma=vl_cfg.n_layers,
+            rmsnorm=2 * vl_cfg.n_layers + 1,
+            attention={"attention/b=1/causal=1/d=128/h=12/kvh=2/s=256/softcap=0.0/"
+                       "window=0": vl_cfg.n_layers}))
+    vl_serve_db = Database()
+    reset_counts()  # the qwen2-vl serving path starts here
+    vl_serve_tasks, vl_serve_best, vl_serve, vl_serve_tune_counts, vl_serve_runs = \
+        phase_serve(vl_cfg, vl_serve_db, tag="vl-serve",
+                    rounds_per_task=ROUNDS_PER_TASK_15_16,
+                    decode_tasks=VL_DECODE_TASKS)
+    clock("phase 15")
+
+    torch.cuda.empty_cache()
+    wh_cfg = get_config(WHISPER_ARCH)
+    wh_db = Database()
+    reset_counts()  # the whisper forward path starts here
+    L_enc, L_dec = wh_cfg.enc_layers, wh_cfg.n_layers
+    wh_tasks, wh_best, wh_fwd, wh_tune_counts, wh_fwd_counts, wh_runs = \
+        phase_embeds_forward(wh_cfg, wh_db, "whisper-forward", WHISPER_FORWARD_TASKS, dict(
+            # the encoder's q, k, v, o and MLP (7 a layer), the decoder's
+            # self-attention, cross-attention wo and MLP (8 a layer), the
+            # unembed; the cross-attention's q, k, v run plain, as in the
+            # reference; K2 at its two contractions of two 1024-frame chunks
+            matmul=7 * L_enc + 8 * L_dec + 1, batch_matmul=4 * L_dec,
+            flash_attention=L_enc + L_dec, flash_attention_fma=L_enc,
+            rmsnorm=2 * L_enc + 1 + 3 * L_dec + 1,
+            attention={
+                f"attention/b=1/causal=0/d=64/h=16/kvh=16/s={wh_cfg.enc_frames}/"
+                "softcap=0.0/window=0": L_enc,
+                f"attention/b=1/causal=1/d=64/h=16/kvh=16/s={SEQ}/softcap=0.0/"
+                "window=0": L_dec}))
+    wh_dec_db = Database()
+    reset_counts()  # the whisper decoding path starts here
+    wh_dec_tasks, wh_dec_best, wh_dec, wh_dec_tune_counts, wh_dec_counts, wh_dec_runs = \
+        phase_whisper_decode(wh_cfg, wh_dec_db)
+    clock("phase 16")
+    # phase 6 at the two models' shapes: K1 at m1500 and at the n51865 and
+    # n151936 unembeds, K2 b16 m256, K3 non-causal at S 1500 and at D 128
+    # GQA 6, K5 at t1500 and at D 128 G6
+    torch.cuda.empty_cache()
+    for t_list, t_runs, vocab in ((vl_tasks, vl_runs, vl_cfg.vocab),
+                                  (vl_serve_tasks, vl_serve_runs, vl_cfg.vocab),
+                                  (wh_tasks, wh_runs, wh_cfg.vocab),
+                                  (wh_dec_tasks, wh_dec_runs, wh_cfg.vocab)):
+        rows.update(phase_timings(t_list, t_runs, gen, vocab))
+    clock("phase 6 (qwen2-vl, whisper)")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -2969,6 +3452,11 @@ def main(argv=None) -> int:
                           for k in KERNELS},
         "smollm_train": {k: train_tune_counts[k] + train_counts[k] for k in KERNELS},
         "mamba2_train": ssm_train_counts,
+        "qwen2vl_forward": {k: vl_tune_counts[k] + vl_fwd_counts[k] for k in KERNELS},
+        "qwen2vl_serving": {k: vl_serve_tune_counts[k] + vl_serve["launches"][k]
+                            for k in KERNELS},
+        "whisper_forward": {k: wh_tune_counts[k] + wh_fwd_counts[k] for k in KERNELS},
+        "whisper_decode": {k: wh_dec_tune_counts[k] + wh_dec_counts[k] for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -3003,6 +3491,10 @@ def main(argv=None) -> int:
             olmoe_tick_launches=moe_serve["tick_check"]["launches"][k],
             smollm_train_step_launches=train_counts[k],
             mamba2_train_step_launches=ssm_train["k7_launches"] if k == "ssd" else 0,
+            qwen2vl_forward_launches=vl_fwd_counts[k],
+            qwen2vl_tick_launches=vl_serve["tick_check"]["launches"][k],
+            whisper_forward_launches=wh_fwd_counts[k],
+            whisper_decode_launches=wh_dec_counts[k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -3028,6 +3520,10 @@ def main(argv=None) -> int:
                            moe_serve=moe_serve, moe_serve_tune_best=moe_serve_best,
                            train=train, train_tune_best=train_best,
                            train_timings=train_rows, ssm_train=ssm_train,
+                           vl_forward=vl_fwd, vl_tune_best=vl_best, vl_serve=vl_serve,
+                           vl_serve_tune_best=vl_serve_best, whisper_forward=wh_fwd,
+                           whisper_tune_best=wh_best, whisper_decode=wh_dec,
+                           whisper_decode_tune_best=wh_dec_best,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

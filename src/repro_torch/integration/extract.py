@@ -353,8 +353,10 @@ def attention_sites(
     Each record is one call; the occurrence count of a causal record with
     window ``w`` is the number of layers carrying that window, split
     across the records that share it (one record per layer here, so each
-    carries weight 1 and dedup sums them).  Records the workload cannot
-    express — decode offsets, non-square kv, non-default scale, and every
+    carries weight 1 and dedup sums them); a non-causal (encoder) record
+    carries the encoder's layers over its records.  Records the workload
+    cannot express — decode offsets, non-square kv (cross-attention),
+    non-default scale, and every
     call of a model whose window pattern is aperiodic (hymba), whose window
     the reference traces through its layer scan — are skipped: those sites
     keep the chunked path, whose contractions are extracted as
@@ -369,12 +371,15 @@ def attention_sites(
             _skip("attention", "traced_window")
         return []
     rec_by_window: Dict[int, int] = {}
+    n_noncausal = 0
     for r in recorded:
         if r["causal"]:
             w = r["window"]
             if w >= r["q_shape"][2]:
                 w = 0  # window >= seq is global (canonical form)
             rec_by_window[w] = rec_by_window.get(w, 0) + 1
+        elif r["kv_seq"] == r["q_shape"][2]:
+            n_noncausal += 1
     sites: List[TaskSite] = []
     for r in recorded:
         if r["q_offset"] != 0:
@@ -406,7 +411,8 @@ def attention_sites(
             n_rec = rec_by_window.get(w, 1)
             weight = total / n_rec if total else 1.0
         else:
-            weight = float(cfg.enc_layers or 1)
+            # encoder self-attention: the encoder's layers over its records
+            weight = float(cfg.enc_layers or 1) / n_noncausal
         sites.append(
             TaskSite(
                 "attention",
@@ -541,15 +547,16 @@ def dedup_sites(
 
 def record_forward_sites(cfg: ModelConfig, batch: int = 1, seq: int = TOKEN_TILE):
     """Run ``models.transformer.forward`` once on meta tensors under a
-    recorder; returns the recorder."""
-    import torch
-
+    recorder, on the reference's ``prefill_input_specs`` (tokens, or
+    embeddings; whisper's frames); returns the recorder."""
+    from ..configs.base import ShapeConfig
     from ..models import transformer as T
+    from ..models.registry import prefill_input_specs
 
     params = T.init_params(cfg, device="meta")
-    tokens = torch.zeros((batch, seq), dtype=torch.int64, device="meta")
+    inputs = prefill_input_specs(cfg, ShapeConfig("extract", seq, batch, "prefill"))
     with SiteRecorder() as rec:
-        T.forward(cfg, params, tokens)
+        T.forward(cfg, params, **inputs)
     return rec
 
 
@@ -723,11 +730,12 @@ def extract_decode_task_specs(
     of that chunk width, merging its dense, batch_matmul and rmsnorm sites (its chunk
     attention has no tuned shape, so its attention records are dropped):
     the mixed prefill+decode tick runs dense and rmsnorm at
-    ``m = batch * chunk``.
+    ``m = batch * chunk``.  Models ``serve_step`` refuses (SSD state,
+    encoder cross-attention) skip that tick, as in the reference.
     """
     rec = record_decode_sites(cfg, batch=batch, max_seq=max_seq)
     sites = rec.op_sites + decode_attention_sites(cfg, rec.sites)
-    if chunk > 0 or paged:
+    if (chunk > 0 or paged) and not (cfg.attn_free or cfg.ssm_state or cfg.enc_layers):
         srec = record_serve_sites(
             cfg, batch=batch, max_seq=max_seq, chunk=max(1, chunk),
             paged=paged, page_size=page_size,

@@ -7,7 +7,11 @@ Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises.  ``--arch mamba2-370m`` serves the state-space model
 (its SSD state in the cache; the prompt length must be at most 64 or a
 multiple of 64, the scan's chunk rule); ``--arch olmoe-1b-7b`` and
-``--arch arctic-480b`` serve the mixture-of-experts smoke models.
+``--arch arctic-480b`` serve the mixture-of-experts smoke models, and
+``--arch qwen2-vl-2b`` the Qwen2-VL backbone (M-RoPE) from its tokens.
+Serving prefills from tokens alone, as the reference's engine does, so
+``--arch whisper-medium``, whose prefill needs the encoder's frames, is
+refused.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@
 
 Runs on the card unless ``--device cpu`` is given; asking for the card
 without one raises.  Parameters are drawn from a seeded ``torch.Generator``
-(no download), batches from ``SyntheticTokenPipeline``.  The loop is
+(no download), batches from ``SyntheticTokenPipeline``: tokens, or for a
+model with embedding inputs (``--arch qwen2-vl-2b``, ``whisper-medium``)
+embeddings and labels, plus whisper's encoder frames.  The loop is
 fault-tolerant, as the reference's: a checkpoint every ``--ckpt-every``
 steps (the last 3 kept), resume from LATEST, straggler detection on step
 times.  The step runs with no DispatchContext, as the reference's

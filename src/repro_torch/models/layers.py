@@ -151,6 +151,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list:
+    """The (temporal, height, width) split of the head_dim/2 frequency
+    slots: ``sections`` rescaled to head_dim/2, the last taking the
+    remainder."""
+    n = head_dim // 2
+    total = sum(sections)
+    sec = [s * n // total for s in sections]
+    sec[-1] = n - sum(sec[:-1])
+    return sec
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections=(16, 24, 24),
+                theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE.  x: (..., S, D); positions_3d (..., S, 3)
+    = (t, h, w) ids.  Frequency slot f rotates by the id of its section's
+    channel; text tokens carry identical t/h/w ids, which reduces to
+    :func:`apply_rope`."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, device=x.device)  # (D/2,)
+    sel = torch.cat([
+        torch.full((s,), i, dtype=torch.long, device=x.device)
+        for i, s in enumerate(mrope_sections(D, sections))
+    ])  # (D/2,) in {0, 1, 2}
+    pos = positions_3d[..., sel]  # (..., S, D/2): channel sel[f] per slot
+    ang = pos.float() * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., : D // 2], x[..., D // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Chunked flash attention (plain PyTorch, loop over KV blocks)
 # ---------------------------------------------------------------------------

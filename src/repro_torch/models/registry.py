@@ -1,10 +1,12 @@
-"""Model facade: build a model from its config, init it, run its steps,
-and the training batch's specs and a synthetic batch."""
+"""Model facade: build a model from its config, init it, run its steps;
+the specs of a forward's inputs and of a training batch, and a synthetic
+batch.  The modality frontends are stubs, as in the reference: whisper
+takes precomputed frame embeddings, qwen2-vl precomputed embeddings."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,8 +28,9 @@ class Model:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return T.loss_fn(self.cfg, params, batch)
 
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return T.forward(self.cfg, params, tokens)
+    def forward(self, params: Params, tokens: Optional[torch.Tensor] = None,
+                **inputs) -> torch.Tensor:
+        return T.forward(self.cfg, params, tokens, **inputs)
 
     def init_cache(self, batch: int, max_seq: int, device: str = "cuda") -> Params:
         return T.init_cache(self.cfg, batch, max_seq, device=device)
@@ -36,8 +39,9 @@ class Model:
         """The cache's shapes and dtypes, allocated on ``meta``."""
         return T.init_cache(self.cfg, batch, max_seq, device="meta")
 
-    def prefill(self, params: Params, cache: Params, tokens: torch.Tensor):
-        return T.prefill(self.cfg, params, cache, tokens)
+    def prefill(self, params: Params, cache: Params,
+                tokens: Optional[torch.Tensor] = None, **inputs):
+        return T.prefill(self.cfg, params, cache, tokens, **inputs)
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor):
         return T.decode_step(self.cfg, params, cache, tokens)
@@ -50,22 +54,37 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The inputs of a (config x shape) cell's forward or prefill as
+    ``meta`` tensors: ``embeds`` (B, S, D) bf16 for a model with embedding
+    inputs, else ``tokens`` (B, S) int32, plus ``frames`` (B, enc_frames,
+    D) bf16 for an encoder."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.embedding_inputs:
+        ins = {"embeds": _spec((B, S, cfg.d_model), torch.bfloat16)}
+    else:
+        ins = {"tokens": _spec((B, S), torch.int32)}
+    if cfg.enc_layers:
+        ins["frames"] = _spec((B, cfg.enc_frames, cfg.d_model), torch.bfloat16)
+    return ins
+
+
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
     """The training batch of a (config x shape) cell as ``meta`` tensors:
     ``tokens`` (B, S+1) int32, or ``embeds`` (B, S, D) bf16 with ``labels``
     (B, S) int32, plus ``frames`` (B, enc_frames, D) bf16 for an encoder."""
     B, S = shape.global_batch, shape.seq_len
-
-    def spec(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
     if cfg.embedding_inputs:
-        batch = {"embeds": spec((B, S, cfg.d_model), torch.bfloat16),
-                 "labels": spec((B, S), torch.int32)}
+        batch = {"embeds": _spec((B, S, cfg.d_model), torch.bfloat16),
+                 "labels": _spec((B, S), torch.int32)}
     else:
-        batch = {"tokens": spec((B, S + 1), torch.int32)}
+        batch = {"tokens": _spec((B, S + 1), torch.int32)}
     if cfg.enc_layers:
-        batch["frames"] = spec((B, cfg.enc_frames, cfg.d_model), torch.bfloat16)
+        batch["frames"] = _spec((B, cfg.enc_frames, cfg.d_model), torch.bfloat16)
     return batch
 
 

@@ -1,21 +1,25 @@
-"""Decoder LM of the dense (smollm, stablelm, qwen1.5, gemma-2),
-mixture-of-experts (olmoe; arctic with its dense residual MLP), state-space
-(mamba2) and hybrid (hymba) families.
+"""Decoder LM of every family the JAX package runs: dense (smollm,
+stablelm, qwen1.5, gemma-2), mixture-of-experts (olmoe; arctic with its
+dense residual MLP), state-space (mamba2), hybrid (hymba), the Qwen2-VL
+backbone (M-RoPE, embedding inputs) and Whisper (an encoder stack, and
+cross-attention in every decoder layer).
 
-The port of the JAX package's ``models/transformer.py`` for those families
-— ``forward``, the training loss ``loss_fn`` and the serving functions
-``init_cache``, ``prefill``, ``decode_step``, ``serve_step`` and
-``page_view``: parameters have the
-reference's names, shapes and dtypes, with layers stacked along a leading L
-axis; the reference's ``lax.scan`` over the stack becomes a Python loop over
-it, and the per-layer window reaches each layer as a Python int.  A layer
-mixes with attention, the Mamba-2 SSD mixer, or both summed (hymba), then
-runs its FFN: the gated MLP, or the capacity-bounded top-k MoE (plus the
-MLP on the same input with ``moe_dense_residual``), whose expert products
-dispatch through ``bmm_op``.  An attention-free model has no KV cache, only
-the (L, B, H, N, P) f32 SSD state.  There is one card, so the reference's
-sharding constraints have no counterpart.  Encoder-decoder and multimodal
-families belong to later slices and raise.
+The port of the JAX package's ``models/transformer.py`` — ``forward``, the
+training loss ``loss_fn`` and the serving functions ``init_cache``,
+``prefill``, ``decode_step``, ``serve_step`` and ``page_view``: parameters
+have the reference's names, shapes and dtypes, with layers stacked along a
+leading L axis; the reference's ``lax.scan`` over the stack becomes a
+Python loop over it, and the per-layer window reaches each layer as a
+Python int.  A layer mixes with attention, the Mamba-2 SSD mixer, or both
+summed (hymba), attends the encoder's output (whisper), then runs its FFN:
+the gated MLP, or the capacity-bounded top-k MoE (plus the MLP on the same
+input with ``moe_dense_residual``), whose expert products dispatch through
+``bmm_op``.  An attention-free model has no KV cache, only the (L, B, H, N,
+P) f32 SSD state; an encoder-decoder model's cache adds the encoder's
+cross-attention k/v (``xk``/``xv``).  The modality frontends are stubs, as
+in the reference: qwen2-vl takes precomputed embeddings, whisper
+precomputed frame embeddings.  There is one card, so the reference's
+sharding constraints have no counterpart.
 """
 
 from __future__ import annotations
@@ -37,21 +41,8 @@ from . import layers as L
 Params = Dict[str, Any]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    unsupported = [
-        name
-        for name, on in (
-            ("encoder-decoder", cfg.enc_layers),
-            ("mrope", cfg.mrope),
-            ("embedding inputs", cfg.embedding_inputs),
-        )
-        if on
-    ]
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not in this slice "
-            "(dense, mixture-of-experts, state-space and hybrid families only)"
-        )
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +58,6 @@ def init_params(
     values differ from the reference's ``jax.random`` ones; to run both on
     the same weights convert the reference's with ``models/convert.py``.
     ``device="meta"`` allocates nothing."""
-    _check_family(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     gen = None
     if dev.type != "meta":
@@ -93,11 +83,24 @@ def init_params(
             layers["mlp"] = L.mlp_init(gen, D, cfg.d_ff, device=dev, layers=Ln)
         if cfg.post_norms:
             layers["post_ln2"] = ones(Ln, D)
-    return {
+    if cfg.enc_layers:  # decoder cross-attention (whisper)
+        layers["ln_x"] = ones(Ln, D)
+        layers["xattn"] = L.attention_init(gen, cfg, device=dev, layers=Ln)
+    params = {
         "embed": L.embed_init(gen, cfg.vocab, D, device=dev),
         "layers": layers,
         "final_ln": ones(D),
     }
+    if cfg.enc_layers:
+        El = cfg.enc_layers
+        params["enc_layers"] = {
+            "ln1": ones(El, D),
+            "attn": L.attention_init(gen, cfg, device=dev, layers=El),
+            "ln2": ones(El, D),
+            "mlp": L.mlp_init(gen, D, cfg.d_ff, device=dev, layers=El),
+        }
+        params["enc_final_ln"] = ones(D)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -153,16 +156,37 @@ def _layer(tree: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _positions(B: int, S: int, device, offset: int = 0) -> torch.Tensor:
+def _text_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """(B, S) position ids as the rope takes them: (B, S, 3) with t = h = w
+    (text tokens) under M-RoPE."""
+    return torch.stack([pos, pos, pos], dim=-1) if cfg.mrope else pos
+
+
+def _positions(cfg: ModelConfig, B: int, S: int, device, offset: int = 0) -> torch.Tensor:
     pos = offset + torch.arange(S, dtype=torch.int32, device=device)
-    return pos.expand(B, S)
+    return _text_positions(cfg, pos.expand(B, S))
+
+
+def _rope_q(cfg: ModelConfig, q: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    # q: (B, H, S, D); pos: (B, S) or (B, S, 3)
+    if cfg.mrope:
+        return L.apply_mrope(q, pos[:, None], theta=cfg.rope_theta)
+    return L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
+
+
+def _inputs(cfg: ModelConfig, params: Params, tokens, embeds) -> torch.Tensor:
+    """The residual stream's input: ``embeds`` (B, S, D) in the config's
+    dtype, or the scaled embedding of ``tokens``."""
+    if embeds is not None:
+        return embeds.to(_dtype(cfg))
+    return L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
 
 
 def _attn_full(cfg, p, x, pos, window: Optional[int], chunk=1024):
     B, S, _ = x.shape
     q, k, v = L.qkv_proj(p, x, cfg)
-    q = L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
-    k = L.apply_rope(k, pos[:, None], theta=cfg.rope_theta)
+    q = _rope_q(cfg, q, pos)
+    k = _rope_q(cfg, k, pos)
     out = L.chunked_attention(
         q, k, v,
         causal=True,
@@ -195,11 +219,14 @@ def _ffn(cfg: ModelConfig, p: Params, x):
 
 
 def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
-               collect_state: bool = False, ssd_backend: str = "cuda"):
-    """One decoder layer: mixer (attention and/or SSD, summed) → FFN, each
-    with a residual.  Returns the new residual, the layer's post-rope
-    (k, v), (B, KVH, S, D), or None without attention, and, with
-    ``collect_state``, the SSD state after the sequence (else None)."""
+               collect_state: bool = False, ssd_backend: str = "cuda",
+               cross_fn=None):
+    """One decoder layer: mixer (attention and/or SSD, summed) →
+    cross-attention (``cross_fn``, whisper) → FFN, each with a residual.
+    Returns the new residual, the layer's post-rope (k, v), (B, KVH, S,
+    D), or None without attention, with ``collect_state`` the SSD state
+    after the sequence (else None), and the cross-attention's (k, v) of the
+    encoder output (else None)."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     mix, kv, state = None, None, None
     if not cfg.attn_free:
@@ -212,33 +239,98 @@ def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
         else:
             s = L.ssd_mixer(p["ssd"], h, cfg, backend=ssd_backend)
         mix = s if mix is None else mix + s
-    return _ffn(cfg, p, x + mix), kv, state
+    x = x + mix
+    xkv = None
+    if cross_fn is not None:  # whisper: cross-attention between mixer and FFN
+        xo, xkv = cross_fn(p["xattn"], L.rmsnorm(x, p["ln_x"], cfg.norm_eps))
+        x = x + xo
+    return _ffn(cfg, p, x), kv, state, xkv
+
+
+def _encoder(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (B, F, D): per
+    layer, non-causal self-attention with rope on the frame positions, then
+    the MLP, each with a residual; the final norm."""
+    x = frames.to(_dtype(cfg))
+    B, Fr, _ = x.shape
+    pos = _positions(cfg, B, Fr, x.device)
+    for i in range(cfg.enc_layers):
+        p = _layer(params["enc_layers"], i)
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.qkv_proj(p["attn"], h, cfg)
+        q, k = _rope_q(cfg, q, pos), _rope_q(cfg, k, pos)
+        o = L.chunked_attention(q, k, v, causal=False, chunk=min(1024, Fr))
+        o = o.transpose(1, 2).reshape(B, Fr, cfg.n_heads * cfg.head_dim)
+        x = x + L.dense_op(o, p["attn"]["wo"])
+        x = x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _cross_q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    q = L._einsum("bsd,dh->bsh", x, p["wq"])
+    return q.reshape(B, S, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+
+
+def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor, enc_out: torch.Tensor):
+    """Cross-attention of the decoder rows x (B, S, D) over the encoder
+    output (B, F, D), no rope, no mask.  The reference projects q, k and v
+    with a plain ``jnp.einsum``, not ``dense_op``, so they run the plain
+    product here too (extraction still finds their ``dense`` sites); only
+    ``wo`` is a dispatch point.  S != F, so the attention keeps the chunked
+    path, whose contractions go through ``bmm_op``.  Returns the output and
+    the frames' (k, v), (B, KVH, F, D)."""
+    B, S, _ = x.shape
+    Fr = enc_out.shape[1]
+    KVH, hd = cfg.n_kv_heads, cfg.head_dim
+    q = _cross_q(cfg, p, x)
+    k = L._einsum("bfd,dh->bfh", enc_out, p["wk"]).reshape(B, Fr, KVH, hd).transpose(1, 2)
+    v = L._einsum("bfd,dh->bfh", enc_out, p["wv"]).reshape(B, Fr, KVH, hd).transpose(1, 2)
+    o = L.chunked_attention(q, k, v, causal=False, chunk=min(1024, Fr))
+    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
+    return L.dense_op(o, p["wo"]), (k, v)
+
+
+def _cross_fn(cfg: ModelConfig, params: Params, frames: Optional[torch.Tensor]):
+    """Whisper: run the encoder over ``frames`` once, and return each
+    decoder layer's cross-attention over its output; None for a
+    decoder-only model."""
+    if not cfg.enc_layers:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs frames")
+    enc_out = _encoder(cfg, params, frames)
+    return partial(_cross_attn, cfg, enc_out=enc_out)
 
 
 def forward(
-    cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+    cfg: ModelConfig, params: Params, tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None, frames: Optional[torch.Tensor] = None,
     ssd_backend: str = "cuda", remat: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V).  ``ssd_backend`` is the
-    SSD scan's ``kernels/ops.py`` backend: ``cuda`` (K7 for CUDA tensors,
-    the plain version for CPU ones) or ``torch`` (the plain version).
-    ``remat`` keeps only each layer's input for backward and recomputes
-    the layer there (the reference's ``nothing_saveable`` checkpoint); the
-    final norm and the unembed are not recomputed."""
-    _check_family(cfg)
-    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    """Full-sequence forward -> logits (B, S, V), from ``tokens`` (B, S) or
+    precomputed ``embeds`` (B, S, D), plus the encoder's ``frames`` (B, F,
+    D) for whisper.  ``ssd_backend`` is the SSD scan's ``kernels/ops.py``
+    backend: ``cuda`` (K7 for CUDA tensors, the plain version for CPU ones)
+    or ``torch`` (the plain version).  ``remat`` keeps only each decoder
+    layer's input for backward and recomputes the layer there (the
+    reference's ``nothing_saveable`` checkpoint); the encoder, the final
+    norm and the unembed are not recomputed."""
+    x = _inputs(cfg, params, tokens, embeds)
     B, S, _ = x.shape
-    pos = _positions(B, S, x.device)
+    pos = _positions(cfg, B, S, x.device)
+    cross = _cross_fn(cfg, params, frames)
     windows = _windows(cfg)
     for i in range(cfg.n_layers):
         layer = partial(_layer_out, cfg, _layer(params["layers"], i), pos=pos,
-                        window=windows[i], ssd_backend=ssd_backend)
+                        window=windows[i], ssd_backend=ssd_backend, cross_fn=cross)
         x = _recomputed(layer, x) if remat else layer(x)
     return _logits(cfg, params, x)
 
 
-def _layer_out(cfg, p, x, pos, window, ssd_backend):
-    return _layer_fwd(cfg, p, x, pos, window, ssd_backend=ssd_backend)[0]
+def _layer_out(cfg, p, x, pos, window, ssd_backend, cross_fn):
+    return _layer_fwd(cfg, p, x, pos, window, ssd_backend=ssd_backend,
+                      cross_fn=cross_fn)[0]
 
 
 def _recomputed(layer, x):
@@ -262,20 +354,21 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             ssd_backend: str = "cuda") -> torch.Tensor:
     """Next-token cross entropy, in f32, of ``batch["tokens"]`` (B, S+1):
     the forward with ``remat`` on ``tokens[:, :-1]`` against
-    ``tokens[:, 1:]``.  The reference's ``embeds`` / ``labels`` and
-    ``frames`` batches belong to families this slice does not run, and
-    raise as ``forward`` does."""
-    _check_family(cfg)
-    if "tokens" not in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: a batch without tokens ({sorted(batch)}) is not in "
-            "this slice"
-        )
-    tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens[:, :-1], ssd_backend=ssd_backend,
-                     remat=True)
+    ``tokens[:, 1:]``; or of a ``{"embeds": (B, S, D), "labels": (B, S)}``
+    batch, the forward on the embeddings against the labels.  Whisper's
+    batches add the encoder's ``frames``."""
+    frames = batch.get("frames")
+    if "tokens" in batch:
+        tokens = batch["tokens"]
+        logits = forward(cfg, params, tokens[:, :-1], frames=frames,
+                         ssd_backend=ssd_backend, remat=True)
+        labels = tokens[:, 1:]
+    else:
+        logits = forward(cfg, params, embeds=batch["embeds"], frames=frames,
+                         ssd_backend=ssd_backend, remat=True)
+        labels = batch["labels"]
     logp = torch.log_softmax(logits.float(), dim=-1)
-    labels = tokens[:, 1:].long()
+    labels = labels.long()
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
 
 
@@ -321,10 +414,11 @@ def init_cache(
     """Decode cache: the scalar position ``pos``; with attention ``k``/``v``
     of (L, batch, KVH, kv_len, D) in the config's dtype; with an SSD mixer
     its ``state`` of (L, batch, H, N, P) in f32, whose size does not grow
-    with the context.  ``device="meta"`` allocates nothing."""
-    _check_family(cfg)
+    with the context; with an encoder the cross-attention's ``xk``/``xv``
+    of (L, batch, KVH, enc_frames, D), which ``prefill`` fills and decoding
+    only reads.  ``device="meta"`` allocates nothing."""
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dt = _dtype(cfg)
     cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     if not cfg.attn_free:
         kv_len = cache_max_len(cfg, max_seq)
@@ -336,21 +430,28 @@ def init_cache(
             (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
             dtype=torch.float32, device=dev,
         )
+    if cfg.enc_layers:
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_frames, cfg.head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["xv"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
 def prefill(
-    cfg: ModelConfig, params: Params, cache: Params, tokens: torch.Tensor
+    cfg: ModelConfig, params: Params, cache: Params,
+    tokens: Optional[torch.Tensor] = None, embeds: Optional[torch.Tensor] = None,
+    frames: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Params]:
-    """Process the prompt, fill the cache, return last-position logits
-    (B, 1, V) and the new cache (positions ``0..S-1`` written, the SSD
-    state after the prompt, ``pos = S``).  The SSD mixer scans in chunks of
-    ``min(64, S)``, which must divide S, as in the reference: a prompt
-    longer than 64 tokens must be a multiple of 64."""
-    _check_family(cfg)
-    x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
+    """Process the prompt (``tokens`` or ``embeds``, and whisper's
+    ``frames``), fill the cache, return last-position logits (B, 1, V) and
+    the new cache (positions ``0..S-1`` written, the SSD state after the
+    prompt, the encoder output's cross-attention k/v, ``pos = S``).  The SSD
+    mixer scans in chunks of ``min(64, S)``, which must divide S, as in the
+    reference: a prompt longer than 64 tokens must be a multiple of 64."""
+    x = _inputs(cfg, params, tokens, embeds)
     B, S, _ = x.shape
-    pos = _positions(B, S, x.device)
+    pos = _positions(cfg, B, S, x.device)
+    cross = _cross_fn(cfg, params, frames)
     windows = _windows(cfg)
     kv_len = cache["k"].shape[3] if "k" in cache else 0
     if kv_len and kv_len < S and S % kv_len:
@@ -359,10 +460,11 @@ def prefill(
             f"prefill of {S} tokens into a ring cache of {kv_len}: S must be "
             "a multiple of the cache length"
         )
-    ks, vs, states = [], [], []
+    ks, vs, states, xks, xvs = [], [], [], [], []
     for i in range(cfg.n_layers):
-        x, kv, state = _layer_fwd(cfg, _layer(params["layers"], i), x, pos,
-                                  windows[i], collect_state=True)
+        x, kv, state, xkv = _layer_fwd(cfg, _layer(params["layers"], i), x, pos,
+                                       windows[i], collect_state=True,
+                                       cross_fn=cross)
         if kv is not None:
             k, v = kv
             if kv_len < S:
@@ -374,6 +476,9 @@ def prefill(
             vs.append(v)
         if state is not None:
             states.append(state)
+        if xkv is not None:
+            xks.append(xkv[0])
+            xvs.append(xkv[1])
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = L.unembed(x[:, -1:], params["embed"])
     if cfg.logit_softcap:
@@ -383,6 +488,8 @@ def prefill(
         new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
     if states:
         new_cache["state"] = torch.stack(states)
+    if xks:
+        new_cache["xk"], new_cache["xv"] = torch.stack(xks), torch.stack(xvs)
     new_cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
     return logits, new_cache
 
@@ -414,19 +521,22 @@ def _live_columns(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return keep.nonzero(as_tuple=True)
 
 
-def _decode_layer(cfg, p, x, pos, window, write_kv, length, state=None):
+def _decode_layer(cfg, p, x, pos, window, write_kv, length, state=None,
+                  cross=None):
     """One layer of a cache step: with attention, project, rope,
     ``write_kv(k1, v1)`` into the cache (which returns the (K, V) view to
     attend) and attend against the cache; with an SSD mixer, one step of
-    its recurrence from ``state``; then the FFN.  Returns the new residual
-    and the new SSD state (None without one)."""
+    its recurrence from ``state``; with ``cross`` (whisper: the layer's
+    ``xk``, ``xv`` and the encoder's frame count), attend the encoder's
+    cached k/v; then the FFN.  Returns the new residual and the new SSD
+    state (None without one)."""
     B, C, _ = x.shape
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     mix = None
     if not cfg.attn_free:
         q, k1, v1 = L.qkv_proj(p["attn"], h, cfg)
-        q = L.apply_rope(q, pos[:, None], theta=cfg.rope_theta)
-        k1 = L.apply_rope(k1, pos[:, None], theta=cfg.rope_theta)
+        q = _rope_q(cfg, q, pos)
+        k1 = _rope_q(cfg, k1, pos)
         k_view, v_view = write_kv(k1, v1)
         a = L.decode_attention(
             q, k_view, v_view, length=length, window=window,
@@ -439,7 +549,14 @@ def _decode_layer(cfg, p, x, pos, window, write_kv, length, state=None):
     if cfg.ssm_state:
         s, state = L.ssd_decode_step(p["ssd"], h, state, cfg)
         mix = s if mix is None else mix + s
-    return _ffn(cfg, p, x + mix), state
+    x = x + mix
+    if cross is not None:
+        xk, xv, n_frames = cross
+        q = _cross_q(cfg, p["xattn"], L.rmsnorm(x, p["ln_x"], cfg.norm_eps))
+        a = L.decode_attention(q, xk, xv, length=n_frames)
+        a = a.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
+        x = x + L.dense_op(a, p["xattn"]["wo"])
+    return _ffn(cfg, p, x), state
 
 
 def serve_step(
@@ -466,10 +583,10 @@ def serve_step(
     valid columns are written — and, paged, only those whose page-table
     entry is a real page — so an idle lane can never touch a page owned by
     a live request.  Only pure-attention decoders are supported, as in the
-    reference: an SSD state has no variable-width chunk step, and
-    ``ServeConfig.resolved_for`` routes those models to ``decode_step``."""
-    _check_family(cfg)
-    if cfg.attn_free or cfg.ssm_state:
+    reference: an SSD state and encoder cross-attention have no
+    variable-width chunk step, and ``ServeConfig.resolved_for`` routes
+    those models to ``decode_step``."""
+    if cfg.attn_free or cfg.ssm_state or cfg.enc_layers:
         raise NotImplementedError(
             "serve_step needs a pure-attention decoder; use decode_step"
         )
@@ -510,8 +627,9 @@ def serve_step(
                 return page_view(K, table), page_view(V, table)
             return K, V
 
-        x, _ = _decode_layer(cfg, _layer(params["layers"], i), x, pos_mat,
-                             windows[i], write_kv, length)
+        x, _ = _decode_layer(cfg, _layer(params["layers"], i), x,
+                             _text_positions(cfg, pos_mat), windows[i], write_kv,
+                             length)
     # the final norm over every column (the reference's order: its rmsnorm
     # key is at tokens = B·C), then each lane's last valid position; the
     # gather before the unembed keeps the dense workload key at m = B
@@ -534,8 +652,8 @@ def decode_step(
     continuous-batching arena layout where each slot advances on its own
     (writes land at per-lane ring slots, attention masks to per-lane
     lengths).  An SSD layer advances its slice of ``cache["state"]`` by one
-    step of the recurrence, in place."""
-    _check_family(cfg)
+    step of the recurrence, in place; whisper's cross-attention attends all
+    ``enc_frames`` positions of ``cache["xk"]``/``["xv"]``."""
     x = L.embed(tokens, params["embed"]) * math.sqrt(cfg.d_model)
     B = x.shape[0]
     p_now = cache["pos"]
@@ -547,6 +665,8 @@ def decode_step(
         slots = (pos_vec % kv_len).long()
         lanes = torch.arange(B, device=x.device)
         length = torch.clamp(pos_vec + 1, max=kv_len)
+    n_frames = torch.tensor(cfg.enc_frames, device=x.device) if cfg.enc_layers else None
+    pos = _text_positions(cfg, pos_vec[:, None])
     windows = _windows(cfg)
     for i in range(cfg.n_layers):
         if kv_len:
@@ -562,9 +682,9 @@ def decode_step(
                 return K, V
 
         state = cache["state"][i] if "state" in cache else None
-        x, state = _decode_layer(cfg, _layer(params["layers"], i), x,
-                                 pos_vec[:, None], windows[i], write_kv, length,
-                                 state)
+        cross = (cache["xk"][i], cache["xv"][i], n_frames) if cfg.enc_layers else None
+        x, state = _decode_layer(cfg, _layer(params["layers"], i), x, pos,
+                                 windows[i], write_kv, length, state, cross)
         if state is not None:
             cache["state"][i].copy_(state)
     logits = _logits(cfg, params, x)

@@ -76,6 +76,20 @@ class ServeConfig:
         return self.token_budget or (self.max_slots + self.prefill_chunk)
 
 
+def check_servable(cfg) -> None:
+    """Serving prefills each prompt from its tokens alone, as the
+    reference's engine does (``prefill(params, cache, tokens)``); an
+    encoder-decoder model (whisper) also needs its encoder's frames, which
+    no request carries, so it is refused here rather than deep in the
+    prefill."""
+    if cfg.enc_layers:
+        raise ValueError(
+            f"{cfg.name}: serving prefills from tokens alone, and this "
+            "encoder-decoder model needs the encoder's frames; call "
+            "prefill(..., frames=) and decode_step directly"
+        )
+
+
 def coerce_serve_config(config, caller: str) -> ServeConfig:
     """A copy of ``config`` (a ServeConfig), or the defaults for None."""
     if isinstance(config, ServeConfig):

@@ -25,7 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.registry import build_model
 from ..obs import emit, metrics, trace_enabled
-from .config import ServeConfig, coerce_serve_config
+from .config import ServeConfig, check_servable, coerce_serve_config
 from .request import Request
 
 
@@ -50,6 +50,7 @@ class ServingEngine:
         params,
         config: Optional[ServeConfig] = None,
     ):
+        check_servable(cfg)
         self.config = coerce_serve_config(config, "ServingEngine")
         sc = self.config
         self.cfg = cfg

@@ -30,7 +30,7 @@ from ..device import resolve_device
 # cache entries with a (layers, batch/slot, ...) layout that admission copies
 # lane by lane, as in the reference; "pos" (per-slot scalar) is handled
 # separately
-_LANE_KEYS = ("k", "v", "state")
+_LANE_KEYS = ("k", "v", "state", "xk", "xv")
 
 
 def snap_page_size(kv_len: int, page_size: int) -> int:
@@ -102,8 +102,8 @@ class KVArena:
 
     def load_slot(self, slot: int, req_cache: Dict[str, Any]) -> None:
         """Copy a batch=1 prefill cache into a slot lane (admission): every
-        lane the model's cache has (``k``/``v``, the SSD ``state``) and the
-        slot's position.  The prefill cache's kv length matches the arena's
+        lane the model's cache has (``k``/``v``, the SSD ``state``, the
+        encoder's ``xk``/``xv``) and the slot's position.  The prefill cache's kv length matches the arena's
         by construction (both derive from the same config + max_seq)."""
         for key in _LANE_KEYS:
             if key in self.cache:
@@ -115,7 +115,8 @@ class KVArena:
         pool).  ``used`` — how many positions the request wrote (its final
         ``pos``): only that prefix of ``k``/``v`` is zeroed, the rest of the
         lane is still zero from the previous release; the SSD ``state``,
-        which every decode tick rewrites, is zeroed whole."""
+        which every decode tick rewrites, and the encoder's ``xk``/``xv``
+        are zeroed whole."""
         for key in _LANE_KEYS:
             if key not in self.cache:
                 continue

@@ -49,7 +49,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.registry import build_model
 from ..obs import emit, metrics, trace_enabled
-from .config import ServeConfig, coerce_serve_config
+from .config import ServeConfig, check_servable, coerce_serve_config
 from .engine import logits_to_numpy, sample
 from .kv import KVArena, PagedKVArena, SlotPool
 from .request import Request
@@ -62,6 +62,7 @@ class ContinuousBatchingScheduler:
         params,
         config: Optional[ServeConfig] = None,
     ):
+        check_servable(cfg)
         self.config = coerce_serve_config(
             config, "ContinuousBatchingScheduler"
         ).resolved_for(cfg)

@@ -970,3 +970,38 @@ def test_cuda_dispatched_train_step_against_plain():
     _, g_p = value_and_grad(model.loss, params, batch)
     for a, b in zip(tree_leaves(g_d), tree_leaves(g_p)):
         assert float(b.abs().max()) > 0 and _rel(a, b) <= 1e-4
+
+
+# whisper-medium's encoder self-attention: 16 heads of 64 over 1500 frames,
+# not causal.  No divisor of 1500 is a multiple of 8, so every tile K3 takes
+# there is fma
+@pytest.mark.parametrize("bq,bkv", [(60, 50), (125, 125), (250, 20), (30, 300)])
+def test_cuda_flash_attention_non_causal_at_the_whisper_encoder_shape(bq, bkv):
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, bq + bkv, 16, 16, 1500)
+    _k3_against_plain(q, k, v, bq, bkv, "fma", causal=False)
+    assert _replays_the_same_bits(
+        lambda: fa.flash_attention(q, k, v, causal=False, block_q=bq, block_kv=bkv))
+
+
+# whisper-medium's cross-attention decode: 4 slots, 16 kv heads of one query
+# head, D 64, over the fixed 1500-frame encoder cache, at kv tiles of 1 to
+# 375 rows (a larger one overflows shared memory)
+@pytest.mark.parametrize("block_kv", [1, 4, 50, 125, 375])
+def test_cuda_decode_attention_over_the_whisper_cross_attention_cache(block_kv):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(block_kv)
+    B, KVH, G, T, D = 4, 16, 1, 1500, 64
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    k = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    v = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    plan = fa.decode_launch_config(B, KVH, G, T, D, block_kv,
+                                   repro_torch.kernels.sm_count(dev))
+    for lengths in ([T] * B, [T, 1, 777, T - 3]):
+        bias = _bias(lengths, T, dev)
+        got = fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv)
+        torch.cuda.synchronize()
+        assert fa.decode_flash_attention.last_launch == plan
+        assert float((got - tref.decode_attention(q, k, v, bias)).abs().max()) < 1e-4
+    assert _replays_the_same_bits(
+        lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))

@@ -179,6 +179,26 @@ def test_decode_splits_reach_one_wave_at_the_serving_shape_at_every_tile():
         assert cfg["grid"][0] * cfg["grid"][1] >= 132
 
 
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_decode_splits_leave_no_split_empty_over_the_whisper_cross_cache(sms):
+    """whisper-medium's cross-attention decode: b4, 16 kv heads of one query
+    head, D 64, T = 1500 encoder frames.  At every kv tile that divides 1500
+    and fits in shared memory, each split has rows and the splits cover the
+    cache once; a larger tile is rejected for shared memory."""
+    T, taken = 1500, []
+    for bkv in (d for d in range(1, T + 1) if T % d == 0):
+        try:
+            cfg = fa.decode_launch_config(4, 16, 1, T, 64, bkv, sms)
+        except ScheduleRejected as e:
+            assert e.reason == "shared_memory" and bkv > 375
+            continue
+        taken.append(bkv)
+        rows, splits = cfg["rows_per_split"], cfg["splits"]
+        assert (splits - 1) * rows < T <= splits * rows
+        assert rows % bkv == 0 or rows < bkv
+    assert taken == [d for d in range(1, 376) if T % d == 0]
+
+
 # ---------------------------------------------------------------------------
 # lowering
 # ---------------------------------------------------------------------------
@@ -312,6 +332,10 @@ OPS = JOPS  # every op the reference extracts from the decode trace
     ("smollm-135m", True, dict(batch=2, max_seq=32)),
     ("gemma2-2b", True, dict(batch=2, max_seq=32, chunk=8)),
     ("qwen1.5-110b", True, dict(batch=3, max_seq=24, paged=True, page_size=8)),
+    ("whisper-medium", False, dict(batch=4, max_seq=256)),
+    ("whisper-medium", True, dict(batch=2, max_seq=32, paged=True, chunk=4)),
+    ("qwen2-vl-2b", False, dict(batch=4, max_seq=256)),
+    ("qwen2-vl-2b", True, dict(batch=2, max_seq=32, paged=True, chunk=4)),
 ])
 @pytest.mark.parametrize("dispatchable_only", [False, True])
 def test_decode_extraction_keys_and_weights_match_reference(arch, smoke, kw,
@@ -327,6 +351,15 @@ def test_decode_extraction_keys_and_weights_match_reference(arch, smoke, kw,
         # the norm of every decode tick, and of every 32-wide serve tick
         assert got["rmsnorm/d=576/eps=1e-06/tokens=4"] == 61
         assert got["rmsnorm/d=576/eps=1e-06/tokens=128"] == 61
+    if arch == "whisper-medium" and not smoke:
+        # cross-attention over the 1500 encoder frames, self-attention over
+        # the 256-position cache: K5's two shapes, 24 layers each
+        assert len(got) == (9 if dispatchable_only else 11)
+        assert got["attention_decode/b=4/d=64/h=16/kvh=16/softcap=0.0/t=1500"] == 24
+        assert got["attention_decode/b=4/d=64/h=16/kvh=16/softcap=0.0/t=256"] == 24
+    if arch == "qwen2-vl-2b" and not smoke:
+        assert len(got) == (8 if dispatchable_only else 9)
+        assert got["attention_decode/b=4/d=128/h=12/kvh=2/softcap=0.0/t=256"] == 28
 
 
 def test_decode_extraction_refuses_ops_of_later_slices():

@@ -35,6 +35,10 @@ OPS = JOPS  # every op the reference extracts
     ("gemma2-2b", True, 32),
     ("gemma2-2b", True, 1100),  # seq > the 1024 kv chunk: two chunk steps
     ("qwen1.5-110b", True, 16),
+    ("whisper-medium", False, 256),
+    ("whisper-medium", True, 16),
+    ("qwen2-vl-2b", False, 256),
+    ("qwen2-vl-2b", True, 16),
 ])
 @pytest.mark.parametrize("dispatchable_only", [False, True])
 def test_extracted_keys_and_weights_match_reference(arch, smoke, seq,
@@ -52,6 +56,18 @@ def test_extracted_keys_and_weights_match_reference(arch, smoke, seq,
         assert got.get("sfm/m=2304/n=256") == (None if dispatchable_only else 30)
     if seq == 1100:
         assert got.get("sfm/m=4400/n=1024") == (None if dispatchable_only else 4)
+    if not smoke and arch == "whisper-medium":
+        assert len(got) == (17 if dispatchable_only else 20)
+        # the encoder's 24 non-causal layers at the 1500 frames; q/k/v of the
+        # cross-attention are plain einsums, found at m1500 (k, v) and m256 (q)
+        assert got["attention/b=1/causal=0/d=64/h=16/kvh=16/s=1500/softcap=0.0/window=0"] == 24
+        assert got["dense/k=1024/m=1500/n=1024"] == got["dense/k=1024/m=256/n=1024"] == 144
+        assert got["batch_matmul/b=16/k=64/m=256/n=1024"] == 48
+        assert got["rmsnorm/d=1024/eps=1e-06/tokens=1500"] == 49
+        assert got["rmsnorm/d=1024/eps=1e-06/tokens=256"] == 73
+    if not smoke and arch == "qwen2-vl-2b":
+        assert len(got) == (9 if dispatchable_only else 10)
+        assert got["attention/b=1/causal=1/d=128/h=12/kvh=2/s=256/softcap=0.0/window=0"] == 28
 
 
 def test_extraction_refuses_ops_of_later_slices():

@@ -113,12 +113,6 @@ def test_rmsnorm_and_rope_match_reference():
     )
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-2b"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        TT.init_params(tcfg(arch, smoke=True), device="meta")
-
-
 @pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b", "olmoe-1b-7b", "arctic-480b"])
 def test_ssm_families_init_with_the_reference_shapes_and_dtypes(arch):
     jc, tc = jcfg(arch, smoke=True), tcfg(arch, smoke=True)

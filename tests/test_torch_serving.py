@@ -56,7 +56,7 @@ def _f32_pair(arch):
     return jc, tc, jp, tp
 
 
-@pytest.fixture(scope="module", params=["smollm-135m", "gemma2-2b"])
+@pytest.fixture(scope="module", params=["smollm-135m", "gemma2-2b", "qwen2-vl-2b"])
 def pair(request):
     return _f32_pair(request.param)
 

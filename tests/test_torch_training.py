@@ -125,15 +125,6 @@ def test_loss_and_every_gradient_match_the_reference(arch, request):
     assert all(float(g.abs().max()) > 0 for g in TO.tree_leaves(tg))
 
 
-def test_loss_refuses_a_batch_of_a_later_slice(smollm):
-    _, tc, _, tp = smollm
-    with pytest.raises(NotImplementedError, match="without tokens"):
-        TT.loss_fn(tc, tp, {"embeds": torch.zeros(1, 4, tc.d_model),
-                            "labels": torch.zeros(1, 4, dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="embedding inputs"):
-        TT.loss_fn(tcfg("qwen2-vl-2b", smoke=True), tp, {})
-
-
 def test_eval_step_is_the_loss_without_a_graph(smollm):
     _, tc, _, tp = smollm
     batch = {"tokens": torch.from_numpy(_tokens(tc.vocab, 2, 16))}
