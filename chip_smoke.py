@@ -150,14 +150,31 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (where one differs, the plain top-2 logits must be a near tie) and every
    step launches K5 24 times over the 1500-frame cache and 24 over the
    256-position one; bf16 steps timed and one traced; then phase 6 at the
-   two models' shapes.
+   two models' shapes;
+17. the measurement fleet: phase 4's smollm-135m forward tasks tuned
+   through ``cached+pool://workers=2`` (two spawned worker processes on
+   the card, timing in turns under the card's timing lock) and through
+   ``rpc://`` to two ``spawn_local_workers`` processes, then one dense task
+   with one RPC worker killed after the first batch (its budget must
+   complete on the survivor); no timeout, crash, quarantine or
+   ``MeasurementFault`` but that one death, every candidate of the budget
+   measured, both RPC workers used; the workers' launches (K1-K4), each
+   worker reading its wrappers' counters around every timing and sending
+   the difference back in the result's meta, summed by kernel and variant;
+   the pool's database
+   dispatched into the full-width forward against plain within
+   ``TOL_LOGITS_REL``; each best schedule scored by ``AnalyticalRunner``
+   beside its measured ms; the legacy ``search/runner.py`` on one dense
+   schedule; the phase's trace folded by ``obs/report.py``, whose fleet
+   counts must equal the RPC runners' stats.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the thirteen paths (forward: phases 4-5; serving: phase 7;
+each of the fourteen paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
-whisper forward and decoding: phase 16) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
+whisper forward and decoding: phase 16; the fleet: phase 17, the
+parent's launches only) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
 ``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
 serving path's tuning (every one ``splitk``), the olmoe forward and its
@@ -186,18 +203,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# the card's published peaks (H100 SXM data sheet, dense): f32 outside the
-# tensor cores, TF32 and bf16 on them, and HBM3 bandwidth.  A product of
-# two f32 operands takes three TF32 products (3xTF32: K1's tc variant, K7
-# in f32); one whose other operand is bf16, exact in TF32, takes two (K7's
-# scores.x, state and C.h in bf16); two bf16 operands take one bf16 product
-# (K7's C.B^T in bf16)
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
-PEAK_HBM_BYTES = 3.35e12
+sys.path.insert(0, str(SRC))
+try:
+    # the card's published peaks (H100 SXM data sheet, dense), one source
+    # for the port's roofline and this script: f32 outside the tensor cores,
+    # TF32 and bf16 on them, and HBM3 bandwidth.  A product of two f32
+    # operands takes three TF32 products (3xTF32: K1's tc variant, K7 in
+    # f32); one whose other operand is bf16, exact in TF32, takes two (K7's
+    # scores.x, state and C.h in bf16); two bf16 operands take one bf16
+    # product (K7's C.B^T in bf16)
+    from repro_torch.backends.analysis import (
+        PEAK_3XTF32_FLOPS,
+        PEAK_BF16_FLOPS,
+        PEAK_F32_FLOPS,
+        PEAK_HBM_BYTES,
+        PEAK_TF32_FLOPS,
+    )
+except ModuleNotFoundError as e:
+    if e.name != "repro_torch":
+        raise
+    raise SystemExit("chip_smoke: src/repro_torch not found beside this script; "
+                     "run it from the root of a checkout") from None
 
 SEQ = 256
 BATCH = 1
@@ -288,6 +314,13 @@ WHISPER_STEPS = 16
 # f32 parameters, dispatched against plain: f32 sums in other orders (and
 # the encoder's 24 layers before the decoder's), relative to max |logit|
 TOL_F32_LOGITS_REL = 1e-4
+# phase 17: the measurement fleet, smollm-135m's forward tasks tuned through
+# two spawned pool workers and two RPC workers on the card; the dense task
+# tuned again with one RPC worker killed mid-run, whose pool-tuned best the
+# legacy serial runner also times
+FLEET_WORKERS = 2
+FLEET_KILL_TASK = "dense/k=576/m=256/n=576"
+LOCK_TAKES = 1000
 
 
 def fail(msg: str) -> None:
@@ -1146,7 +1179,16 @@ def variants_since(before: dict, kernel: str = "matmul") -> dict:
     return {k: n - before.get(k, 0) for k, n in read_variants(kernel).items()}
 
 
-def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_PER_TASK):
+# the search every path tunes with: one round measures 8 candidates
+TUNE_SEARCH = dict(max_trials=32, init_random=8, population=16, measure_per_round=8,
+                   rollout_factor=2)
+
+
+def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_PER_TASK,
+               runner_spec="cached+local"):
+    """Extract (the forward's tasks unless ``extract`` is given) and tune the
+    schedulable tasks through ``runner_spec`` (a spec or a built runner,
+    which the caller closes) on the card; returns (tasks, best)."""
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
@@ -1172,12 +1214,9 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_
               f"elements) and the lowering (a grid of at most {grid} steps) "
               f"accept, so not tuned: {[t.key for t in none]}")
         tasks = [t for t in tasks if schedulable(t)]
-    search = SearchConfig(
-        max_trials=32, init_random=8, population=16, measure_per_round=8,
-        rollout_factor=2,
-    )
+    search = SearchConfig(**TUNE_SEARCH)
     config = repro_torch.TuneConfig(
-        search=search, runner_spec="cached+local", backend="cuda",
+        search=search, runner_spec=runner_spec, backend="cuda",
         device="cuda", warm_start=False,
     )
     t0 = time.perf_counter()
@@ -3202,6 +3241,274 @@ def phase_whisper_decode(cfg, db, gen_seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the measurement fleet
+# ---------------------------------------------------------------------------
+
+
+def tally_worker_launches(runner, tally: Counter, uneven: list) -> None:
+    """Sum the kernel launches that ``runner``'s worker processes made,
+    which the parent's counters do not see: a worker reads its wrappers'
+    counters around each candidate's timing and returns the difference in
+    the result's ``meta["launches"]`` (``name`` and ``name/variant``).  A
+    measured candidate whose lowering names a kernel that did not launch
+    fails the phase; one that launched it other than once a call of its
+    timing (one first call, then warmup and repeats when it ran in time)
+    goes into ``uneven``."""
+    run = runner.run
+
+    def counted(inputs):
+        results = run(inputs)
+        for mi, res in zip(inputs, results):
+            if res.source != "measured":
+                continue
+            launched = res.meta.get("launches", {})
+            tally.update(launched)
+            kernel = res.meta.get("pallas_kernel")
+            if kernel and not launched.get(kernel):
+                fail(f"{mi.workload_key}: the worker's lowering names {kernel}, "
+                     f"which did not launch (launches {launched})")
+            calls = 1 + runner.warmup + runner.repeats if res.ok else 1
+            if kernel and launched[kernel] != calls:
+                uneven.append((mi.workload_key, launched, calls))
+        return results
+
+    runner.run = counted
+
+
+def check_fleet_stats(tag: str, stats: dict, deaths: int = 0) -> None:
+    """No timeout, crash or quarantine, and ``deaths`` worker deaths."""
+    bad = {k: stats.get(k, 0) for k in ("timeouts", "crashes", "quarantined_traces",
+                                        "quarantine_rejects")}
+    if any(bad.values()) or stats.get("worker_deaths", 0) != deaths:
+        fail(f"{tag}: runner stats {stats}; want no timeout, crash or quarantine "
+             f"and {deaths} worker deaths")
+
+
+def same_hash_rows(tasks, db_a, db_b) -> list:
+    """(key, ms in db_a, ms in db_b) for each trace both databases hold."""
+    from repro_torch.search.measure.hashing import structural_hash
+
+    rows = []
+    for t in tasks:
+        a = {structural_hash(t.key, r.trace()): r.latency_s for r in db_a.records.get(t.key, [])}
+        for r in db_b.records.get(t.key, []):
+            h = structural_hash(t.key, r.trace())
+            if h in a:
+                rows.append((t.key, a[h] * 1e3, r.latency_s * 1e3))
+    return rows
+
+
+def phase_fleet(cfg, local_db, local_tune_s: float, gen_seed: int = 0) -> dict:
+    """smollm-135m's forward tasks tuned through two spawned pool workers
+    and through two RPC workers (then one dense task with one RPC worker
+    killed mid-run), the pool's database dispatched into the full-width
+    forward, each best schedule scored by the analytical runner, the legacy
+    serial runner on one dense schedule, and the phase's trace folded."""
+    import torch
+
+    import repro_torch
+    from repro_torch.backends.analysis import AnalyticalRunner
+    from repro_torch.core.validator import validate_trace
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import RingBufferSink, configure_tracing, disable_tracing
+    from repro_torch.obs.report import fold, render_text
+    from repro_torch.search.database import Database, parse_workload_key
+    from repro_torch.search.evolutionary import SearchConfig
+    from repro_torch.search.measure import create_runner, spawn_local_workers
+    from repro_torch.search.measure.local import timing_lock
+    from repro_torch.search.runner import LocalRunner as LegacyRunner
+
+    t_phase = time.perf_counter()
+    sink = RingBufferSink()
+    configure_tracing(sink)
+    worker_launches: Counter = Counter()
+    uneven: list = []  # candidates that launched other than once a call
+    budget = ROUNDS_PER_TASK * TUNE_SEARCH["measure_per_round"]
+    try:
+        # 1. the pool: two spawned workers sharing the card, timing in turns
+        pool_db = Database()
+        t0 = time.perf_counter()
+        pool = create_runner(f"cached+pool://workers={FLEET_WORKERS}", backend="cuda",
+                             device="cuda")
+        tally_worker_launches(pool.inner, worker_launches, uneven)
+        try:
+            tasks, pool_best = phase_tune(cfg, pool_db, tag="fleet-pool", runner_spec=pool)
+            pool_stats = pool.stats()
+        finally:
+            pool.close()
+        pool_s = time.perf_counter() - t0
+        inner = {k[len("inner_"):]: v for k, v in pool_stats.items() if k.startswith("inner_")}
+        check_fleet_stats("pool", inner)
+        n_pool = pool_stats["cache_hits"] + pool_stats["cache_misses"]
+        if n_pool < budget * len(tasks) or inner["measured"] != pool_stats["cache_misses"]:
+            fail(f"pool measured {inner['measured']} of {n_pool} candidates; want every "
+                 f"one of at least {budget * len(tasks)}")
+
+        # 2. the RPC fleet: two worker processes, then one killed mid-run
+        rpc_db = Database()
+        t0 = time.perf_counter()
+        handles = spawn_local_workers(FLEET_WORKERS, backend="cuda", device="cuda")
+        spawn_s = time.perf_counter() - t0
+        address = ",".join(h.addr for h in handles)
+        rpc_stats = []
+        try:
+            rpc = create_runner(f"rpc://{address}", backend="cuda", device="cuda")
+            tally_worker_launches(rpc, worker_launches, uneven)
+            try:
+                phase_tune(cfg, rpc_db, tag="fleet-rpc", runner_spec=rpc)
+                rpc_stats.append(rpc.stats())
+            finally:
+                rpc.close()
+            rpc_s = time.perf_counter() - t0
+            check_fleet_stats("rpc", rpc_stats[0])
+            used = [a for a, w in rpc_stats[0]["per_worker"].items() if w["candidates"] > 0]
+            if len(used) != FLEET_WORKERS:
+                fail(f"rpc run used workers {used} of {address}")
+            if rpc_stats[0]["measured"] < budget * len(tasks):
+                fail(f"rpc measured {rpc_stats[0]['measured']} candidates; want at "
+                     f"least {budget * len(tasks)}")
+
+            name, kw = parse_workload_key(FLEET_KILL_TASK)
+            kill_search = SearchConfig(**{**TUNE_SEARCH, "max_trials": 2 * budget})
+            rpc = create_runner(f"rpc://{address}", backend="cuda", device="cuda")
+            tally_worker_launches(rpc, worker_launches, uneven)
+            run = rpc.run
+
+            def run_then_kill(inputs):
+                # the first batch lands on both workers; the next finds one dead
+                res = run(inputs)
+                if handles[0].proc.poll() is None:
+                    handles[0].kill()
+                return res
+
+            rpc.run = run_then_kill
+            t0 = time.perf_counter()
+            try:
+                killed = repro_torch.tune_workload(name, kw, database=Database(), config=(
+                    repro_torch.TuneConfig(search=kill_search, runner_spec=rpc,
+                                           backend="cuda", device="cuda",
+                                           warm_start=False)))
+                rpc_stats.append(rpc.stats())
+            finally:
+                rpc.close()
+            kill_s = time.perf_counter() - t0
+        finally:
+            for h in handles:
+                h.kill()
+        check_fleet_stats("rpc kill-one", rpc_stats[1], deaths=1)
+        print(f"[fleet] kill-one {FLEET_KILL_TASK}: {killed.trials} trials, best "
+              f"{killed.best_latency_s * 1e3:.4f} ms, {kill_s:.1f} s; stats {rpc_stats[1]}")
+        if killed.trials < kill_search.max_trials or not math.isfinite(killed.best_latency_s):
+            fail(f"kill-one run measured {killed.trials} of {kill_search.max_trials} "
+                 f"trials, best {killed.best_latency_s}")
+        survivor = rpc_stats[1]["per_worker"][handles[1].addr]
+        if rpc_stats[1]["retries"] < 1 or survivor["candidates"] < kill_search.max_trials // 2:
+            fail(f"kill-one run: no retry on the survivor ({rpc_stats[1]})")
+    finally:
+        disable_tracing()
+
+    # the workers' launches, read from their counters (the parent's see none)
+    by_kernel = {k: dict(launches=worker_launches[k], by_variant={
+        name.split("/", 1)[1]: n for name, n in sorted(worker_launches.items())
+        if name.startswith(k + "/")}) for k in KERNELS if worker_launches[k]}
+    print(f"[fleet] worker launches by kernel and variant (pool and rpc): {by_kernel}; "
+          f"{len(uneven)} candidates launched other than once a call of their "
+          f"timing {uneven[:5]}")
+    for k in FORWARD_KERNELS:
+        if not worker_launches[k]:
+            fail(f"{k} was not launched in the fleet's workers")
+
+    for key, local_ms, pool_ms in same_hash_rows(tasks, local_db, pool_db):
+        print(f"[fleet] same trace: {key} local {local_ms:.4f} ms, pool {pool_ms:.4f} ms")
+
+    # 3. the pool's database dispatched into the full-width forward
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed + 1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
+    before = read_counts()
+    with torch.no_grad():
+        plain = T.forward(cfg, params, toks)
+        with repro_torch.DispatchContext(pool_db, tasks=tasks, backend="cuda") as ctx:
+            tuned = T.forward(cfg, params, toks)
+        torch.cuda.synchronize()
+    fwd_counts = {k: n - before[k] for k, n in read_counts().items()}
+    rel = float((tuned.float() - plain.float()).abs().max() / plain.float().abs().max())
+    print(f"[fleet] pool-tuned forward {tuple(tuned.shape)}: max_rel_err {rel:.4e} "
+          f"(tol {TOL_LOGITS_REL:g}); dispatch {dict(ctx.stats)}; launches {fwd_counts}")
+    if not torch.isfinite(tuned.float()).all() or rel > TOL_LOGITS_REL:
+        fail(f"pool-tuned forward: rel err {rel} > {TOL_LOGITS_REL} or not finite")
+    for k in ("matmul", "flash_attention"):
+        if fwd_counts[k] <= 0:
+            fail(f"{k} was not launched in the pool-tuned forward")
+    del params
+
+    # 4. the analytical runner beside each measured best
+    analytical = {}
+    for t in tasks:
+        rec = pool_db.best(t.key)
+        sch = validate_trace(t.func, rec.trace()).schedule
+        est_ms = AnalyticalRunner().measure(sch).latency_s * 1e3
+        analytical[t.key] = dict(estimate_ms=est_ms, measured_ms=rec.latency_s * 1e3)
+        print(f"[fleet] {t.key}: analytical {est_ms:.4f} ms, measured "
+              f"{rec.latency_s * 1e3:.4f} ms")
+
+    # the legacy serial runner on one dense schedule
+    name, kw = parse_workload_key(FLEET_KILL_TASK)
+    func = get_workload(name, **kw)
+    sch = validate_trace(func, pool_db.best(FLEET_KILL_TASK).trace()).schedule
+    legacy = LegacyRunner(device="cuda")
+    got, base = legacy.measure(sch), legacy.baseline(func)
+    print(f"[fleet] legacy runner {FLEET_KILL_TASK}: {got.latency_s * 1e3:.4f} ms "
+          f"{got.error!r}, plain {base * 1e3:.4f} ms")
+    if not (got.ok and math.isfinite(base)):
+        fail(f"legacy runner: {got}, baseline {base}")
+
+    # the timing lock's host cost, taken uncontended as every measurement
+    # of phases 4-16 takes it
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for _ in range(LOCK_TAKES):
+        with timing_lock(dev):
+            pass
+    lock_us = (time.perf_counter() - t0) / LOCK_TAKES * 1e6
+    print(f"[fleet] timing lock: {lock_us:.2f} us a take ({LOCK_TAKES} uncontended)")
+
+    # 5. the phase's trace, folded; its fleet counts against the runners'
+    report = fold(sink.events)
+    print(render_text(report))
+    fleet = report["rpc"] or {}
+    want_deaths = sum(s["worker_deaths"] for s in rpc_stats)
+    want_retries = sum(s["retries"] for s in rpc_stats)
+    for addr in {a for s in rpc_stats for a in s["per_worker"]}:
+        row = fleet.get("workers", {}).get(addr, {})
+        want = [sum(s["per_worker"].get(addr, {}).get(f, 0) for s in rpc_stats)
+                for f in ("batches", "deaths")]
+        got_row = [row.get("batches", 0) - row.get("failed_batches", 0), row.get("deaths", 0)]
+        if got_row != want:
+            fail(f"report fleet row {addr} {row}; the runners say batches and deaths {want}")
+    if (fleet.get("worker_deaths"), fleet.get("retries")) != (want_deaths, want_retries):
+        fail(f"report fleet {fleet}; the runners say {want_deaths} deaths, "
+             f"{want_retries} retries")
+    m = report["measure"]
+    if m["timeouts"] or m["crashes"] or m["quarantined"]:
+        fail(f"report measure section {m}")
+    wall = time.perf_counter() - t_phase
+    print(f"[fleet] tuning wall: local {local_tune_s:.1f} s, pool {pool_s:.1f} s, rpc "
+          f"{rpc_s:.1f} s (spawn {spawn_s:.1f} s); phase {wall:.1f} s")
+    return dict(tuning_wall_s=dict(local=local_tune_s, pool=pool_s, rpc=rpc_s,
+                                   rpc_spawn=spawn_s, kill_one=kill_s),
+                pool_best=pool_best, pool_stats=pool_stats, rpc_stats=rpc_stats,
+                worker_launches=by_kernel, uneven_candidates=uneven,
+                forward_max_rel_err=rel,
+                forward_launches=fwd_counts, analytical=analytical,
+                legacy=dict(ms=got.latency_s * 1e3, plain_ms=base * 1e3),
+                timing_lock_us=lock_us,
+                report_rpc=fleet, wall_s=wall), fwd_counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the operator path
 # ---------------------------------------------------------------------------
 
@@ -3256,17 +3563,12 @@ def main(argv=None) -> int:
                     help="directory to write chip_smoke.json into")
     args = ap.parse_args(argv)
 
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script; run it "
-              "from the root of a checkout", file=sys.stderr)
-        return 2
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3296,7 +3598,9 @@ def main(argv=None) -> int:
     cfg = get_config("smollm-135m")
     db = Database()
     reset_counts()  # the forward path starts here
+    t0 = time.perf_counter()
     tasks, best = phase_tune(cfg, db)
+    local_tune_s = time.perf_counter() - t0
     tune_counts = read_counts()
     print(f"[tune] kernel launches while tuning: {tune_counts}")
     for k in FORWARD_KERNELS:
@@ -3440,6 +3744,12 @@ def main(argv=None) -> int:
         rows.update(phase_timings(t_list, t_runs, gen, vocab))
     clock("phase 6 (qwen2-vl, whisper)")
 
+    torch.cuda.empty_cache()
+    reset_counts()  # the fleet path starts here
+    fleet, fleet_fwd_counts = phase_fleet(cfg, db, local_tune_s)
+    fleet_counts = read_counts()
+    clock("phase 17")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -3457,6 +3767,8 @@ def main(argv=None) -> int:
                             for k in KERNELS},
         "whisper_forward": {k: wh_tune_counts[k] + wh_fwd_counts[k] for k in KERNELS},
         "whisper_decode": {k: wh_dec_tune_counts[k] + wh_dec_counts[k] for k in KERNELS},
+        # the parent's launches only: the workers' are in fleet["worker_launches"]
+        "fleet": fleet_counts,
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -3495,6 +3807,8 @@ def main(argv=None) -> int:
             qwen2vl_tick_launches=vl_serve["tick_check"]["launches"][k],
             whisper_forward_launches=wh_fwd_counts[k],
             whisper_decode_launches=wh_dec_counts[k],
+            fleet_forward_launches=fleet_fwd_counts[k],
+            fleet_worker_launches=fleet["worker_launches"].get(k, {}).get("launches", 0),
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -3523,7 +3837,7 @@ def main(argv=None) -> int:
                            vl_forward=vl_fwd, vl_tune_best=vl_best, vl_serve=vl_serve,
                            vl_serve_tune_best=vl_serve_best, whisper_forward=wh_fwd,
                            whisper_tune_best=wh_best, whisper_decode=wh_dec,
-                           whisper_decode_tune_best=wh_dec_best,
+                           whisper_decode_tune_best=wh_dec_best, fleet=fleet,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

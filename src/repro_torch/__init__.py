@@ -9,8 +9,9 @@ C++.  The public surface, importable straight off the package::
 
     tasks = repro_torch.extract_tasks(get_config("smollm-135m"), seq=256)
     repro_torch.TaskScheduler(
-        tasks, database=db, config=repro_torch.TuneConfig(backend="cuda"),
-    ).tune()
+        tasks, database=db, config=repro_torch.TuneConfig(
+            backend="cuda", runner_spec="cached+pool://workers=2"),
+    ).tune()  # candidates measured in two spawned workers sharing the card
     with repro_torch.DispatchContext(db, tasks=tasks):
         ...  # model forward — tuned kernels served by workload key
 
@@ -46,10 +47,16 @@ _EXPORTS = {
     "ServeConfig": "serving.config",
     "ServingEngine": "serving.engine",
     "ContinuousBatchingScheduler": "serving.scheduler",
-    # measurement
+    # measurement fleet
     "create_runner": "search.measure",
     "as_runner": "search.measure",
     "runner_names": "search.measure",
+    "ProcessPoolRunner": "search.measure",
+    "RPCRunner": "search.measure",
+    "spawn_local_workers": "search.measure",
+    "PROTOCOL_VERSION": "search.measure",
+    "ProtocolError": "search.measure",
+    "MeasurementFault": "search.measure",
     # telemetry
     "metrics": "obs",
 }
@@ -83,9 +90,15 @@ if TYPE_CHECKING:  # static-analysis view of the lazy exports
     from .search.database import Database  # noqa: F401
     from .search.evolutionary import SearchConfig  # noqa: F401
     from .search.measure import (  # noqa: F401
+        PROTOCOL_VERSION,
+        MeasurementFault,
+        ProcessPoolRunner,
+        ProtocolError,
+        RPCRunner,
         as_runner,
         create_runner,
         runner_names,
+        spawn_local_workers,
     )
     from .search.task_scheduler import TaskScheduler, TuneTask  # noqa: F401
     from .serving.config import ServeConfig  # noqa: F401

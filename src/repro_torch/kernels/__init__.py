@@ -59,4 +59,37 @@ def tile_counters(device, stream: int, tiles: int):
     return buf
 
 
+def _wrappers():
+    from .flash_attention import (
+        decode_flash_attention,
+        flash_attention,
+        paged_decode_flash_attention,
+    )
+    from .matmul import batch_matmul, matmul
+    from .softmax import row_softmax
+    from .ssd import ssd
+
+    return (matmul, batch_matmul, flash_attention, decode_flash_attention,
+            paged_decode_flash_attention, row_softmax, ssd)
+
+
+def launch_counts() -> dict:
+    """The kernel launches this process has made so far, read from the
+    wrappers' counters: ``{name: launches}``, and ``{"name/variant":
+    launches}`` for the wrappers that also count by variant."""
+    out = {}
+    for w in _wrappers():
+        out[w.__name__] = w.launches
+        for v, n in getattr(w, "launches_by_variant", {}).items():
+            out[f"{w.__name__}/{v}"] = n
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """The launches made since ``before`` (a :func:`launch_counts`), the
+    counters that moved only."""
+    now = launch_counts()
+    return {k: n - before.get(k, 0) for k, n in now.items() if n != before.get(k, 0)}
+
+
 from . import ref  # noqa: E402,F401

@@ -18,9 +18,9 @@ Both compute in f32 and store in the input's type (float32 or bfloat16).
 The note at the top of the source says what bounds the kernel on the card.
 
 Beside the wrapper: its plain PyTorch version (``ref.row_softmax``), which
-it runs for CPU tensors only, and the launch counter
-``row_softmax.launches``; ``last_launch`` records the latest launch
-configuration, its ``variant`` among them.
+it runs for CPU tensors only, and the launch counters
+``row_softmax.launches`` and ``launches_by_variant``; ``last_launch``
+records the latest launch configuration, its ``variant`` among them.
 """
 
 from __future__ import annotations
@@ -123,9 +123,11 @@ def row_softmax(x: torch.Tensor, *, block_rows: int = DEFAULT_ROW_BLOCK) -> torc
 
     check(err, f"row_softmax {cfg['variant']} ({bm},) on ({M}, {N})")
     row_softmax.launches += 1
+    row_softmax.launches_by_variant[cfg["variant"]] += 1
     row_softmax.last_launch = cfg
     return y
 
 
 row_softmax.launches = 0
+row_softmax.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 row_softmax.last_launch = None

@@ -15,9 +15,15 @@ from .distributions import DecisionDistributions, LearnedCategorical  # noqa: F4
 from .evolutionary import EvolutionarySearch, SearchConfig  # noqa: F401
 from .task_scheduler import TaskScheduler, TuneTask  # noqa: F401
 from .measure import (  # noqa: F401
+    PROTOCOL_VERSION,
     CachedRunner,
+    MeasurementFault,
+    ProcessPoolRunner,
+    ProtocolError,
+    RPCRunner,
     Runner,
     as_runner,
     create_runner,
     runner_names,
+    spawn_local_workers,
 )

@@ -1,15 +1,18 @@
-"""Measurement subsystem: builder/runner split and trace-hash caching.
+"""Measurement subsystem: builder/runner split, parallel execution, caching.
 
 See :mod:`protocol` for the interface contract and :mod:`registry` for
-selecting a runner by name (``"local"``, ``"cached+local"``).
+selecting a runner by name (``"local"``, ``"pool"``, ``"rpc://..."``,
+``"cached+pool"``).
 """
 
 from .cached import CachedRunner  # noqa: F401
 from .hashing import structural_hash  # noqa: F401
-from .local import LocalBuilder, LocalRunner  # noqa: F401
+from .local import LocalBuilder, LocalRunner, MeasurementFault  # noqa: F401
+from .pool import ProcessPoolRunner  # noqa: F401
 from .protocol import (  # noqa: F401
     Builder,
     BuildResult,
+    LegacyRunnerAdapter,
     MeasureInput,
     MeasureResult,
     Runner,
@@ -21,4 +24,10 @@ from .registry import (  # noqa: F401
     register_runner,
     register_wrapper,
     runner_names,
+)
+from .rpc import (  # noqa: F401
+    PROTOCOL_VERSION,
+    ProtocolError,
+    RPCRunner,
+    spawn_local_workers,
 )

@@ -12,12 +12,21 @@ tile does not divide, or exceeds the grid, shared-memory or thread caps),
 an invalid trace or a first call over the timeout — becomes an ``inf``
 latency.  A failed kernel build, a refused launch, a fault on the card or
 any other error propagates: it must never look like a search where every
-candidate was merely rejected.
+candidate was merely rejected.  The process-pool and RPC runners raise
+such an error from a worker as :class:`MeasurementFault`.
+
+Timing holds the card alone (:func:`timing_lock`): several measuring
+processes may share one card, and without MPS the card time-slices them,
+so CUDA events in one process would count the others' kernels.
 """
 
 from __future__ import annotations
 
+import fcntl
+import os
+import tempfile
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,10 +36,17 @@ from ...backends.registry import DEFAULT_BACKEND, get_backend
 from ...core.tir import PrimFunc, random_inputs
 from ...core.validator import validate_trace
 from ...device import resolve_device
-from ...kernels import ScheduleRejected
+from ...kernels import ScheduleRejected, launch_counts, launches_since
 from ...obs import emit, metrics, trace_enabled
 from .hashing import structural_hash
 from .protocol import Builder, BuildResult, MeasureInput, MeasureResult, Runner
+
+
+class MeasurementFault(RuntimeError):
+    """An error other than a rejection, raised while a worker process
+    measured a candidate (a CUDA error, a refused launch, a failed build);
+    the message carries the worker's traceback.  It is never turned into
+    an ``inf`` latency."""
 
 
 class LocalBuilder(Builder):
@@ -118,6 +134,27 @@ def time_call(fn, device: torch.device, repeats: int, warmup: int) -> List[float
     return times
 
 
+@contextmanager
+def timing_lock(device: torch.device):
+    """Hold ``device`` alone while timing on it: an exclusive ``flock`` on a
+    file in the system temp directory named by the card's UUID, so every
+    process timing on the same card, whatever its device index, waits for
+    the others.  Lowering and trace replay stay outside the lock and run in
+    parallel.  Nothing to hold on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    uuid = torch.cuda.get_device_properties(index).uuid
+    path = os.path.join(tempfile.gettempdir(), f"repro_torch-timing-{uuid}.lock")
+    with open(path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def time_artifact(
     fn,
     ins,
@@ -127,18 +164,28 @@ def time_artifact(
     device: torch.device,
 ) -> MeasureResult:
     """Shared timing loop: first call with timeout check, then warmup, then
-    the median of ``repeats`` timed runs.  Exceptions propagate."""
-    t0 = time.perf_counter()
-    fn(ins)
-    _sync(device)
-    first = time.perf_counter() - t0
-    if first > timeout_s:
-        # a completed measurement (the schedule is too slow), cacheable
-        return MeasureResult(
-            float("inf"), f"timeout (first call took {first:.2f}s)"
-        )
-    times = time_call(lambda: fn(ins), device, repeats, warmup)
-    return MeasureResult(float(np.median(times)), run_time_s=float(sum(times)))
+    the median of ``repeats`` timed runs, all under :func:`timing_lock`.
+    The result's ``meta["launches"]`` holds the kernel launches the calls
+    made, read from the wrappers' counters (absent when none moved, as on
+    the CPU).  Exceptions propagate."""
+    before = launch_counts()
+    with timing_lock(device):
+        t0 = time.perf_counter()
+        fn(ins)
+        _sync(device)
+        first = time.perf_counter() - t0
+        if first > timeout_s:
+            # a completed measurement (the schedule is too slow), cacheable
+            res = MeasureResult(
+                float("inf"), f"timeout (first call took {first:.2f}s)"
+            )
+        else:
+            times = time_call(lambda: fn(ins), device, repeats, warmup)
+            res = MeasureResult(float(np.median(times)), run_time_s=float(sum(times)))
+    launched = launches_since(before)
+    if launched:
+        res.meta["launches"] = launched
+    return res
 
 
 def device_inputs(func: PrimFunc, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -203,7 +250,7 @@ class LocalRunner(Runner):
             )
             run_wall = time.perf_counter() - t0
             res.build_time_s = br.build_time_s
-            res.meta = br.meta
+            res.meta = {**br.meta, **res.meta}
             self.n_measured += 1
             metrics().inc("measure.measured", backend=self.backend)
             metrics().observe("measure.run_s", run_wall, backend=self.backend)
@@ -231,11 +278,11 @@ class LocalRunner(Runner):
 
         fn = plain(func)
         ins = self._inputs(func)
-        fn(ins)
-        return float(
-            np.median(time_call(lambda: fn(ins), self.device,
-                                max(self.repeats, 2), self.warmup))
-        )
+        with timing_lock(self.device):
+            fn(ins)
+            times = time_call(lambda: fn(ins), self.device,
+                              max(self.repeats, 2), self.warmup)
+        return float(np.median(times))
 
     def stats(self):
         return {

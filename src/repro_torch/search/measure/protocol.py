@@ -10,16 +10,20 @@ MetaSchedule's architecture:
                      build cannot cross a process boundary) -> MeasureResult
 
 Implementations live in sibling modules: :mod:`local` (in-process,
-serial) and :mod:`cached` (trace-hash memoization wrapper).  Both are
+serial), :mod:`pool` (process-pool parallel with timeouts and crash
+quarantine), :mod:`rpc` (a fleet of worker processes over a JSON wire
+protocol) and :mod:`cached` (trace-hash memoization wrapper).  All are
 selectable by name through :mod:`registry`.
 
 Contract invariants every ``Runner`` must keep:
 
 * ``run(inputs)`` returns exactly ``len(inputs)`` results **in input
   order**, regardless of internal completion order;
-* a failed measurement is reported as ``latency_s == inf`` with a
-  human-readable ``error`` — never an exception — so the search treats
-  it as rejection;
+* a rejected candidate (a ``ScheduleRejected`` from the lowering, an
+  invalid trace, a first call over the timeout, a worker process that
+  died or hung on it) is reported as ``latency_s == inf`` with a
+  human-readable ``error``, so the search treats it as rejection; any
+  other error (a failed build, a CUDA error) raises in the caller;
 * ``stats()`` returns a flat JSON-able dict of counters for provenance.
 """
 
@@ -122,3 +126,34 @@ class Runner(abc.ABC):
 
     def close(self) -> None:
         """Release pools/processes.  Idempotent; default is a no-op."""
+
+
+class LegacyRunnerAdapter(Runner):
+    """Wraps the serial ``repro_torch.search.runner.LocalRunner`` (any
+    object with ``measure(schedule) -> result``) behind the batch
+    protocol, so call sites written against it keep working."""
+
+    name = "legacy-local"
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def run(self, inputs: List[MeasureInput]) -> List[MeasureResult]:
+        from ...core.validator import validate_trace
+
+        out: List[MeasureResult] = []
+        for mi in inputs:
+            sch = mi.schedule
+            if sch is None:
+                v = validate_trace(mi.func, mi.trace)
+                if not v.ok:
+                    out.append(
+                        MeasureResult(float("inf"), f"invalid trace: {v.reason}")
+                    )
+                    continue
+                sch = v.schedule
+            r = self.inner.measure(sch)
+            out.append(
+                MeasureResult(r.latency_s, getattr(r, "error", "") or "")
+            )
+        return out

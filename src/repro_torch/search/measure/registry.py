@@ -6,17 +6,26 @@ Every runner spec has the shape::
 
 * the rightmost ``+``-separated part names a base runner, parts to its
   left name wrappers applied outside-in;
-* ``options`` after ``://`` are ``&``-separated ``key=value`` segments
-  that become factory kwargs (values parse as int, then float, then bool,
-  then stay strings).
+* ``options`` after ``://`` are ``&``-separated.  ``key=value`` segments
+  become factory kwargs (values parse as int, then float, then bool,
+  then stay strings); segments without ``=`` (e.g. ``host:port`` lists)
+  are joined into the ``address`` kwarg.
 
-Built-ins in this package::
+Built-ins::
 
-    "local"          in-process serial measurement on one device
-    "cached+local"   trace-hash cache over it (the default for tuning runs)
+    "local"                      in-process serial measurement on one device
+    "pool"                       process-pool parallel with timeouts +
+                                 crash quarantine (spawned workers sharing
+                                 the device; timing one at a time)
+    "pool://workers=4"           ... with an explicit pool width
+    "rpc://127.0.0.1:7070,7071"  fan out across measurement worker
+                                 processes (see measure/rpc.py)
+    "cached+local"               trace-hash cache over the serial runner
+    "cached+pool"                ... over the pool
+    "cached+rpc://host:7070"     ... over the fleet
 
-The process-pool and RPC runners of the JAX package are not ported yet;
-naming them raises ``KeyError`` listing what is available.
+Every base runner takes ``device=`` (``"cuda"`` by default).  Unknown
+runner or wrapper names raise ``KeyError`` listing what is available.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 from .cached import CachedRunner
 from .local import LocalRunner
-from .protocol import Runner
+from .pool import ProcessPoolRunner
+from .protocol import LegacyRunnerAdapter, Runner
 
 _RUNNERS: Dict[str, Callable[..., Runner]] = {}
 _WRAPPERS: Dict[str, Callable[..., Runner]] = {}
@@ -52,6 +62,22 @@ def _make_local(**kw) -> Runner:
     return LocalRunner(**kw)
 
 
+@register_runner("pool")
+def _make_pool(workers=None, **kw) -> Runner:
+    if workers is not None:  # spec-grammar alias for max_workers
+        kw.setdefault("max_workers", workers)
+    r = ProcessPoolRunner(**kw)
+    r.warm()  # overlap worker spawn, torch import and context creation
+    return r
+
+
+@register_runner("rpc")
+def _make_rpc(address: str = "", **kw) -> Runner:
+    from .rpc import RPCRunner
+
+    return RPCRunner(address=address, **kw)
+
+
 @register_wrapper("cached")
 def _make_cached(inner: Runner, **kw) -> Runner:
     return CachedRunner(inner, **kw)
@@ -76,11 +102,13 @@ def _coerce_option(v: str) -> Any:
 def parse_runner_spec(spec: str) -> Tuple[List[str], str, Dict[str, Any]]:
     """Parse ``[wrapper+]name[://options]`` -> (wrappers, base, options).
 
-    >>> parse_runner_spec("local://repeats=5&device=cpu")
-    ([], 'local', {'repeats': 5, 'device': 'cpu'})
+    >>> parse_runner_spec("pool://workers=4&timeout_s=30")
+    ([], 'pool', {'workers': 4, 'timeout_s': 30})
+    >>> parse_runner_spec("cached+rpc://127.0.0.1:7070,127.0.0.1:7071")
+    (['cached'], 'rpc', {'address': '127.0.0.1:7070,127.0.0.1:7071'})
 
     Unknown runner or wrapper names raise ``KeyError`` listing what is
-    available; a malformed spec or option raises ``ValueError``.
+    available; a malformed spec raises ``ValueError``.
     """
     head, sep, rest = spec.partition("://")
     parts = head.split("+")
@@ -100,16 +128,19 @@ def parse_runner_spec(spec: str) -> Tuple[List[str], str, Dict[str, Any]]:
                 f"{', '.join(sorted(_WRAPPERS))}"
             )
     options: Dict[str, Any] = {}
+    address: List[str] = []
     if sep:
         for seg in rest.split("&"):
             if not seg:
                 continue
             key, eq, value = seg.partition("=")
-            if not (eq and key.isidentifier()):
-                raise ValueError(
-                    f"runner option {seg!r} in {spec!r} is not key=value"
-                )
-            options[key] = _coerce_option(value)
+            if eq and key.isidentifier():
+                options[key] = _coerce_option(value)
+            else:
+                # bare segments (host:port lists) form the address
+                address.append(seg)
+    if address:
+        options["address"] = ",".join(address)
     return wrappers, base, options
 
 
@@ -133,13 +164,16 @@ def create_runner(spec: str, **kwargs) -> Runner:
 
 def as_runner(obj, backend=None, device="cuda") -> Runner:
     """Normalize a runner argument to the batch ``Runner`` protocol:
-    ``None`` -> default LocalRunner, str -> registry spec, Runner -> itself.
-    ``backend`` and ``device`` thread into runners created here; an
-    already-built ``Runner`` keeps its own."""
+    ``None`` -> default LocalRunner, str -> registry spec, Runner -> itself,
+    legacy ``.measure()`` objects (:mod:`repro_torch.search.runner`) ->
+    adapter.  ``backend`` and ``device`` thread into runners created here;
+    an already-built runner keeps its own."""
     if obj is None:
         return LocalRunner(backend=backend, device=device)
     if isinstance(obj, str):
         return create_runner(obj, backend=backend, device=device)
     if isinstance(obj, Runner):
         return obj
+    if hasattr(obj, "measure"):
+        return LegacyRunnerAdapter(obj)
     raise TypeError(f"cannot interpret {type(obj).__name__} as a Runner")

@@ -38,8 +38,11 @@ class TuneConfig:
 
     ``search`` carries the evolutionary-search knobs
     (:class:`~repro_torch.search.evolutionary.SearchConfig`); the rest wires
-    measurement (``runner_spec`` — a registry spec string, ``"local"`` or
-    ``"cached+local"``, or a built ``Runner``), lowering (``backend``,
+    measurement (``runner_spec`` — a registry spec string such as
+    ``"cached+local"``, ``"cached+pool://workers=2"`` (spawned worker
+    processes sharing the device) or ``"rpc://127.0.0.1:7070,127.0.0.1:7071"``
+    (a fleet of ``repro_torch.search.measure.worker`` processes), or a built
+    ``Runner``), lowering (``backend``,
     ``None`` for ``"cuda"``), the search space (``modules`` / ``use_mxu``)
     and learned-state transfer (``warm_start``, ``cost_model``,
     ``distributions``).  ``device`` is where candidates are measured:

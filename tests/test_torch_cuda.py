@@ -1005,3 +1005,39 @@ def test_cuda_decode_attention_over_the_whisper_cross_attention_cache(block_kv):
         assert float((got - tref.decode_attention(q, k, v, bias)).abs().max()) < 1e-4
     assert _replays_the_same_bits(
         lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
+
+
+def test_cuda_pool_measures_in_spawned_workers_sharing_the_card():
+    """Two spawned pool workers time K1 candidates on one card, in turns
+    under the card's timing lock: every candidate comes back measured or
+    rejected by the lowering, with the kernel's provenance and the launches
+    the worker's counters saw (at least the first call, one warmup and
+    three repeats, split by variant), and nothing times out, crashes or is
+    quarantined."""
+    _cuda()
+    from repro_torch.core.modules import SpaceGenerator, default_modules
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.search.measure import MeasureInput, create_runner
+
+    func = get_workload("dense", m=256, n=576, k=576)
+    space = SpaceGenerator(default_modules())
+    inputs = [MeasureInput("dense/k=576/m=256/n=576", func,
+                           space.generate(func, seed=s).trace) for s in range(6)]
+    runner = create_runner("cached+pool://workers=2", device="cuda")
+    try:
+        out = runner.run(inputs)
+        stats = runner.stats()
+    finally:
+        runner.close()
+    assert len(out) == len(inputs)
+    for r in out:
+        assert r.ok or r.error.startswith(("rejected (", "invalid trace"))
+        if r.ok:
+            assert r.meta["pallas_kernel"] == "matmul" and 0 < r.latency_s < 1.0
+            launched = r.meta["launches"]
+            assert launched["matmul"] >= 5
+            assert sum(n for k, n in launched.items()
+                       if k.startswith("matmul/")) == launched["matmul"]
+    assert any(r.ok for r in out)
+    assert (stats["inner_timeouts"], stats["inner_crashes"],
+            stats["inner_quarantined_traces"]) == (0, 0, 0)

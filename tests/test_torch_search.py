@@ -176,9 +176,11 @@ def test_reference_database_loads_in_the_port(tmp_path):
 
 
 def test_only_local_runners_are_registered():
-    assert runner_names() == ["local", "cached+local"]
-    for spec in ("pool", "rpc://127.0.0.1:7070", "cached+pool"):
-        with pytest.raises(KeyError, match="available: local, cached\\+local"):
+    # the reference's three base runners, each also under the cache wrapper
+    assert runner_names() == ["local", "pool", "rpc", "cached+local",
+                              "cached+pool", "cached+rpc"]
+    for spec in ("warp", "warp://127.0.0.1:7070", "cached+warp"):
+        with pytest.raises(KeyError, match="available: local, pool, rpc, cached"):
             create_runner(spec, device="cpu")
 
 
@@ -251,8 +253,12 @@ def test_runner_specs_take_only_key_value_options():
 
     assert parse_runner_spec("cached+local://repeats=5&device=cpu") == (
         ["cached"], "local", {"repeats": 5, "device": "cpu"})
-    with pytest.raises(ValueError, match="not key=value"):
-        parse_runner_spec("local://127.0.0.1:7070")
+    # a bare segment is an address, as in the reference's grammar; a runner
+    # that takes no address refuses it when it is created
+    assert parse_runner_spec("local://127.0.0.1:7070") == (
+        [], "local", {"address": "127.0.0.1:7070"})
+    with pytest.raises(ValueError, match="invalid options"):
+        create_runner("local://127.0.0.1:7070", device="cpu")
 
 
 def test_tune_config_is_the_only_way_in():
