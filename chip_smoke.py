@@ -166,15 +166,37 @@ Phases, in order; a failing phase makes the run exit non-zero:
    ``TOL_LOGITS_REL``; each best schedule scored by ``AnalyticalRunner``
    beside its measured ms; the legacy ``search/runner.py`` on one dense
    schedule; the phase's trace folded by ``obs/report.py``, whose fleet
-   counts must equal the RPC runners' stats.
+   counts must equal the RPC runners' stats;
+18. the serving router: two ``repro_torch.serving.worker`` processes
+   spawned on the card, each serving smollm-135m at full width (30 layers,
+   bf16, seed-0 parameters) on phase 7's paged arena and dispatching phase
+   7's database (saved to a file), each warmed up with one short request;
+   16 greedy requests of 32 tokens (phase 7's 8 prompts and 8 more from
+   the same generator) through ``ServingRouter``, worker 0 SIGKILLed after
+   the first poll round in which a request has tokens, then drained: all
+   16 complete, exactly one death and at least one resubmit, the
+   survivor's ``stats["launches"]`` show K1 and K5, every stream equals
+   the same requests served by one scheduler in this process (built as a
+   worker builds its own, run while the workers start) or differs first at
+   a step whose in-process top-2 logits are within ``ROUTER_TIE_REL``; the
+   same scheduler serves phase 7's prompts again in reverse order, and the
+   two compositions' logits differ by at most half that bound; the
+   phase's trace folded by ``obs/report.py`` gives ``serving_router``
+   counts equal to the router's, and no worker is left after ``shutdown``.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the fourteen paths (forward: phases 4-5; serving: phase 7;
+each of the fifteen paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
-whisper forward and decoding: phase 16; the fleet: phase 17, the
-parent's launches only) and read just after it; K1's, K2's and K3's launches are also counted by variant: K1's
+whisper forward and decoding: phase 16; the fleet: phase 17; the router:
+phase 18) and read just after it.  A path's launches, and the ``launches``
+of the kernels line, count every process of the run: the parent's counters,
+and on the fleet and router paths also the launches the spawned workers
+report (phase 17's read around each timing and sent in the result's meta,
+phase 18's read from ``stats`` from the end of each worker's warm-up to its
+kill or the drain's end; ``fleet_worker_launches`` and
+``router_worker_launches`` of the kernels line).  K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
 ``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
 serving path's tuning (every one ``splitk``), the olmoe forward and its
@@ -227,11 +249,10 @@ except ModuleNotFoundError as e:
 
 SEQ = 256
 BATCH = 1
-# search rounds a task: one on the paths of phases 4-14 and two on those of
-# phases 15-16.  Tuning takes most of the run (722 of 1139 s on an H100 at
-# two rounds a task), and all thirteen paths must fit its time limit
+# search rounds a task, on every path.  Tuning takes most of the run (722 of
+# 1139 s on an H100 at two rounds a task), and all fifteen paths must fit its
+# time limit: phases 15-16 went from two rounds to one when phase 18 came
 ROUNDS_PER_TASK = 1
-ROUNDS_PER_TASK_15_16 = 2
 M_FWD = BATCH * SEQ  # the rows of every forward matmul
 TOL_MATMUL = 2e-3  # f32, K <= 2048, N(0,1) inputs: |y| up to ~200
 TOL_ATTN = 1e-4  # f32, outputs are convex combinations of v
@@ -321,6 +342,28 @@ TOL_F32_LOGITS_REL = 1e-4
 FLEET_WORKERS = 2
 FLEET_KILL_TASK = "dense/k=576/m=256/n=576"
 LOCK_TAKES = 1000
+# phase 18: the serving router, smollm-135m at full width from two worker
+# processes on the card (phase 7's arena and database), one SIGKILLed once
+# the first tokens are out; 16 greedy requests: phase 7's 8 prompts and 8
+# more from the same generator
+ROUTER_ARCH = "smollm-135m"
+ROUTER_WORKERS = 2
+ROUTER_REQUESTS = 16
+# a stream served through the router against the same requests served by
+# one scheduler in this process, on the same parameters, settings and
+# database.  Both run the same kernels, but a token's tick differs in
+# composition (a resubmitted request's prompt chunks and decode steps share
+# ticks with other requests), so its rows can go through K1 at another M and
+# tile (m4 splitk, m128 tc): f32 sums in other orders before the bf16
+# roundings.  Where two runs' logits at a step differ by at most d of max
+# |logit|, their argmax can differ only where the top-2 gap is at most 2d.
+# d is measured in every run between two in-process compositions (phase 7's
+# prompts served again in reverse order): 2.06e-2 over 256 steps on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W), where the in-process gaps had a median
+# of 0.316 and 6.4 % of steps within 0.1.  The bound is twice 2d, for
+# compositions the reversed run does not reach, and the run fails if its
+# own 2d exceeds it
+ROUTER_TIE_REL = 8e-2
 
 
 def fail(msg: str) -> None:
@@ -1184,8 +1227,7 @@ TUNE_SEARCH = dict(max_trials=32, init_random=8, population=16, measure_per_roun
                    rollout_factor=2)
 
 
-def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_PER_TASK,
-               runner_spec="cached+local"):
+def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local"):
     """Extract (the forward's tasks unless ``extract`` is given) and tune the
     schedulable tasks through ``runner_spec`` (a spec or a built runner,
     which the caller closes) on the card; returns (tasks, best)."""
@@ -1221,7 +1263,7 @@ def phase_tune(cfg, db, extract=None, tag="tune", rounds_per_task: int = ROUNDS_
     )
     t0 = time.perf_counter()
     sched = repro_torch.TaskScheduler(tasks, database=db, config=config)
-    best = sched.tune(total_rounds=rounds_per_task * len(tasks))
+    best = sched.tune(total_rounds=ROUNDS_PER_TASK * len(tasks))
     print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
           f"runner stats {sched.runner.stats()}")
     searches = list(sched.searches)
@@ -2007,7 +2049,7 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
 
 
 def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
-                rounds_per_task: int = ROUNDS_PER_TASK, decode_tasks: int = 0):
+                decode_tasks: int = 0):
     """Phase 7 (smollm-135m), 12 (olmoe-1b-7b) or 15 (qwen2-vl-2b): the
     model's decode tasks tuned, its tuned tiles checked, 8 requests served
     on the paged arena under the tuned context and with no context, then
@@ -2046,8 +2088,7 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                  f"reference's {MOE_DECODE_TASKS}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
-                             rounds_per_task=rounds_per_task)
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune")
     tune_counts = read_counts()
     k2_tune = read_variants("batch_matmul")
     print(f"[{tag}-tune] batch_matmul launches by variant while tuning: {k2_tune}")
@@ -2987,8 +3028,7 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
                  f"reference's {n_tasks}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
-                             rounds_per_task=ROUNDS_PER_TASK_15_16)
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune")
     tune_counts = read_counts()
     runs = check_tiles(tasks, db)
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
@@ -3120,8 +3160,7 @@ def phase_whisper_decode(cfg, db, gen_seed: int = 0):
                  f"reference's {WHISPER_DECODE_TASKS}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="whisper-decode-tune",
-                             rounds_per_task=ROUNDS_PER_TASK_15_16)
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="whisper-decode-tune")
     tune_counts = read_counts()
     runs = check_tiles(tasks, db)
     attn_keys = {t: workload_key("attention_decode", b=B, h=cfg.n_heads,
@@ -3409,9 +3448,7 @@ def phase_fleet(cfg, local_db, local_tune_s: float, gen_seed: int = 0) -> dict:
         disable_tracing()
 
     # the workers' launches, read from their counters (the parent's see none)
-    by_kernel = {k: dict(launches=worker_launches[k], by_variant={
-        name.split("/", 1)[1]: n for name, n in sorted(worker_launches.items())
-        if name.startswith(k + "/")}) for k in KERNELS if worker_launches[k]}
+    by_kernel = kernel_launches(worker_launches)
     print(f"[fleet] worker launches by kernel and variant (pool and rpc): {by_kernel}; "
           f"{len(uneven)} candidates launched other than once a call of their "
           f"timing {uneven[:5]}")
@@ -3506,6 +3543,334 @@ def phase_fleet(cfg, local_db, local_tune_s: float, gen_seed: int = 0) -> dict:
                 legacy=dict(ms=got.latency_s * 1e3, plain_ms=base * 1e3),
                 timing_lock_us=lock_us,
                 report_rpc=fleet, wall_s=wall), fwd_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the serving router
+# ---------------------------------------------------------------------------
+
+
+def serve_recording(sched, prompts, new_tokens: int):
+    """Serve ``prompts`` on ``sched`` to the end, recording for every token
+    generated the logits row it was taken from (kept on the device) and that
+    row's top-2 gap over its max |logit|.  Returns (requests, gaps and rows:
+    a list per request, wall s)."""
+    serve_step = sched.model.serve_step
+    tick = {}
+
+    def recording(*args, **kwargs):
+        logits, cache = serve_step(*args, **kwargs)
+        tick["rows"] = logits[:, 0]
+        rows = tick["rows"].float()
+        top2 = rows.topk(2, -1).values
+        tick["gaps"] = ((top2[:, 0] - top2[:, 1]) / rows.abs().amax(-1)).tolist()
+        # the tick's lanes, read after admission and before sampling
+        tick["slots"] = {r.rid: s for s, r in {**sched.prefilling, **sched.active}.items()}
+        return logits, cache
+
+    sched.model.serve_step = recording
+    reqs = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    gaps = [[] for _ in reqs]
+    rows = [[] for _ in reqs]
+    t0 = time.perf_counter()
+    try:
+        while sched.pending():
+            before = [len(r.generated) for r in reqs]
+            sched.step()
+            for i, (r, n) in enumerate(zip(reqs, before)):
+                if len(r.generated) > n:
+                    lane = tick["slots"][r.rid]
+                    gaps[i].append(tick["gaps"][lane])
+                    rows[i].append(tick["rows"][lane].clone())
+    finally:
+        del sched.model.serve_step
+    return reqs, gaps, rows, time.perf_counter() - t0
+
+
+def logit_spread(a, b) -> tuple:
+    """The largest difference of two runs' logits at the same request and
+    step over the first run's max |logit| there, over the steps whose
+    streams agree before them; each run is (requests, rows) as
+    :func:`serve_recording` returns them.  Returns (d, steps compared)."""
+    d, steps = 0.0, 0
+    for ra, rows_a, rb, rows_b in zip(a[0], a[1], b[0], b[1]):
+        ga, gb = [int(t) for t in ra.generated], [int(t) for t in rb.generated]
+        for j, (xa, xb) in enumerate(zip(rows_a, rows_b)):
+            if ga[:j] != gb[:j]:
+                break
+            xa = xa.float()
+            d = max(d, ((xa - xb.float()).abs().amax() / xa.abs().amax()).item())
+            steps += 1
+    return d, steps
+
+
+def time_replies(links) -> dict:
+    """Wrap each link's ``request`` so that ``clock["slowest_s"]`` of the
+    returned dict keeps the slowest reply's seconds (reset it between
+    stages), to hold beside the router's 10 s socket timeout."""
+    clock = {"slowest_s": 0.0}
+    for w in links:
+        def timed(msg, request=w.request):
+            t0 = time.perf_counter()
+            try:
+                return request(msg)
+            finally:
+                clock["slowest_s"] = max(clock["slowest_s"], time.perf_counter() - t0)
+        w.request = timed
+    return clock
+
+
+def warm_up_workers(links) -> float:
+    """One request of a 1-token prompt and 2 new tokens on each worker,
+    straight through its link (the router's counters stay the run's): its
+    two ticks, one 32 wide and one decode-only, lower every key of the
+    worker's database while holding its scheduler lock.  Returns the wall
+    seconds."""
+    from repro_torch.search.measure.rpc import PROTOCOL_VERSION
+
+    t0 = time.perf_counter()
+    rids = {w.index: w.request({"v": PROTOCOL_VERSION, "type": "submit", "prompt": [1],
+                                "max_new": 2})["rid"] for w in links}
+    while rids:
+        for w in links:
+            if w.index in rids:
+                st = w.request({"v": PROTOCOL_VERSION, "type": "poll",
+                                "rids": [rids[w.index]]})["requests"]
+                if st[str(rids[w.index])]["done"]:
+                    del rids[w.index]
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def kernel_launches(counts: dict) -> dict:
+    """Launch counters (``kernels.launch_counts()``: ``name`` and
+    ``name/variant``) as {kernel: {launches, by_variant}}, moved ones only."""
+    return {k: dict(launches=counts.get(k, 0), by_variant={
+        name.split("/", 1)[1]: n for name, n in sorted(counts.items())
+        if name.startswith(k + "/") and n}) for k in KERNELS if counts.get(k)}
+
+
+def phase_router(serve_db) -> dict:
+    """Phase 18: ``ROUTER_WORKERS`` serving workers spawned on the card, each
+    serving ``ROUTER_ARCH`` at full width (``--full-size``) on phase 7's paged arena
+    and dispatching phase 7's database, behind the ``ServingRouter``; 16
+    greedy requests, worker 0 SIGKILLed after the first poll round in which
+    a request has tokens, then drained.  The same requests served by one
+    scheduler in this process, built as a worker builds its own, run while
+    the workers start; every stream must equal its in-process twin or differ
+    first at a step whose in-process top-2 logits are within
+    ``ROUTER_TIE_REL``.  The same scheduler then serves phase 7's 8 prompts
+    again in reverse order, another tick composition on the same kernels:
+    the largest difference of the two runs' logits, d, must be within half
+    the bound.  The workers' launches are those from the end of their
+    warm-up to the kill (worker 0) or the drain's end (worker 1)."""
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.obs import RingBufferSink, configure_tracing, disable_tracing
+    from repro_torch.obs.report import fold
+    from repro_torch.search.database import Database
+    from repro_torch.search.measure.rpc import PROTOCOL_VERSION
+    from repro_torch.serving.router import ServingRouter, spawn_serving_workers
+    from repro_torch.serving.worker import build_scheduler
+
+    t_phase = time.perf_counter()
+    arch = ROUTER_ARCH
+    cfg = get_config(arch)
+    rng = np.random.default_rng(0)
+    prompts, lens = [], []
+    for _ in range(ROUTER_REQUESTS // SERVE_REQUESTS):  # phase 7's draws, then more
+        n_tok = rng.integers(32, 97, SERVE_REQUESTS)
+        prompts += [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in n_tok]
+        lens += n_tok.tolist()
+    settings = dict(max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, page_size=SERVE_PAGE,
+                    prefill_chunk=SERVE_CHUNK)
+    ref: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path = os.path.join(tmp, "serve_db.json")
+        saved = Database(db_path)
+        saved.records = serve_db.records
+        saved.save()
+
+        def reference():
+            try:
+                sched = build_scheduler(arch, db=db_path, seed=0, smoke=False,
+                                        device="cuda", **settings)
+                ref["reqs"], ref["gaps"], rows, ref["wall_s"] = serve_recording(
+                    sched, prompts, SERVE_NEW_TOKENS)
+                ref["decode_tok_s"] = sched.decode_tok_s
+                ref["dispatch"] = dict(sched.dispatch.stats)
+                # phase 7's prompts again, last first
+                back = list(reversed(range(SERVE_REQUESTS)))
+                t0 = time.perf_counter()
+                b_reqs, _, b_rows, _ = serve_recording(
+                    sched, [prompts[i] for i in back], SERVE_NEW_TOKENS)
+                ref["spread_wall_s"] = time.perf_counter() - t0
+                ref["d"], ref["d_steps"] = logit_spread(
+                    ([ref["reqs"][i] for i in back], [rows[i] for i in back]),
+                    (b_reqs, b_rows))
+            except Exception as e:  # raised again in the main thread
+                ref["error"] = e
+
+        t0 = time.perf_counter()
+        ref_thread = threading.Thread(target=reference)
+        ref_thread.start()
+        try:
+            links = spawn_serving_workers(
+                ROUTER_WORKERS, model=arch, db=db_path, device="cuda",
+                extra_args=["--full-size"], **settings)
+            spawn_s = time.perf_counter() - t0
+        finally:
+            ref_thread.join()
+        procs = [w.proc for w in links]
+        try:
+            if "error" in ref:
+                raise ref["error"]
+            router = ServingRouter(links, model=arch)
+        except BaseException:
+            for w in links:
+                w.kill()
+            raise
+        sink = RingBufferSink()
+        replies = time_replies(links)
+        stats_msg = {"v": PROTOCOL_VERSION, "type": "stats"}
+        try:
+            warm_s = warm_up_workers(links)
+            slowest_s, replies["slowest_s"] = replies["slowest_s"], 0.0
+            warm_launches = [w.request(stats_msg)["stats"]["launches"] for w in links]
+            configure_tracing(sink)
+            try:
+                t0 = time.perf_counter()
+                for p in prompts:
+                    router.submit(p.tolist(), max_new=SERVE_NEW_TOKENS)
+                victim = links[0]
+                deadline = time.monotonic() + 120
+                while not any(r.tokens for r in router.requests):
+                    if time.monotonic() > deadline:
+                        fail("router: no request had a token within 120 s")
+                    router.poll()
+                    time.sleep(0.02)
+                kill_at_s = time.perf_counter() - t0
+                with_tokens = sum(bool(r.tokens) for r in router.requests)
+                victim_stats = victim.request(stats_msg)["stats"]
+                os.kill(victim.pid, signal.SIGKILL)
+                victim.proc.wait(timeout=30)
+                router.drain(timeout_s=180)
+                drain_s = time.perf_counter() - t0
+                run_slowest_s = replies["slowest_s"]
+            finally:
+                disable_tracing()
+            summary = router.summary()
+        finally:
+            router.shutdown()
+    left = [p.pid for p in procs if p.poll() is None]
+
+    reqs = router.requests
+    stats = dict(router.stats)
+    tokens = sum(len(r.tokens) for r in reqs)
+    worker_stats = [victim_stats, summary["workers"][1]["scheduler"]]
+    # each worker's launches in the measured run: since its warm-up
+    run_launches = [{k: n - before.get(k, 0) for k, n in st["launches"].items()}
+                    if st else {} for st, before in zip(worker_stats, warm_launches)]
+    workers = [dict(completed=w["completed"], alive=w["alive"], pid=w["pid"],
+                    decode_tok_s=st["decode_tok_s"] if st else None,
+                    launches=kernel_launches(n))
+               for w, st, n in zip(summary["workers"], worker_stats, run_launches)]
+    worker_launches = Counter()
+    for n in run_launches:
+        worker_launches.update({k: n.get(k, 0) for k in KERNELS})
+    equal, differ = 0, []
+    for i, (r, want) in enumerate(zip(reqs, ref["reqs"])):
+        want_toks = [int(t) for t in want.generated]
+        if r.tokens == want_toks:
+            equal += 1
+            continue
+        j = next((k for k, (a, b) in enumerate(zip(r.tokens, want_toks)) if a != b),
+                 min(len(r.tokens), len(want_toks)))
+        gap = ref["gaps"][i][j] if j < len(ref["gaps"][i]) else None
+        differ.append(dict(request=i, step=j, top2_gap=gap, resubmits=r.resubmits))
+    gaps = np.asarray([g for per in ref["gaps"] for g in per])
+    gap_median = float(np.median(gaps))
+    under = float(np.mean(gaps <= ROUTER_TIE_REL))
+    d = ref["d"]
+    folded = fold(sink.events)["serving_router"] or {}
+    ref_tokens = sum(len(r.generated) for r in ref["reqs"])
+    print(f"[router] {ROUTER_WORKERS} workers ({arch} --full-size, cuda, paged, "
+          f"{SERVE_SLOTS} slots, max_seq {SERVE_MAX_SEQ}, {SERVE_CHUNK}-token chunks, "
+          f"phase 7's database): spawn {spawn_s:.2f} s; warm-up {warm_s:.2f} s, slowest "
+          f"reply {slowest_s:.3f} s (socket timeout 10 s)")
+    print(f"[router] {ROUTER_REQUESTS} requests, prompt lengths {lens}, "
+          f"{SERVE_NEW_TOKENS} new tokens each, greedy; worker 0 SIGKILLed at "
+          f"{kill_at_s:.2f} s, when {with_tokens} requests had tokens; slowest reply "
+          f"{run_slowest_s:.3f} s")
+    print(f"[router] drain wall {drain_s:.2f} s, {tokens} tokens, "
+          f"{tokens / drain_s:.1f} tok/s total; stats {stats}")
+    for i, w in enumerate(workers):
+        when = "at the kill" if i == 0 else "after the drain"
+        tok_s = "not measured" if w["decode_tok_s"] is None else f"{w['decode_tok_s']:.1f}"
+        print(f"[router] worker {i} (pid {w['pid']}, alive {w['alive']}): completed "
+              f"{w['completed']}, decode {tok_s} tok/s {when}; launches by kernel and "
+              f"variant from its warm-up's end {when}: {w['launches']}")
+    print(f"[router] in-process scheduler on the same database: {ref_tokens} tokens in "
+          f"{ref['wall_s']:.2f} s (beside the workers' start), decode "
+          f"{ref['decode_tok_s']:.1f} tok/s; dispatch {ref['dispatch']}")
+    print(f"[router] in-process top-2 gap over max |logit|, {gaps.size} steps: min "
+          f"{gaps.min():.4e}, median {gap_median:.4e}, share within the bound "
+          f"{ROUTER_TIE_REL:g}: {under:.4f}")
+    print(f"[router] phase 7's prompts again in reverse order ({ref['spread_wall_s']:.2f} s): "
+          f"logits differ by at most d = {d:.4e} of max |logit| over {ref['d_steps']} "
+          f"steps; 2d = {2 * d:.4e} (bound {ROUTER_TIE_REL:g})")
+    print(f"[router] streams equal to the in-process run: {equal}/{len(reqs)}; "
+          f"differing (first step, in-process top-2 gap over max |logit|, bound "
+          f"{ROUTER_TIE_REL:g}): {differ}")
+    print(f"[router] report serving_router {folded}")
+    if left:
+        fail(f"router: worker processes {left} left after shutdown")
+    done = sum(r.done and len(r.tokens) == SERVE_NEW_TOKENS for r in reqs)
+    if done != ROUTER_REQUESTS:
+        fail(f"router: {done} of {ROUTER_REQUESTS} requests completed with "
+             f"{SERVE_NEW_TOKENS} tokens")
+    if stats["worker_deaths"] != 1 or stats["resubmits"] < 1 or \
+            [w["alive"] for w in workers] != [False, True] or \
+            victim.proc.returncode != -signal.SIGKILL:
+        tails = "\n".join(f"worker {w.index}: " + "\n".join(w.tail) for w in links)
+        fail(f"router: stats {stats}, workers alive {[w['alive'] for w in workers]}, "
+             f"victim rc {victim.proc.returncode}; want the one death of worker 0 by "
+             f"SIGKILL and a resubmit\n{tails}")
+    survivor = workers[1]["launches"]
+    for k in ("matmul", "decode_flash_attention"):
+        if survivor.get(k, {}).get("launches", 0) <= 0:
+            fail(f"router: the surviving worker launched no {k} ({survivor})")
+    if ref_tokens != ROUTER_REQUESTS * SERVE_NEW_TOKENS:
+        fail(f"router: the in-process run generated {ref_tokens} tokens")
+    if not 2 * d <= ROUTER_TIE_REL:
+        fail(f"router: two in-process compositions' logits differ by {d:.4e} of max "
+             f"|logit|, more than half the near-tie bound {ROUTER_TIE_REL:g}")
+    ties = [t for t in differ if t["top2_gap"] is None or t["top2_gap"] > ROUTER_TIE_REL]
+    if ties:
+        fail(f"router: streams differ from the in-process run where its top-2 logits "
+             f"are no near tie: {ties}")
+    if {k: folded.get(k) for k in stats} != stats or folded.get("workers") != {
+            str(i): {"completed": w["completed"], "deaths": int(not w["alive"])}
+            for i, w in enumerate(workers) if w["completed"] or not w["alive"]}:
+        fail(f"router: report {folded}; the router says {stats}, workers {workers}")
+    wall = time.perf_counter() - t_phase
+    print(f"[router] phase {wall:.1f} s")
+    return dict(spawn_s=spawn_s, warm_up_s=warm_s, warm_up_slowest_reply_s=slowest_s,
+                slowest_reply_s=run_slowest_s,
+                kill_at_s=kill_at_s, drain_s=drain_s, tokens=tokens,
+                tok_s=tokens / drain_s, stats=stats, workers=workers,
+                worker_launches=dict(worker_launches), streams_equal=equal,
+                differ=differ, gap_median=gap_median, gap_share_within_bound=under,
+                spread_d=d, spread_steps=ref["d_steps"],
+                in_process=dict(wall_s=ref["wall_s"], spread_wall_s=ref["spread_wall_s"],
+                                decode_tok_s=ref["decode_tok_s"],
+                                dispatch=ref["dispatch"]),
+                report=folded, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3704,9 +4069,7 @@ def main(argv=None) -> int:
     vl_serve_db = Database()
     reset_counts()  # the qwen2-vl serving path starts here
     vl_serve_tasks, vl_serve_best, vl_serve, vl_serve_tune_counts, vl_serve_runs = \
-        phase_serve(vl_cfg, vl_serve_db, tag="vl-serve",
-                    rounds_per_task=ROUNDS_PER_TASK_15_16,
-                    decode_tasks=VL_DECODE_TASKS)
+        phase_serve(vl_cfg, vl_serve_db, tag="vl-serve", decode_tasks=VL_DECODE_TASKS)
     clock("phase 15")
 
     torch.cuda.empty_cache()
@@ -3750,6 +4113,12 @@ def main(argv=None) -> int:
     fleet_counts = read_counts()
     clock("phase 17")
 
+    torch.cuda.empty_cache()
+    reset_counts()  # the router path starts here
+    router = phase_router(serve_db)
+    router_counts = read_counts()
+    clock("phase 18")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -3767,8 +4136,12 @@ def main(argv=None) -> int:
                             for k in KERNELS},
         "whisper_forward": {k: wh_tune_counts[k] + wh_fwd_counts[k] for k in KERNELS},
         "whisper_decode": {k: wh_dec_tune_counts[k] + wh_dec_counts[k] for k in KERNELS},
-        # the parent's launches only: the workers' are in fleet["worker_launches"]
-        "fleet": fleet_counts,
+        # the parent's launches and the workers' (each read around its timings)
+        "fleet": {k: fleet_counts[k] + fleet["worker_launches"].get(k, {}).get("launches", 0)
+                  for k in KERNELS},
+        # the parent's in-process runs and the workers' (from the end of their
+        # warm-up to the kill or the drain's end)
+        "router": {k: router_counts[k] + router["worker_launches"][k] for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -3809,6 +4182,7 @@ def main(argv=None) -> int:
             whisper_decode_launches=wh_dec_counts[k],
             fleet_forward_launches=fleet_fwd_counts[k],
             fleet_worker_launches=fleet["worker_launches"].get(k, {}).get("launches", 0),
+            router_worker_launches=router["worker_launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -3838,6 +4212,7 @@ def main(argv=None) -> int:
                            vl_serve_tune_best=vl_serve_best, whisper_forward=wh_fwd,
                            whisper_tune_best=wh_best, whisper_decode=wh_dec,
                            whisper_decode_tune_best=wh_dec_best, fleet=fleet,
+                           router=router,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

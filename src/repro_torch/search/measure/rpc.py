@@ -21,7 +21,8 @@ architecture for our stack.  Three pieces:
   telemetry that :mod:`repro_torch.obs.report` folds into a fleet section;
 * :func:`spawn_local_workers` — a convenience used by the smoke run and
   tests to launch ``python -m repro_torch.search.measure.worker``
-  subprocesses on ephemeral ports.
+  subprocesses on ephemeral ports, over :func:`spawn_ready_workers`, which
+  the serving router uses too.
 
 The worker-side loop lives in :mod:`repro_torch.search.measure.worker`.
 """
@@ -36,9 +37,10 @@ import subprocess
 import sys
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from ...obs import emit, metrics, trace_enabled
 from ..database import parse_workload_key
@@ -738,13 +740,20 @@ class RPCRunner(Runner):
 # ---------------------------------------------------------------------------
 
 
+# lines of a spawned worker's output kept for the error that reports its exit
+TAIL_LINES = 20
+
+
 @dataclass
 class WorkerHandle:
-    """A locally spawned worker subprocess and where it listens."""
+    """A locally spawned worker subprocess, where it listens, its pid, and
+    the last lines of its output (kept by a thread that drains the pipe)."""
 
     proc: subprocess.Popen
     host: str
     port: int
+    pid: int = -1
+    tail: Deque[str] = field(default_factory=lambda: deque(maxlen=TAIL_LINES))
 
     @property
     def addr(self) -> str:
@@ -756,6 +765,90 @@ class WorkerHandle:
         self.proc.wait()
 
 
+def parse_ready(line: str) -> Optional[Dict[str, str]]:
+    """The ``key=value`` fields of a worker's ``READY host=... port=...
+    pid=...`` line, or None for any other line."""
+    if not line.startswith("READY "):
+        return None
+    return dict(kv.split("=", 1) for kv in line.split()[1:] if "=" in kv)
+
+
+def _drain(h: WorkerHandle) -> None:
+    # past READY nobody reads stdout: drain it so a chatty worker never
+    # blocks on a full pipe, keeping the last lines
+    for line in h.proc.stdout:
+        h.tail.append(line.rstrip())
+
+
+def spawn_ready_workers(
+    n: int,
+    module: str,
+    args: List[str],
+    what: str,
+    backend: Optional[str] = None,
+    device: str = "cuda",
+    startup_timeout_s: float = 180.0,
+) -> List[WorkerHandle]:
+    """Launch ``n`` ``python -m <module> <args>`` worker processes and wait
+    for each one's ``READY`` line.
+
+    The backend's kernels are built here first (``prepare(device)``), so
+    the workers load them instead of running ``nvcc`` side by side; then
+    every worker starts at once.  The children's ``PYTHONPATH`` starts with
+    the directory that holds this package, so they import the same
+    ``repro_torch`` as the caller however the caller found it.  A worker
+    that exits (or stays silent) before ``READY`` raises ``RuntimeError``
+    naming ``what`` with the tail of its output, and every worker is
+    stopped.  Caller owns the processes."""
+    from ...backends.registry import get_backend
+
+    get_backend(backend).prepare(device)
+    src = str(Path(__file__).resolve().parents[3])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p
+    )
+    cmd = [sys.executable, "-m", module, *args]
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env,
+        )
+        for _ in range(n)
+    ]
+    handles: List[WorkerHandle] = []
+    try:
+        for i, proc in enumerate(procs):
+            deadline = time.monotonic() + startup_timeout_s
+            h = WorkerHandle(proc=proc, host="", port=-1)
+            fields = None
+            while fields is None and time.monotonic() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                h.tail.append(line.rstrip())
+                fields = parse_ready(line)
+            if fields is None:
+                if proc.poll() is None and time.monotonic() >= deadline:
+                    why = f"did not print READY within {startup_timeout_s:.0f}s"
+                else:  # its output ended: it is exiting
+                    why = f"exited before READY (rc={proc.wait()})"
+                tail = "\n".join(h.tail)
+                raise RuntimeError(f"{what} {i} {why}; output:\n{tail}")
+            h.host = fields.get("host", "127.0.0.1")
+            h.port = int(fields["port"])
+            h.pid = int(fields.get("pid", proc.pid))
+            threading.Thread(target=_drain, args=(h,), daemon=True).start()
+            handles.append(h)
+    except BaseException:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        raise
+    return handles
+
+
 def spawn_local_workers(
     n: int,
     backend: Optional[str] = None,
@@ -765,80 +858,22 @@ def spawn_local_workers(
     extra_args: Optional[List[str]] = None,
     device: str = "cuda",
 ) -> List[WorkerHandle]:
-    """Launch ``n`` measurement workers on ephemeral localhost ports.
+    """Launch ``n`` measurement workers on ephemeral localhost ports
+    (:func:`spawn_ready_workers`).
 
-    The backend's kernels are built here first, so the workers load them
-    instead of running ``nvcc`` side by side; then every worker starts at
-    once.  Blocks until each prints its ``READY host=... port=...`` line
-    (which it does after importing torch and building its inner runner),
-    so an ``RPCRunner`` created against the returned addresses connects
-    immediately.  The children's ``PYTHONPATH`` starts with the directory
-    that holds this package, so they import the same ``repro_torch`` as
-    the caller however the caller found it.  Caller owns the processes —
+    Each prints its ``READY`` line after importing torch and building its
+    inner runner, so an ``RPCRunner`` created against the returned
+    addresses connects immediately.  Caller owns the processes —
     ``handle.kill()`` or ``RPCRunner.shutdown_workers()`` to stop them."""
-    from ...backends.registry import get_backend
-
-    get_backend(backend).prepare(device)
-    src = str(Path(__file__).resolve().parents[3])
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (src, env.get("PYTHONPATH")) if p
+    args = ["--port", "0", "--device", device]
+    if backend:
+        args += ["--backend", backend]
+    if runner:
+        args += ["--runner", runner]
+    if timeout_s is not None:
+        args += ["--timeout-s", str(timeout_s)]
+    args += list(extra_args or [])
+    return spawn_ready_workers(
+        n, "repro_torch.search.measure.worker", args, "measurement worker",
+        backend=backend, device=device, startup_timeout_s=startup_timeout_s,
     )
-    procs: List[subprocess.Popen] = []
-    for _ in range(n):
-        cmd = [
-            sys.executable, "-m", "repro_torch.search.measure.worker",
-            "--port", "0", "--device", device,
-        ]
-        if backend:
-            cmd += ["--backend", backend]
-        if runner:
-            cmd += ["--runner", runner]
-        if timeout_s is not None:
-            cmd += ["--timeout-s", str(timeout_s)]
-        cmd += list(extra_args or [])
-        procs.append(
-            subprocess.Popen(
-                cmd,
-                stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT,
-                text=True,
-                env=env,
-            )
-        )
-    handles: List[WorkerHandle] = []
-    for i, proc in enumerate(procs):
-        deadline = time.monotonic() + startup_timeout_s
-        lines: List[str] = []
-        port: Optional[int] = None
-        while time.monotonic() < deadline:
-            line = proc.stdout.readline()
-            if not line:
-                break
-            lines.append(line.rstrip())
-            if line.startswith("READY "):
-                fields = dict(
-                    kv.split("=", 1) for kv in line.split()[1:] if "=" in kv
-                )
-                port = int(fields["port"])
-                break
-        if port is not None:
-            # keep draining the pipe so a chatty worker can't block on a
-            # full stdout buffer mid-measurement
-            threading.Thread(
-                target=lambda out=proc.stdout: out.read(), daemon=True
-            ).start()
-        if port is None:
-            for h in handles:
-                h.kill()
-            for p in procs[i:]:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            tail = "\n".join(lines[-20:])
-            raise RuntimeError(
-                f"measurement worker failed to start within "
-                f"{startup_timeout_s:.0f}s; output:\n{tail}"
-            )
-        handles.append(WorkerHandle(proc=proc, host="127.0.0.1", port=port))
-    return handles

@@ -70,6 +70,8 @@ MODULES = [
     "repro_torch.serving.kv",
     "repro_torch.serving.engine",
     "repro_torch.serving.scheduler",
+    "repro_torch.serving.worker",
+    "repro_torch.serving.router",
     "repro_torch.launch",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
