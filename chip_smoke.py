@@ -60,7 +60,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    reach a finite best, on every path, but a matrix product that no
    schedule reaches under the validator's tile cap and the lowering's grid
    cap, which ``schedulable`` leaves out and prints); rmsnorm goes through
-   the structural lowering (``torch-fallback``), sfm through K4;
+   the structural lowering (``torch-fallback``), its candidates through a
+   runner that times one no further once its first call passes
+   ``STRUCTURAL_TIMEOUT_S``, sfm through K4;
 5. the forward path, part two: the full-width 30-layer bf16 forward under
    ``DispatchContext`` (rmsnorm dispatched at all 61 sites, K3's 30 launches
    all tc, traced) against the same forward with no context;
@@ -98,9 +100,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7 in every admitted prompt's prefill), then with no context;
 11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
    1, seq 256), tune them, then the
-   full-width 16-layer bf16 forward under ``DispatchContext`` (K2 at every
-   expert product, 48 launches, printed by variant; K3 16 launches, all
-   fma, at head dim 128), traced, against the same forward with no
+   full-width bf16 forward at ``MOE_LAYERS`` = 8 of its 16 layers under
+   ``DispatchContext`` (K2 at every expert product, 24 launches, printed
+   by variant; K3 8 launches, all fma, at head dim 128), traced, against the same forward with no
    context.  Top-k routing is discontinuous, so the numbers are held in
    f32, on the parameters cast to f32: each MoE layer dispatched against
    plain on the same input (routing runs plain in both) within
@@ -110,15 +112,16 @@ Phases, in order; a failing phase makes the run exit non-zero:
 12. the olmoe-1b-7b serving path: extract its 16 decode tasks (4 slots,
    max_seq 256, paged, 32-token chunks), tune them the same way, serve 8
    requests on the paged arena under the tuned context and with no
-   context; one decode-only tick launches K2 48 times, all ``splitk``, and
-   K5 16 times, and is held against the plain tick in f32 as in phase 11;
+   context; one decode-only tick launches K2 24 times, all ``splitk``, and
+   K5 8 times, and is held against the plain tick in f32 as in phase 11;
    then phase 6 at olmoe's shapes;
 13. the smollm-135m training path, at the launcher's batch 8, seq 128:
    extract the reference's 10 tasks and tune them; one
-   ``make_train_step`` under ``DispatchContext`` against the same step with
+   ``make_train_step`` at ``TRAIN_LAYERS`` = 15 of its 30 layers under
+   ``DispatchContext`` against the same step with
    no context on f32 parameters (the loss within ``TOL_TRAIN_LOSS_REL``,
    every gradient leaf within ``TOL_TRAIN_GRAD`` of its max |g|, the
-   updated parameters within 2·lr); its launches (K1 421, K3 60 ``tc``:
+   updated parameters within 2·lr); its launches (K1 211, K3 30 ``tc``:
    remat runs each layer's forward twice) and hits by key; bf16 steps
    timed and one dispatched step traced; phase 6 at the step's shapes; then
    ``launch/train.py``'s ``main`` at full width for 20 steps with a
@@ -132,23 +135,24 @@ Phases, in order; a failing phase makes the run exit non-zero:
    batch, whose loss must fall;
 15. the qwen2-vl-2b paths (M-RoPE, embedding inputs): the reference's 10
    forward tasks (batch 1, seq 256, seeded embeddings) tuned, the
-   full-width 28-layer bf16 forward under ``DispatchContext``
-   (K3 28 launches, fma at D 128 GQA 6; K1 196, the unembed plain: no
-   schedule fits both the tile and the grid cap; rmsnorm 57 hits) against
+   full-width bf16 forward at ``VL_LAYERS`` = 14 of its 28 layers under
+   ``DispatchContext`` (K3 14 launches, fma at D 128 GQA 6; K1 98, the
+   unembed plain: no schedule fits both the tile and the grid cap;
+   rmsnorm 29 hits) against
    the same forward with no context, timed and traced, then both on f32
    parameters within ``TOL_F32_LOGITS_REL``; its 9 decode tasks tuned and
    8 requests served on the paged arena, dispatched
-   and plain, with one decode-only tick (K5 28 launches) compared;
+   and plain, with one decode-only tick (K5 14 launches) compared;
 16. the whisper-medium paths (encoder, cross-attention): the reference's
    20 forward tasks (batch 1, seq 256, 1500 seeded frames) tuned, the
-   full-width bf16 forward (24 encoder and 24 decoder
-   layers) dispatched against plain as in phase 15 (K3 48: 24 non-causal
-   fma at S 1500, 24 causal; K2 96 on the cross-attention's chunked
-   contractions; K1 361, the cross-attention's q/k/v plain as in the
-   reference; rmsnorm 122 hits); its 11 decode tasks tuned, then ``prefill`` of 4 prompts over 1500 frames and 16 greedy
+   full-width bf16 forward (``WHISPER_LAYERS`` = 12 encoder and 12
+   decoder layers) dispatched against plain as in phase 15 (K3 24: 12
+   non-causal fma at S 1500, 12 causal; K2 48 on the cross-attention's
+   chunked contractions; K1 181, the cross-attention's q/k/v plain as in
+   the reference; rmsnorm 62 hits); its 11 decode tasks tuned, then ``prefill`` of 4 prompts over 1500 frames and 16 greedy
    ``decode_step`` calls, dispatched and plain: in f32 the tokens agree
    (where one differs, the plain top-2 logits must be a near tie) and every
-   step launches K5 24 times over the 1500-frame cache and 24 over the
+   step launches K5 12 times over the 1500-frame cache and 12 over the
    256-position one; bf16 steps timed and one traced; then phase 6 at the
    two models' shapes;
 17. the measurement fleet: phase 4's smollm-135m forward tasks tuned
@@ -182,15 +186,30 @@ Phases, in order; a failing phase makes the run exit non-zero:
    same scheduler serves phase 7's prompts again in reverse order, and the
    two compositions' logits differ by at most half that bound; the
    phase's trace folded by ``obs/report.py`` gives ``serving_router``
-   counts equal to the router's, and no worker is left after ``shutdown``.
+   counts equal to the router's, and no worker is left after ``shutdown``;
+19. the mesh path on one card: smollm-135m's tasks extracted under a
+   logical (data 2, model 3) mesh that holds the card six times (batch 2,
+   seq 256: the 9 per-shard keys of ``MESH_KEYS``), tuned as in phase 4
+   and their tiles checked; the full-width forward in f32 dispatched under
+   the mesh against the plain unsharded forward within
+   ``TOL_F32_LOGITS_REL`` (``stats["mesh_sharded"]`` 241: 210 dense, the
+   unembed and 30 attentions; K1 6 x 211 launches, K3 6 x 30, each
+   per-shard kernel once a mesh coordinate), then in bf16 within
+   ``TOL_LOGITS_REL``, timed; one dispatched loss and its gradients under
+   the mesh against plain in f32 (``TOL_TRAIN_LOSS_REL``,
+   ``TOL_TRAIN_GRAD``); K2 at olmoe's expert product (b64 m64 k2048 n1024)
+   over a (model 2) mesh against ``torch.bmm``; the dry run
+   (``launch/dryrun.py``) of smollm's ``DRYRUN_SHAPES`` cells on both
+   production meshes (meta tensors only); each per-shard kernel timed as
+   in phase 6.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the fifteen paths (forward: phases 4-5; serving: phase 7;
+each of the sixteen paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
 whisper forward and decoding: phase 16; the fleet: phase 17; the router:
-phase 18) and read just after it.  A path's launches, and the ``launches``
+phase 18; the mesh: phase 19) and read just after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
 and on the fleet and router paths also the launches the spawned workers
 report (phase 17's read around each timing and sent in the result's meta,
@@ -249,6 +268,17 @@ except ModuleNotFoundError as e:
 
 SEQ = 256
 BATCH = 1
+# Depth, at full width, of the paths whose forwards, ticks and steps take
+# the run's time beside tuning (every dispatched path is host-bound, its
+# time linear in its layers): whisper-medium's 24 encoder and 24 decoder
+# layers (phase 16), olmoe-1b-7b's 16 (phases 11-12), smollm-135m's 30 in
+# its train step (phase 13; the launcher trains all 30) and qwen2-vl-2b's
+# 28 (phase 15) are halved, so that every path fits the run's time limit
+# on a slow host (PERF.md §6); the other paths run every layer
+WHISPER_LAYERS = 12
+MOE_LAYERS = 8
+TRAIN_LAYERS = 15
+VL_LAYERS = 14
 # search rounds a task, on every path.  Tuning takes most of the run (722 of
 # 1139 s on an H100 at two rounds a task), and all fifteen paths must fit its
 # time limit: phases 15-16 went from two rounds to one when phase 18 came
@@ -364,6 +394,28 @@ ROUTER_REQUESTS = 16
 # compositions the reversed run does not reach, and the run fails if its
 # own 2d exceeds it
 ROUTER_TIE_REL = 8e-2
+# phase 19, the mesh path on one card: smollm-135m at batch 2, seq 256 on a
+# logical (data 2, model 3) mesh that holds the card six times; the 9
+# per-shard keys the reference's extraction gives under that mesh, with
+# their weights
+MESH_SHAPE = (2, 3)
+MESH_BATCH = 2
+MESH_KEYS = {
+    "dense/k=576/m=256/n=512": 60,
+    "dense/k=576/m=256/n=16384": 1,
+    "dense/k=1536/m=256/n=192": 30,
+    "dense/k=576/m=256/n=192": 60,
+    "dense/k=576/m=256/n=64": 60,
+    "attention/b=1/causal=1/d=64/h=3/kvh=1/s=256/softcap=0.0/window=0": 30,
+    "batch_matmul/b=2/k=256/m=768/n=64": 30,
+    "batch_matmul/b=2/k=64/m=768/n=256": 30,
+    "rmsnorm/d=576/eps=1e-06/tokens=512": 61,
+}
+# olmoe-1b-7b's expert product (B, M, K, N), served over a (model 2) mesh
+MESH_BMM = (64, 64, 2048, 1024)
+# the dry-run cells phase 19 runs on both production meshes (the whole
+# grid of smollm's cells takes ~27 s on a CPU; PERF.md)
+DRYRUN_SHAPES = ("train_4k",)
 
 
 def fail(msg: str) -> None:
@@ -1184,6 +1236,16 @@ KERNELS = FORWARD_KERNELS + ("decode_flash_attention", "paged_decode_flash_atten
 VARIANT_KERNELS = ("matmul", "batch_matmul", "flash_attention")
 # workloads of the path with no hand-written kernel: the structural lowering
 STRUCTURAL_OPS = ("rmsnorm",)
+# the first call, in seconds, after which a structural candidate is not
+# timed further (a ``timeout`` failure).  Such a candidate runs its loop
+# tree as eager calls on the host, and a bad tile takes seconds a call
+# where the best takes milliseconds.  Timed in full on an H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W; tools/tune_probe.py --structural-timeout 10),
+# rmsnorm's best at 1500 tokens took 0.028 s a call and its other
+# candidates 0.06-3.2 s and one over 10 s; the candidates of whisper's two
+# rmsnorm tasks took 55.7 s of its forward's 96.8 s of tuning, and those of
+# the train step's one 53.5 s of 84.7 s
+STRUCTURAL_TIMEOUT_S = 0.5
 
 
 def _wrappers():
@@ -1257,31 +1319,43 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local"):
               f"accept, so not tuned: {[t.key for t in none]}")
         tasks = [t for t in tasks if schedulable(t)]
     search = SearchConfig(**TUNE_SEARCH)
-    config = repro_torch.TuneConfig(
-        search=search, runner_spec=runner_spec, backend="cuda",
-        device="cuda", warm_start=False,
-    )
-    t0 = time.perf_counter()
-    sched = repro_torch.TaskScheduler(tasks, database=db, config=config)
-    best = sched.tune(total_rounds=ROUNDS_PER_TASK * len(tasks))
-    print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s; "
-          f"runner stats {sched.runner.stats()}")
-    searches = list(sched.searches)
-    # a task whose space the card mostly rejects (smollm's unembed at m1024
-    # needs bm·bn·bk >= 110592 under the grid-steps cap; its untuned tile
-    # has 1536·64) can go stale before one candidate runs; it gets further
-    # searches with fresh seeds, each as long as the scheduler grants a
-    # cold task
-    for seed in range(1, COLD_SEARCHES + 1):
-        cold = [t for t in tasks if not math.isfinite(best[t.key])]
-        if not cold:
-            break
-        print(f"[{tag}] no tile the card runs yet for {[t.key for t in cold]}: "
-              f"search seed {seed}")
-        retry = repro_torch.TaskScheduler(cold, database=db, config=dataclasses.replace(
-            config, search=dataclasses.replace(search, seed=seed)))
-        best.update(retry.tune(total_rounds=(config.patience + 1) * len(cold)))
-        searches += retry.searches
+    groups = [(tasks, runner_spec)]
+    if runner_spec == "cached+local":
+        # the structural tasks through a runner that times a candidate no
+        # further once its first call passes STRUCTURAL_TIMEOUT_S
+        slow = [t for t in tasks if t.key.split("/")[0] in STRUCTURAL_OPS]
+        groups = [([t for t in tasks if t not in slow], runner_spec),
+                  (slow, f"{runner_spec}://timeout_s={STRUCTURAL_TIMEOUT_S}")]
+    best, searches = {}, []
+    for group, spec in groups:
+        if not group:
+            continue
+        config = repro_torch.TuneConfig(
+            search=search, runner_spec=spec, backend="cuda",
+            device="cuda", warm_start=False,
+        )
+        t0 = time.perf_counter()
+        sched = repro_torch.TaskScheduler(group, database=db, config=config)
+        best.update(sched.tune(total_rounds=ROUNDS_PER_TASK * len(group)))
+        print(f"[{tag}] {sched.rounds_run} rounds in {time.perf_counter() - t0:.1f} s "
+              f"through {spec if isinstance(spec, str) else type(spec).__name__}; "
+              f"runner stats {sched.runner.stats()}")
+        searches += sched.searches
+        # a task whose space the card mostly rejects (smollm's unembed at
+        # m1024 needs bm·bn·bk >= 110592 under the grid-steps cap; its
+        # untuned tile has 1536·64) can go stale before one candidate runs;
+        # it gets further searches with fresh seeds, each as long as the
+        # scheduler grants a cold task
+        for seed in range(1, COLD_SEARCHES + 1):
+            cold = [t for t in group if not math.isfinite(best[t.key])]
+            if not cold:
+                break
+            print(f"[{tag}] no tile the card runs yet for {[t.key for t in cold]}: "
+                  f"search seed {seed}")
+            retry = repro_torch.TaskScheduler(cold, database=db, config=dataclasses.replace(
+                config, search=dataclasses.replace(search, seed=seed)))
+            best.update(retry.tune(total_rounds=(config.patience + 1) * len(cold)))
+            searches += retry.searches
     for key, lat in best.items():
         if not math.isfinite(lat):
             fail(f"task {key} has no finite best latency")
@@ -1864,6 +1938,9 @@ K1_KERNEL_NAMES = ("matmul_splitk_kernel", "matmul_tc_kernel", "matmul_tile_kern
 K3_KERNEL_NAMES = ("flash_attention_tc_kernel", "flash_attention_kernel")
 K5_KERNEL_NAMES = ("decode_attention_kernel",)
 K7_KERNEL_NAMES = ("ssd_chunk_kernel", "ssd_pass_kernel")
+# PyTorch's copy kernels (``.contiguous()``, ``copy_``, a slice assigned)
+# and CUDA's memcpys, by the words in their names
+COPY_KERNEL_NAMES = ("copy_kernel", "Memcpy")
 
 
 def kernel_grids(prof) -> list:
@@ -1886,8 +1963,9 @@ def profile_device(fn, grids_k2=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's events
     (kernels, copies), their summed time by name, the time the device was
     busy (the union of their intervals), the span from the first event's
-    start to the last one's end, and the summed time of K1's, K3's, K5's
-    and K7's kernels.  K1 and K2 launch the same kernels: with ``grids_k2``
+    start to the last one's end, the summed time of K1's, K3's, K5's and
+    K7's kernels, and that of the copies (PyTorch's copy kernels and
+    memcpys; ``copy_events`` counts them).  K1 and K2 launch the same kernels: with ``grids_k2``
     (the grids of K2's launches on the path) a matmul kernel whose grid is
     one of them counts as K2's (``batch_matmul_ms``, None where none
     does).  Empty when the profiler saw no device event."""
@@ -1906,8 +1984,10 @@ def profile_device(fn, grids_k2=None) -> dict:
     busy, end = 0.0, spans[0][0]
     by_name = Counter()
     groups = {"matmul_ms": K1_KERNEL_NAMES, "decode_attention_ms": K5_KERNEL_NAMES,
-              "ssd_ms": K7_KERNEL_NAMES, "flash_attention_ms": K3_KERNEL_NAMES}
+              "ssd_ms": K7_KERNEL_NAMES, "flash_attention_ms": K3_KERNEL_NAMES,
+              "copy_ms": COPY_KERNEL_NAMES}
     by_kernel = dict.fromkeys(groups, 0.0)
+    copies = 0
     for t0, t1, name in spans:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
@@ -1915,8 +1995,10 @@ def profile_device(fn, grids_k2=None) -> dict:
         for key, names in groups.items():
             if any(k in name for k in names):
                 by_kernel[key] += t1 - t0
+        copies += any(k in name for k in COPY_KERNEL_NAMES)
     span = end - spans[0][0]
-    out = dict(events=len(spans), busy_ms=busy / 1e3, span_ms=span / 1e3,
+    out = dict(events=len(spans), copy_events=copies, busy_ms=busy / 1e3,
+               span_ms=span / 1e3,
                idle_share=1.0 - busy / span if span > 0 else 0.0,
                **{k: v / 1e3 for k, v in by_kernel.items()},
                top_ms={k: v / 1e3 for k, v in by_name.most_common(6)})
@@ -3878,6 +3960,238 @@ def phase_router(serve_db) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
+    """Phase 19: the mesh path on one card.  smollm-135m's tasks extracted
+    under a logical (data 2, model 3) mesh (``MESH_KEYS``), tuned and their
+    tiles checked; the full-width forward dispatched under the mesh (each
+    per-shard kernel once a mesh coordinate) against the plain unsharded
+    forward in f32 and bf16; one dispatched loss and its gradients against
+    plain in f32; K2 at olmoe's expert product over a (model 2) mesh
+    against ``torch.bmm``; the dry run of smollm's ``DRYRUN_SHAPES`` cells
+    on both production meshes; each per-shard kernel timed as in phase 6."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.search.database import Database, workload_key
+    from repro_torch.search.task_scheduler import TuneTask
+    from repro_torch.training.train_loop import value_and_grad
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=[card] * math.prod(MESH_SHAPE))
+    n_coords = mesh.size
+
+    def extract():
+        with use_mesh(mesh):
+            tasks = repro_torch.extract_tasks(cfg, batch=MESH_BATCH, seq=SEQ,
+                                              dispatchable_only=True)
+        got = {t.key: t.weight for t in tasks}
+        if got != MESH_KEYS:
+            fail(f"extraction under {mesh} gave {got}; want {MESH_KEYS}")
+        return tasks
+
+    tasks, best = phase_tune(cfg, db, extract=extract, tag="mesh-tune")
+    tune_counts = read_counts()
+    runs = check_tiles(tasks, db)
+    params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    params32 = _tree_map(lambda t: t.float(), params)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed + 1)
+    toks = torch.randint(0, cfg.vocab, (MESH_BATCH, SEQ + 1), generator=g, device="cuda")
+    ins = toks[:, :-1]
+
+    # the f32 forward under the mesh, counted, against the plain one
+    with torch.no_grad():
+        plain32 = T.forward(cfg, params32, ins)
+        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        counts0 = read_counts()
+        k1v0, k3v0 = read_variants(), read_variants("flash_attention")
+        with ctx, use_mesh(mesh):
+            tuned32 = T.forward(cfg, params32, ins)
+        torch.cuda.synchronize()
+    fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    k1v, k3v = variants_since(k1v0), variants_since(k3v0, "flash_attention")
+    stats, by_key = dict(ctx.stats), ctx.stats_by_key()
+    rel32 = float((tuned32 - plain32).abs().max() / plain32.abs().max())
+    finite = bool(torch.isfinite(tuned32).all())
+    shape = tuple(tuned32.shape)
+    del tuned32, plain32
+    n_dense = 7 * cfg.n_layers + 1  # q, k, v, o and the MLP's three, the unembed
+    want = dict(mesh_sharded=n_dense + cfg.n_layers, matmul=n_coords * n_dense,
+                flash_attention=n_coords * cfg.n_layers)
+    reasons = dispatch_reasons(by_key)
+    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
+                            tokens=MESH_BATCH * SEQ)
+    norm_hits = by_key.get(norm_key, {}).get("hits", 0)
+    print(f"[mesh] {mesh} on {card}: logits {shape} f32 max_rel_err {rel32:.4e} "
+          f"(tol {TOL_F32_LOGITS_REL:g}) against the plain unsharded forward")
+    print(f"[mesh] dispatch stats of one forward {stats}; reasons {dict(reasons)}")
+    for key, row in by_key.items():
+        print(f"[mesh]   {key}: hits {row['hits']} misses {row['misses']} fallbacks "
+              f"{row['fallbacks']} reasons {row['reasons']}")
+    print(f"[mesh] kernel launches in one forward: {fwd_counts}; K1 by variant {k1v}, "
+          f"K3 {k3v}; want {want}")
+    if not finite or shape != (MESH_BATCH, SEQ, cfg.vocab):
+        fail(f"mesh forward logits not finite or of shape {shape}")
+    if not rel32 <= TOL_F32_LOGITS_REL:
+        fail(f"mesh forward f32 rel err {rel32} > {TOL_F32_LOGITS_REL}")
+    if (stats["mesh_sharded"] != want["mesh_sharded"] or stats["misses"]
+            or fwd_counts["matmul"] != want["matmul"]
+            or fwd_counts["flash_attention"] != want["flash_attention"]
+            or fwd_counts["batch_matmul"] or norm_hits != 2 * cfg.n_layers + 1):
+        fail(f"mesh forward: stats {stats}, launches {fwd_counts}, rmsnorm hits "
+             f"{norm_hits}; want {want}, no miss, no K2 and "
+             f"{2 * cfg.n_layers + 1} rmsnorm hits")
+    for bad in ("mesh_error", "no_shard_record", "unservable", "lowering_failed"):
+        if reasons.get(bad):
+            fail(f"mesh forward: {reasons[bad]} {bad}")
+
+    # where the f32 forward's device time goes, traced once each way: the
+    # kernels on the blocks the path serves, and the copies (K3's lowering
+    # copies each q, k and v block; shard_map writes each block into the
+    # assembled output) against the plain forward's own
+    with torch.no_grad():
+        def run_mesh32():
+            with ctx, use_mesh(mesh):
+                T.forward(cfg, params32, ins)
+
+        profiles = dict(mesh=profile_device(run_mesh32),
+                        plain=profile_device(lambda: T.forward(cfg, params32, ins)))
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[mesh] {label} f32 forward: the profiler saw no device event "
+                  "(not measured)")
+            continue
+        print(f"[mesh] {label} f32 forward traced: {prof['events']} device events, "
+              f"busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span "
+              f"(idle share {prof['idle_share']:.3f}); K1 {prof['matmul_ms']:.3f} ms, "
+              f"K3 {prof['flash_attention_ms']:.3f} ms, copies {prof['copy_ms']:.3f} ms "
+              f"in {prof['copy_events']} events")
+        for name, ms in prof["top_ms"].items():
+            print(f"[mesh]   {ms:8.3f} ms  {name}")
+
+    # the same forward in bf16, dispatched under the mesh and plain, timed
+    del params32
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        T.forward(cfg, params, ins)  # warm the plain path
+        plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, ins))
+        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+
+        def run_mesh():
+            with timing_ctx, use_mesh(mesh):
+                return T.forward(cfg, params, ins)
+
+        run_mesh()  # warm: the per-shard kernels' first calls
+        tuned, tuned_ms = timed_ms(run_mesh)
+    rel16 = float((tuned.float() - plain.float()).abs().max() / plain.float().abs().max())
+    del tuned, plain
+    print(f"[mesh] bf16 logits max_rel_err {rel16:.4e} (tol {TOL_LOGITS_REL:g}); "
+          f"plain {plain_ms:.2f} ms, dispatched under the mesh {tuned_ms:.2f} ms "
+          f"(median of 3, batch {MESH_BATCH} seq {SEQ})")
+    if not rel16 <= TOL_LOGITS_REL:
+        fail(f"mesh forward bf16 rel err {rel16} > {TOL_LOGITS_REL}")
+
+    # one dispatched loss and its gradients under the mesh, f32
+    params32 = _tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    batch = {"tokens": toks.to(torch.int32)}
+    loss_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    counts0 = read_counts()
+    with loss_ctx, use_mesh(mesh):
+        loss_d, g_d = value_and_grad(model.loss, params32, batch)
+    torch.cuda.synchronize()
+    loss_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    loss_p, g_p = value_and_grad(model.loss, params32, batch)
+    loss_rel = abs(float(loss_d) - float(loss_p)) / abs(float(loss_p))
+    gerrs = grad_errors(g_d, g_p)
+    worst = max(gerrs, key=gerrs.get)
+    del g_d, g_p, params32
+    torch.cuda.empty_cache()
+    print(f"[mesh] loss dispatched {float(loss_d):.6f} plain {float(loss_p):.6f} "
+          f"(rel {loss_rel:.3e}, tol {TOL_TRAIN_LOSS_REL:g}); gradients within "
+          f"{gerrs[worst]:.3e} of max |g| (worst {worst}; tol {TOL_TRAIN_GRAD:g}); "
+          f"launches {loss_counts}; stats {loss_ctx.stats}")
+    if not loss_rel <= TOL_TRAIN_LOSS_REL:
+        fail(f"mesh loss rel err {loss_rel} > {TOL_TRAIN_LOSS_REL}")
+    if not all(e <= TOL_TRAIN_GRAD for e in gerrs.values()):
+        fail(f"mesh gradients: {worst} at {gerrs[worst]} > {TOL_TRAIN_GRAD}")
+    if loss_ctx.stats["misses"] or loss_ctx.stats["mesh_sharded"] <= want["mesh_sharded"]:
+        fail(f"mesh loss: stats {loss_ctx.stats}; want no miss and the recompute's "
+             "sites on the mesh")
+
+    # K2 at olmoe's expert product over a (model 2) mesh
+    B, M, K, N = MESH_BMM
+    mesh2 = make_mesh((2,), ("model",), devices=[card] * 2)
+    kw = dict(b=B // 2, m=M, n=N, k=K)
+    bmm_task = TuneTask(key=workload_key("batch_matmul", **kw),
+                        func=get_workload("batch_matmul", **kw), weight=1.0, use_mxu=True)
+    bmm_db = Database()
+    counts0 = read_counts()
+    phase_tune(cfg, bmm_db, extract=lambda: [bmm_task], tag="mesh-bmm-tune")
+    bmm_tune_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    a = torch.randn(B, M, K, generator=gen, device="cuda")
+    bm = torch.randn(B, K, N, generator=gen, device="cuda")
+    bctx = repro_torch.DispatchContext(bmm_db, tasks=[bmm_task], backend="cuda")
+    counts0 = read_counts()
+    with use_mesh(mesh2):
+        got = bctx.batch_matmul(a, bm)
+    torch.cuda.synchronize()
+    bmm_counts = {k: n - counts0[k] for k, n in read_counts().items()}
+    bmm_err = float((got - torch.bmm(a, bm)).abs().max())
+    print(f"[mesh] K2 at b{B} m{M} k{K} n{N} over {mesh2}: {bmm_counts['batch_matmul']} "
+          f"launches, max_abs_err {bmm_err:.3e} against "
+          f"torch.bmm (tol {TOL_MATMUL:g}); stats {bctx.stats}")
+    if (bmm_counts["batch_matmul"] != 2 or bctx.stats["mesh_sharded"] != 1
+            or not bmm_err <= TOL_MATMUL):
+        fail(f"mesh K2: launches {bmm_counts}, stats {bctx.stats}, err {bmm_err}")
+    del a, bm, got
+
+    # the dry run of smollm's cells on both production meshes (meta only)
+    dry = {}
+    for shape_name in DRYRUN_SHAPES:
+        for multi_pod in (False, True):
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(cfg.name, shape_name, multi_pod)
+            wall = time.perf_counter() - t0
+            if rec["status"] != "ok":
+                fail(f"dry run {cfg.name} {shape_name} {rec['mesh']}: {rec}")
+            dry[f"{shape_name}/{rec['mesh']}"] = dict(
+                wall_s=wall, n_devices=rec["n_devices"],
+                argument_gib=rec["memory"]["argument_bytes"] / 2**30,
+                output_gib=rec["memory"]["output_bytes"] / 2**30,
+                flops_per_device=rec["cost"]["flops"])
+            print(f"[mesh] dry run {cfg.name} {shape_name} {rec['mesh']}: "
+                  f"{rec['n_devices']} devices, arguments "
+                  f"{rec['memory']['argument_bytes'] / 2**30:.4f} GiB a device, "
+                  f"{rec['cost']['flops']:.4e} FLOPs a device, {wall:.1f} s")
+
+    # each per-shard kernel as phase 6 times it, with its launches a forward
+    timings = phase_timings(tasks, runs, gen, cfg.vocab)
+    for key, row in timings.items():
+        row["forward_launches"] = n_coords * by_key.get(key, {}).get("hits", 0)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[mesh] phase 19 took {phase_s:.1f} s")
+    path_counts = {k: tune_counts[k] + fwd_counts[k] + loss_counts[k]
+                   + bmm_tune_counts[k] + bmm_counts[k] for k in KERNELS}
+    return dict(seconds=phase_s, f32_max_rel_err=rel32, bf16_max_rel_err=rel16,
+                plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
+                reasons=dict(reasons), launches=fwd_counts, matmul_variants=k1v,
+                flash_attention_variants=k3v, rmsnorm_hits=norm_hits,
+                loss_rel_err=loss_rel, grad_max_rel_err=gerrs[worst],
+                loss_launches=loss_counts, bmm_err=bmm_err, dryrun=dry,
+                profiles=profiles, timings=timings, tune_best=best), fwd_counts, \
+        path_counts
+
+
 def phase_operators() -> dict:
     """``tune_workload`` on the ``cuda`` backend for each paper operator at
     its reduced shape, and for ``sfm`` at its default 256x256: each must
@@ -4021,7 +4335,7 @@ def main(argv=None) -> int:
         ssm_serve_runs, gen, ssm_cfg.vocab))
     clock("phase 10")
 
-    moe_cfg = get_config(MOE_ARCH)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     moe_db = Database()
     reset_counts()  # the olmoe forward path starts here
     moe_tasks, moe_best, moe_fwd, moe_tune_counts, moe_fwd_counts, moe_runs = \
@@ -4041,7 +4355,7 @@ def main(argv=None) -> int:
     clock("phase 6 (olmoe)")
 
     torch.cuda.empty_cache()
-    train_cfg = get_config(TRAIN_ARCH)
+    train_cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     train_db = Database()
     reset_counts()  # the smollm training path starts here
     _, train_best, train, train_tune_counts, train_counts, train_rows = \
@@ -4054,7 +4368,7 @@ def main(argv=None) -> int:
     clock("phase 14")
 
     torch.cuda.empty_cache()
-    vl_cfg = get_config(VL_ARCH)
+    vl_cfg = dataclasses.replace(get_config(VL_ARCH), n_layers=VL_LAYERS)
     vl_db = Database()
     reset_counts()  # the qwen2-vl forward path starts here
     vl_tasks, vl_best, vl_fwd, vl_tune_counts, vl_fwd_counts, vl_runs = \
@@ -4073,7 +4387,8 @@ def main(argv=None) -> int:
     clock("phase 15")
 
     torch.cuda.empty_cache()
-    wh_cfg = get_config(WHISPER_ARCH)
+    wh_cfg = dataclasses.replace(get_config(WHISPER_ARCH), n_layers=WHISPER_LAYERS,
+                                 enc_layers=WHISPER_LAYERS)
     wh_db = Database()
     reset_counts()  # the whisper forward path starts here
     L_enc, L_dec = wh_cfg.enc_layers, wh_cfg.n_layers
@@ -4119,6 +4434,11 @@ def main(argv=None) -> int:
     router_counts = read_counts()
     clock("phase 18")
 
+    torch.cuda.empty_cache()
+    reset_counts()  # the mesh path starts here
+    mesh, mesh_fwd_counts, mesh_counts = phase_mesh(cfg, Database(), gen)
+    clock("phase 19")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -4142,6 +4462,9 @@ def main(argv=None) -> int:
         # the parent's in-process runs and the workers' (from the end of their
         # warm-up to the kill or the drain's end)
         "router": {k: router_counts[k] + router["worker_launches"][k] for k in KERNELS},
+        # tuning, one f32 forward, one loss and its gradients, K2's expert
+        # product: each per-shard kernel once a mesh coordinate
+        "mesh": mesh_counts,
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -4183,6 +4506,7 @@ def main(argv=None) -> int:
             fleet_forward_launches=fleet_fwd_counts[k],
             fleet_worker_launches=fleet["worker_launches"].get(k, {}).get("launches", 0),
             router_worker_launches=router["worker_launches"][k],
+            mesh_forward_launches=mesh_fwd_counts[k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -4212,7 +4536,7 @@ def main(argv=None) -> int:
                            vl_serve_tune_best=vl_serve_best, whisper_forward=wh_fwd,
                            whisper_tune_best=wh_best, whisper_decode=wh_dec,
                            whisper_decode_tune_best=wh_dec_best, fleet=fleet,
-                           router=router,
+                           router=router, mesh=mesh,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

@@ -24,6 +24,20 @@ to the caller's dtype.
 
 Gradients: each swapped call is a ``torch.autograd.Function`` whose
 backward is the autograd of the plain PyTorch version.
+
+Under an active mesh (``distributed.sharding.use_mesh``) ``dense``,
+``batch_matmul`` and ``attention`` first look up the *per-shard* key that
+:func:`~repro_torch.distributed.sharding.shard_workload` gives (the key
+extraction under the same mesh tuned) and serve it through
+:func:`~repro_torch.distributed.sharding.shard_map`: the kernel runs once
+per mesh coordinate on that coordinate's block, and the blocks are
+assembled (``stats["mesh_sharded"]``).  Without a per-shard record the
+call falls through to the global key.  The backward is the autograd of
+the global plain function, as in the reference.  The reference turns any
+exception of its mesh path into a ``mesh_error`` fallback; here only a
+per-shard schedule the backend rejects at lowering (``ScheduleRejected``)
+is a ``mesh_error`` fallback to the global key, and any error at launch
+propagates, as on the global path.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch
 from ..backends.registry import DEFAULT_BACKEND, get_backend
 from ..core.tir import PrimFunc
 from ..core.validator import validate_trace
+from ..distributed.sharding import P, get_mesh, shard_map, shard_workload
 from ..kernels import ScheduleRejected
 from ..obs import emit, metrics, trace_enabled
 from ..search.database import Database, parse_workload_key, workload_key
@@ -64,6 +79,10 @@ class CompiledKernel:
     latency_s: float = float("inf")
     grad_fn: Optional[Callable] = None  # autograd-wrapped positional call
     meta: Optional[Dict[str, Any]] = None  # lowering provenance
+    # the shard_map-wrapped calls serving this per-shard kernel on *global*
+    # operands, by (mesh, specs); separate from grad_fn because the two
+    # expect different operand sizes
+    mesh_grad_fn: Optional[Dict[Any, Callable]] = None
 
 
 class DispatchContext:
@@ -104,6 +123,7 @@ class DispatchContext:
             "attention_fused": 0,
             "attention_tuned": 0,
             "attention_decode_tuned": 0,
+            "mesh_sharded": 0,
         }
         self.hits_by_key: Dict[str, int] = {}
         self._by_key: Dict[str, Dict[str, Any]] = {}
@@ -275,6 +295,11 @@ class DispatchContext:
         m = 1
         for s in x.shape[:-1]:
             m *= int(s)
+        mesh = get_mesh()
+        if mesh is not None:
+            out = self._mesh_dense(x, w, transpose_w, m, n, k, mesh)
+            if out is not None:
+                return out
         kern = self._lookup(workload_key("dense", m=m, n=n, k=k), "dense")
         if kern is None:
             return None
@@ -308,6 +333,11 @@ class DispatchContext:
             B *= int(s)
         M, K = int(a.shape[-2]), int(a.shape[-1])
         N = int(b.shape[-1])
+        mesh = get_mesh()
+        if mesh is not None:
+            out = self._mesh_batch_matmul(a, b, B, M, N, K, bdims, mesh)
+            if out is not None:
+                return out
         kern = self._lookup(
             workload_key("batch_matmul", b=B, m=M, n=N, k=K), "batch_matmul"
         )
@@ -368,15 +398,31 @@ class DispatchContext:
         # causal windows are keyed
         default_scale = scale is None or abs(scale - D**-0.5) < 1e-12
         if default_scale and not (window is not None and not causal):
+            mesh = get_mesh()
+            if mesh is not None:
+                out = self._mesh_attention(
+                    q, k, v, B, H, KVH, S, D, causal, window, softcap, ref,
+                    mesh,
+                )
+                if out is not None:
+                    return out
             key = workload_key(
                 "attention", b=B, h=H, kvh=KVH, s=S, d=D,
                 causal=int(bool(causal)), window=int(window or 0),
                 softcap=float(softcap or 0.0),
             )
             kern = self.kernel(key)
+            unservable = kern is not None and not _attention_kern_servable(
+                kern, B, H, S
+            )
+            if unservable:
+                kern = None  # structural lowering too large to serve
             if kern is None:
                 self.stats["misses"] += 1
-                self._note("miss", key, "attention", self.miss_reasons.get(key))
+                self._note(
+                    "miss", key, "attention",
+                    "unservable" if unservable else self.miss_reasons.get(key),
+                )
             else:
                 self.stats["hits"] += 1
                 self.hits_by_key[key] = self.hits_by_key.get(key, 0) + 1
@@ -529,6 +575,160 @@ class DispatchContext:
         x2 = x.reshape(tokens, d).float()
         out = kern.grad_fn(x2, w.float())
         return out.reshape(x.shape).to(x.dtype)
+
+    # -- mesh-aware dispatch (shard_map-served per-shard kernels) -----------
+
+    def _mesh_kernel(self, op: str, kwargs: Dict[str, Any], mesh):
+        """(kernel, ShardedWorkload, key) for the per-shard shape of one
+        call under ``mesh``, or ``(None, sw, key)`` when the per-shard key
+        has no servable record (``no_shard_record``) or its schedule was
+        rejected at lowering (``mesh_error``); the caller then falls
+        through to the global path.  The per-shard shape comes from the same
+        :func:`~repro_torch.distributed.sharding.shard_workload` rule task
+        extraction uses, so tuned-under-mesh keys always line up."""
+        sw = shard_workload(op, kwargs, mesh)
+        if sw is None:
+            return None, None, None
+        key = workload_key(op, **sw.kwargs)
+        kern = self.kernel(key)
+        if kern is None:
+            rejected = self.miss_reasons.get(key) == "lowering_failed"
+            self._note("fallback", key, op,
+                       "mesh_error" if rejected else "no_shard_record")
+            return None, sw, key
+        return kern, sw, key
+
+    def _mesh_hit(self, key: str, site: str) -> None:
+        self.stats["hits"] += 1
+        self.stats["mesh_sharded"] += 1
+        self.hits_by_key[key] = self.hits_by_key.get(key, 0) + 1
+        self._note("hit", key, site, "mesh_shard")
+
+    def _mesh_wrap(self, kern: CompiledKernel, mesh, specs, build: Callable):
+        """The shard_map-wrapped call of a kernel under ``mesh`` with
+        ``specs``, built once.  Two calls may share a per-shard key with
+        different axes (a dense whose n the model axis splits and one whose
+        n it cannot split, each with the same block shape), so the cache is
+        keyed by the specs too; the reference keys it by the mesh alone and
+        reuses the first call's specs."""
+        if kern.mesh_grad_fn is None:
+            kern.mesh_grad_fn = {}
+        fn = kern.mesh_grad_fn.get((mesh, specs))
+        if fn is None:
+            fn = kern.mesh_grad_fn[(mesh, specs)] = build()
+        return fn
+
+    def _mesh_dense(self, x, w, transpose_w: bool, m: int, n: int, k: int,
+                    mesh) -> Optional[torch.Tensor]:
+        """The per-shard tuned dense kernel under shard_map: rows split
+        over the data-parallel axes, columns over the model axis, the
+        contraction whole — each block is an exact local tile.  The blocks
+        are views (K1 reads any strides)."""
+        kern, sw, key = self._mesh_kernel("dense", {"m": m, "n": n, "k": k}, mesh)
+        if kern is None:
+            return None
+        m_ax, n_ax = sw.dim_axes.get("m"), sw.dim_axes.get("n")
+
+        def build():
+            def body(x2, w2):
+                return kern.fn({"X": x2, "W": w2})[kern.out_name]
+
+            fwd = shard_map(body, mesh, in_specs=(P(m_ax, None), P(None, n_ax)),
+                            out_specs=P(m_ax, n_ax))
+            return _with_reference_grad(fwd, torch.matmul)
+
+        grad_fn = self._mesh_wrap(kern, mesh, (m_ax, n_ax), build)
+        x2 = x.reshape(m, k).float()
+        w2 = w.float()
+        if transpose_w:
+            w2 = w2.t()
+        out = grad_fn(x2, w2)
+        self._mesh_hit(key, "dense")
+        return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+    def _mesh_batch_matmul(self, a, b, B: int, M: int, N: int, K: int, bdims,
+                           mesh) -> Optional[torch.Tensor]:
+        """The per-shard tuned batch_matmul under shard_map: the batch dim
+        (heads or experts) splits over the model axis, else the
+        data-parallel axes."""
+        kern, sw, key = self._mesh_kernel(
+            "batch_matmul", {"b": B, "m": M, "n": N, "k": K}, mesh
+        )
+        if kern is None:
+            return None
+        spec = P(sw.dim_axes.get("b"), None, None)
+
+        def build():
+            def body(a2, b2):
+                return kern.fn({"A": a2, "B": b2})[kern.out_name]
+
+            fwd = shard_map(body, mesh, in_specs=(spec, spec), out_specs=spec)
+            return _with_reference_grad(fwd, torch.matmul)
+
+        grad_fn = self._mesh_wrap(kern, mesh, spec, build)
+        out = grad_fn(a.reshape(B, M, K).float(), b.reshape(B, K, N).float())
+        self._mesh_hit(key, "batch_matmul")
+        return out.reshape(*bdims, M, N)
+
+    def _mesh_attention(self, q, k, v, B: int, H: int, KVH: int, S: int, D: int,
+                        causal, window, softcap, ref: Callable,
+                        mesh) -> Optional[torch.Tensor]:
+        """The per-shard tuned fused attention under shard_map: heads split
+        over the model axis (q and kv heads together, so each block keeps
+        whole GQA groups), batch over the data-parallel axes.  The
+        sequence stays whole, so causal and window masks are exact."""
+        kern, sw, key = self._mesh_kernel(
+            "attention",
+            {
+                "b": B, "h": H, "kvh": KVH, "s": S, "d": D,
+                "causal": int(bool(causal)), "window": int(window or 0),
+                "softcap": float(softcap or 0.0),
+            },
+            mesh,
+        )
+        if kern is None:
+            return None
+        if not _attention_kern_servable(kern, sw.kwargs["b"], sw.kwargs["h"], S):
+            self._note("fallback", key, "attention", "unservable")
+            return None
+        b_ax, h_ax = sw.dim_axes.get("b"), sw.dim_axes.get("h")
+        G = H // KVH
+
+        def build():
+            q_spec = P(b_ax, h_ax, None, None, None)  # (B, KVH, G, S, D)
+            kv_spec = P(b_ax, h_ax, None, None)       # (B, KVH, S, D)
+
+            def body(q5, k2, v2):
+                return kern.fn({"Q": q5, "K": k2, "V": v2})[kern.out_name]
+
+            fwd = shard_map(body, mesh, in_specs=(q_spec, kv_spec, kv_spec),
+                            out_specs=q_spec)
+
+            def ref5(q5, k2, v2):
+                return ref(q5.reshape(B, H, S, D), k2, v2).reshape(B, KVH, G, S, D)
+
+            return _with_reference_grad(fwd, ref5)
+
+        grad_fn = self._mesh_wrap(kern, mesh, (b_ax, h_ax, B, H, S, D), build)
+        q5 = q.reshape(B, KVH, G, S, D).float()
+        out = grad_fn(q5, k.float(), v.float())
+        self._mesh_hit(key, "attention")
+        self.stats["attention_tuned"] += 1
+        return out.reshape(B, H, S, D).to(q.dtype)
+
+
+# A structurally lowered (not fused) attention kernel materializes the
+# (b, h, s, s) score buffer the chunked online-softmax path exists to
+# avoid; it is served only while that buffer stays within this cap.  The
+# fused flash lowering (K3, meta ``pallas_kernel: "flash_attention"``)
+# streams kv blocks and has no such limit.
+MAX_STRUCTURAL_ATTN_SCORE_BYTES = 256 << 20
+
+
+def _attention_kern_servable(kern: CompiledKernel, b: int, h: int, s: int) -> bool:
+    if kern.meta and kern.meta.get("pallas_kernel") == "flash_attention":
+        return True
+    return 4 * b * h * s * s <= MAX_STRUCTURAL_ATTN_SCORE_BYTES
 
 
 def maybe_dispatch(ctx: Optional[DispatchContext]):

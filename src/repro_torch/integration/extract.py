@@ -354,7 +354,9 @@ def attention_sites(
     window ``w`` is the number of layers carrying that window, split
     across the records that share it (one record per layer here, so each
     carries weight 1 and dedup sums them); a non-causal (encoder) record
-    carries the encoder's layers over its records.  Records the workload
+    carries the encoder's layers over its records, and so does, summed over
+    a decoder scan body, a cross-attention whose frames match the sequence
+    (the reference's weight for it).  Records the workload
     cannot express — decode offsets, non-square kv (cross-attention),
     non-default scale, and every
     call of a model whose window pattern is aperiodic (hymba), whose window
@@ -371,17 +373,23 @@ def attention_sites(
             _skip("attention", "traced_window")
         return []
     rec_by_window: Dict[int, int] = {}
-    n_noncausal = 0
-    for r in recorded:
+    square_noncausal = []
+    for i, r in enumerate(recorded):
         if r["causal"]:
             w = r["window"]
             if w >= r["q_shape"][2]:
                 w = 0  # window >= seq is global (canonical form)
             rec_by_window[w] = rec_by_window.get(w, 0) + 1
         elif r["kv_seq"] == r["q_shape"][2]:
-            n_noncausal += 1
+            square_noncausal.append(i)
+    # the encoder runs before the first decoder layer: its records come
+    # first; the rest are decoder cross-attentions whose frames match the
+    # sequence (S == F)
+    n_enc = min(len(square_noncausal), cfg.enc_layers)
+    encoder = set(square_noncausal[:n_enc])
+    n_cross = len(square_noncausal) - n_enc
     sites: List[TaskSite] = []
-    for r in recorded:
+    for i, r in enumerate(recorded):
         if r["q_offset"] != 0:
             _skip("attention", "decode_offset")
             continue
@@ -410,9 +418,14 @@ def attention_sites(
             )
             n_rec = rec_by_window.get(w, 1)
             weight = total / n_rec if total else 1.0
-        else:
+        elif i in encoder:
             # encoder self-attention: the encoder's layers over its records
-            weight = float(cfg.enc_layers or 1) / n_noncausal
+            weight = float(cfg.enc_layers) / n_enc
+        else:
+            # a square cross-attention: the reference traces one record a
+            # decoder scan body (``window_period`` layers) and weighs each
+            # by the encoder's layers, as it weighs an encoder record
+            weight = float(cfg.enc_layers) * window_period(windows) / n_cross
         sites.append(
             TaskSite(
                 "attention",
@@ -505,6 +518,42 @@ def _task_flops(op: str, kw: Dict[str, Any]) -> int:
     return 0
 
 
+def shard_sites(sites: Iterable[TaskSite], mesh) -> List[TaskSite]:
+    """Rewrite site shapes to the per-shard shapes a mesh would run.
+
+    Under :func:`~repro_torch.distributed.sharding.shard_map` each mesh
+    coordinate runs the *local* block of every dispatched call, so the
+    shapes worth tuning (and the keys dispatch looks up) are the per-shard
+    ones.  The rule is :func:`~repro_torch.distributed.sharding.shard_workload`,
+    the function the dispatch layer uses, so extracted keys and served keys
+    never drift apart.  Sites the mesh cannot split pass through unchanged;
+    each rewrite is counted (``extract.shard``) and traced.
+    """
+    from ..distributed.sharding import shard_workload
+
+    if mesh is None:
+        return list(sites)
+    out: List[TaskSite] = []
+    for s in sites:
+        sw = shard_workload(s.op, s.kwargs, mesh)
+        if sw is None or sw.kwargs == s.kwargs:
+            out.append(s)
+            continue
+        metrics().inc("extract.shard", op=s.op)
+        if trace_enabled():
+            emit(
+                "extract.shard",
+                op=s.op,
+                global_kwargs=dict(s.kwargs),
+                shard_kwargs=dict(sw.kwargs),
+                axes={k: list(v) if isinstance(v, tuple) else v
+                      for k, v in sw.dim_axes.items()},
+            )
+        out.append(TaskSite(op=s.op, kwargs=dict(sw.kwargs), count=s.count,
+                            dispatchable=s.dispatchable))
+    return out
+
+
 def dedup_sites(
     sites: Iterable[TaskSite], min_task_elems: int = 4096
 ) -> List[ExtractedTask]:
@@ -560,6 +609,16 @@ def record_forward_sites(cfg: ModelConfig, batch: int = 1, seq: int = TOKEN_TILE
     return rec
 
 
+def _resolve_mesh(mesh):
+    """``"auto"`` means the thread's active mesh (``use_mesh`` block);
+    ``None`` explicitly disables per-shard shaping."""
+    if isinstance(mesh, str) and mesh == "auto":
+        from ..distributed.sharding import get_mesh
+
+        return get_mesh()
+    return mesh
+
+
 def extract_tasks(
     cfg: ModelConfig,
     batch: int = 1,
@@ -569,16 +628,19 @@ def extract_tasks(
     max_tasks: int = 0,
     ops: Tuple[str, ...] = EXTRACTABLE_OPS,
     dispatchable_only: bool = False,
+    mesh="auto",
 ) -> List[TuneTask]:
     """Extract weighted tuning tasks from a model config's forward pass.
 
     ``max_tasks > 0`` keeps only the top tasks by weight x flops;
     ``dispatchable_only`` restricts to sites the dispatch layer can swap
-    back into the model.
+    back into the model.  When a mesh is active (or passed) sites are
+    rewritten to per-shard shapes first (:func:`shard_sites`).
     """
     extracted = extract_task_specs(
         cfg, batch=batch, seq=seq, min_task_elems=min_task_elems,
         max_tasks=max_tasks, ops=ops, dispatchable_only=dispatchable_only,
+        mesh=mesh,
     )
     return [t.to_tune_task(use_mxu=use_mxu) for t in extracted]
 
@@ -591,6 +653,7 @@ def extract_task_specs(
     max_tasks: int = 0,
     ops: Tuple[str, ...] = EXTRACTABLE_OPS,
     dispatchable_only: bool = False,
+    mesh="auto",
 ) -> List[ExtractedTask]:
     """Like :func:`extract_tasks` but returns the rich task records."""
     rec = record_forward_sites(cfg, batch=batch, seq=seq)
@@ -598,6 +661,7 @@ def extract_task_specs(
     sites = [s for s in sites if s.op in ops]
     if dispatchable_only:
         sites = [s for s in sites if s.dispatchable]
+    sites = shard_sites(sites, _resolve_mesh(mesh))
     tasks = dedup_sites(sites, min_task_elems=min_task_elems)
     return _apply_max_tasks(cfg, tasks, max_tasks, ops, "attention")
 
@@ -713,6 +777,7 @@ def extract_decode_task_specs(
     max_tasks: int = 0,
     ops: Tuple[str, ...] = DECODE_EXTRACTABLE_OPS,
     dispatchable_only: bool = False,
+    mesh="auto",
     chunk: int = 0,
     paged: bool = False,
     page_size: int = 16,
@@ -744,6 +809,7 @@ def extract_decode_task_specs(
     sites = [s for s in sites if s.op in ops]
     if dispatchable_only:
         sites = [s for s in sites if s.dispatchable]
+    sites = shard_sites(sites, _resolve_mesh(mesh))
     tasks = dedup_sites(sites, min_task_elems=min_task_elems)
     return _apply_max_tasks(cfg, tasks, max_tasks, ops, "attention_decode")
 
@@ -757,6 +823,7 @@ def extract_decode_tasks(
     max_tasks: int = 0,
     ops: Tuple[str, ...] = DECODE_EXTRACTABLE_OPS,
     dispatchable_only: bool = False,
+    mesh="auto",
     chunk: int = 0,
     paged: bool = False,
     page_size: int = 16,
@@ -765,6 +832,6 @@ def extract_decode_tasks(
     extracted = extract_decode_task_specs(
         cfg, batch=batch, max_seq=max_seq, min_task_elems=min_task_elems,
         max_tasks=max_tasks, ops=ops, dispatchable_only=dispatchable_only,
-        chunk=chunk, paged=paged, page_size=page_size,
+        mesh=mesh, chunk=chunk, paged=paged, page_size=page_size,
     )
     return [t.to_tune_task(use_mxu=use_mxu) for t in extracted]

@@ -23,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import shard
+
 NEG_INF = -1e30
 
 
@@ -99,6 +101,38 @@ def bmm_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if out is not None:
             return out
     return torch.matmul(a.float(), b.float())
+
+
+# Logical axes of each parameter, keyed by the path suffix the sharding
+# rules look up (``distributed/sharding.py:param_shardings``).  The
+# reference fills the same registry from its init functions as they run;
+# here it is a table, with the same keys and axes.
+PARAM_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed": ("vocab", "embed"),
+    "ln": ("embed",),
+    "attn/wq": ("embed", "heads"),
+    "attn/wk": ("embed", "heads"),
+    "attn/wv": ("embed", "heads"),
+    "attn/wo": ("heads", "embed"),
+    "attn/bq": ("heads",),
+    "attn/bk": ("heads",),
+    "attn/bv": ("heads",),
+    "mlp/wi": ("embed", "mlp"),
+    "mlp/wg": ("embed", "mlp"),
+    "mlp/wo": ("mlp", "embed"),
+    "moe/router": ("embed", None),
+    "moe/wi": ("experts", "embed", None),
+    "moe/wg": ("experts", "embed", None),
+    "moe/wo": ("experts", None, "embed"),
+    "ssd/wx": ("embed", "heads"),
+    "ssd/wz": ("embed", "heads"),
+    "ssd/wB": ("embed", None),
+    "ssd/wC": ("embed", None),
+    "ssd/wdt": ("embed", None),
+    "ssd/A_log": (None,),
+    "ssd/dt_bias": (None,),
+    "ssd/wo": ("heads", "embed"),
+}
 
 
 def _init(gen, shape, scale=None, dtype=torch.bfloat16, device="cpu"):
@@ -506,21 +540,24 @@ def moe(
     # kept pairs take distinct slots; every dropped one lands on the spare
     # row E·C, which is cut off
     dst = torch.where(keep, eid * C + pos, torch.full_like(eid, E * C))
+    # sharding, as in the reference: token rows data-parallel, expert
+    # buffers expert-parallel
+    src = shard(src, "tokens")
     buf = x.new_zeros((E * C + 1, D))
     buf[dst] = src
-    buf = buf[: E * C].reshape(E, C, D)
+    buf = shard(buf[: E * C].reshape(E, C, D), "experts")
     h = bmm_op(buf, p["wi"]).to(buf.dtype)
     g = bmm_op(buf, p["wg"]).to(buf.dtype)
     h = _ACTS[act](g) * h
-    out_e = bmm_op(h, p["wo"]).to(buf.dtype)  # (E, C, D)
+    out_e = shard(bmm_op(h, p["wo"]).to(buf.dtype), "experts")  # (E, C, D)
     # the reference's gather at (E, C) for a dropped pair, clamped as JAX
     # clamps an out-of-bounds gather
     e_g = torch.where(keep, eid, torch.full_like(eid, E - 1))
     p_g = torch.where(keep, pos, torch.full_like(pos, C - 1))
-    gathered = out_e.reshape(E * C, D)[e_g * C + p_g]
+    gathered = shard(out_e.reshape(E * C, D)[e_g * C + p_g], "tokens")
     w = torch.where(keep, gate_vals.reshape(T * top_k), 0.0)
     gathered = gathered * w[:, None].to(gathered.dtype)
-    out = gathered.float().reshape(T, top_k, D).sum(dim=1)
+    out = shard(gathered.float().reshape(T, top_k, D).sum(dim=1), "tokens")
     return out.reshape(B, S, D).to(x.dtype)
 
 

@@ -25,6 +25,10 @@ class Model:
     def init(self, seed: int = 0, device: str = "cuda") -> Params:
         return T.init_params(self.cfg, seed=seed, device=device)
 
+    def param_specs(self) -> Params:
+        """The parameters' shapes and dtypes, allocated on ``meta``."""
+        return T.param_specs(self.cfg)
+
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return T.loss_fn(self.cfg, params, batch)
 
@@ -71,6 +75,12 @@ def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch
     if cfg.enc_layers:
         ins["frames"] = _spec((B, cfg.enc_frames, cfg.d_model), torch.bfloat16)
     return ins
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The inputs of a (config x shape) cell's decode step as ``meta``
+    tensors: one token a sequence, ``tokens`` (B, 1) int32."""
+    return {"tokens": _spec((shape.global_batch, 1), torch.int32)}
 
 
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:

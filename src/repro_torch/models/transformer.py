@@ -18,8 +18,9 @@ input with ``moe_dense_residual``), whose expert products dispatch through
 P) f32 SSD state; an encoder-decoder model's cache adds the encoder's
 cross-attention k/v (``xk``/``xv``).  The modality frontends are stubs, as
 in the reference: qwen2-vl takes precomputed embeddings, whisper
-precomputed frame embeddings.  There is one card, so the reference's
-sharding constraints have no counterpart.
+precomputed frame embeddings.  The reference's activation sharding
+constraints sit at its sites (``distributed/sharding.py:shard``, an
+identity on values).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import sharding as shd
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -101,6 +103,12 @@ def init_params(
         }
         params["enc_final_ln"] = ones(D)
     return params
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """Parameter shapes and dtypes on ``meta`` (nothing allocated): the
+    dry run's input."""
+    return init_params(cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +193,10 @@ def _inputs(cfg: ModelConfig, params: Params, tokens, embeds) -> torch.Tensor:
 def _attn_full(cfg, p, x, pos, window: Optional[int], chunk=1024):
     B, S, _ = x.shape
     q, k, v = L.qkv_proj(p, x, cfg)
+    hd_dims = (cfg.n_heads, cfg.n_kv_heads)
+    q = shd.shard(q, "act_heads", hd_dims)
+    k = shd.shard(k, "act_kv_heads", hd_dims)
+    v = shd.shard(v, "act_kv_heads", hd_dims)
     q = _rope_q(cfg, q, pos)
     k = _rope_q(cfg, k, pos)
     out = L.chunked_attention(
@@ -227,7 +239,7 @@ def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
     D), or None without attention, with ``collect_state`` the SSD state
     after the sequence (else None), and the cross-attention's (k, v) of the
     encoder output (else None)."""
-    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h = shd.shard(L.rmsnorm(x, p["ln1"], cfg.norm_eps), "residual")
     mix, kv, state = None, None, None
     if not cfg.attn_free:
         mix, kv = _attn_full(cfg, p["attn"], h, pos, window)
@@ -244,7 +256,7 @@ def _layer_fwd(cfg: ModelConfig, p: Params, x, pos, window: Optional[int],
     if cross_fn is not None:  # whisper: cross-attention between mixer and FFN
         xo, xkv = cross_fn(p["xattn"], L.rmsnorm(x, p["ln_x"], cfg.norm_eps))
         x = x + xo
-    return _ffn(cfg, p, x), kv, state, xkv
+    return shd.shard(_ffn(cfg, p, x), "residual"), kv, state, xkv
 
 
 def _encoder(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -316,7 +328,7 @@ def forward(
     layer's input for backward and recomputes the layer there (the
     reference's ``nothing_saveable`` checkpoint); the encoder, the final
     norm and the unembed are not recomputed."""
-    x = _inputs(cfg, params, tokens, embeds)
+    x = shd.shard(_inputs(cfg, params, tokens, embeds), "residual")
     B, S, _ = x.shape
     pos = _positions(cfg, B, S, x.device)
     cross = _cross_fn(cfg, params, frames)
@@ -325,7 +337,7 @@ def forward(
         layer = partial(_layer_out, cfg, _layer(params["layers"], i), pos=pos,
                         window=windows[i], ssd_backend=ssd_backend, cross_fn=cross)
         x = _recomputed(layer, x) if remat else layer(x)
-    return _logits(cfg, params, x)
+    return shd.shard(_logits(cfg, params, x), "logits")
 
 
 def _layer_out(cfg, p, x, pos, window, ssd_backend, cross_fn):
@@ -335,16 +347,17 @@ def _layer_out(cfg, p, x, pos, window, ssd_backend, cross_fn):
 
 def _recomputed(layer, x):
     """``layer(x)`` under non-reentrant activation checkpointing, with the
-    DispatchContext active now re-entered while backward recomputes it.
-    The context stack is thread-local, and autograd runs the backward of
-    CUDA tensors on a thread of its own, where the stack is empty: the
-    recompute would take the plain path, save other tensors than the
-    forward did and fail checkpoint's check (the reference captures the
-    context when it traces)."""
-    ctx = L._dispatch_ctx()
+    DispatchContext and the mesh active now re-entered while backward
+    recomputes it.  Both are thread-local, and autograd runs the backward
+    of CUDA tensors on a thread of its own, where neither is set: the
+    recompute would take another path (the plain one, or the global keys
+    instead of the per-shard ones), save other tensors than the forward did
+    and fail checkpoint's check (the reference captures both when it
+    traces)."""
+    ctx, mesh = L._dispatch_ctx(), shd.get_mesh()
 
     def run(x):
-        with ctx if ctx is not None else nullcontext():
+        with ctx if ctx is not None else nullcontext(), shd.use_mesh(mesh):
             return layer(x)
 
     return checkpoint(run, x, use_reentrant=False)

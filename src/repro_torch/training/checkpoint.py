@@ -12,9 +12,12 @@ The reference names each leaf's dtype as numpy does (``"float32"``,
 ``"bfloat16"``) and reads bf16 back through ``ml_dtypes``; here the names
 map to ``torch`` dtypes and the raw bytes are viewed as the dtype.  Save
 is atomic: a crash mid-save never corrupts LATEST; ``gc_old`` keeps the
-last few steps.  ``restore`` places every leaf on one explicit device;
-the reference's mesh re-layout (``mesh``, ``shardings``) waits for the
-port's mesh path and raises.
+last few steps.  ``restore`` places every leaf on one explicit device, or
+on its sharding's device (``shardings``, a tree of ``NamedSharding`` on a
+mesh of one card, which may hold it at several coordinates): each leaf's
+shape is first checked against its spec.  Placing a leaf's blocks across
+several cards waits for the multi-card mesh (``ROADMAP.md``, Queue 1) and
+raises.
 """
 
 from __future__ import annotations
@@ -98,6 +101,27 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(f.read().strip())
 
 
+def _mesh_device(mesh) -> torch.device:
+    """The one card a mesh lives on; raises for a mesh across cards."""
+    devs = mesh.distinct_devices()
+    if len(devs) > 1:
+        raise NotImplementedError(
+            f"{mesh} spans {len(devs)} devices ({', '.join(map(str, devs))}); "
+            "placing a checkpoint's shards across cards is the multi-card mesh "
+            "item of ROADMAP.md (Queue 1)"
+        )
+    return resolve_device(devs[0])
+
+
+def _place(t: torch.Tensor, sharding, path: str) -> torch.Tensor:
+    """``t`` on ``sharding``'s device once its spec fits ``t``'s shape."""
+    try:
+        sharding.shard_shape(t.shape)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return t.to(_mesh_device(sharding.mesh))
+
+
 def restore(
     ckpt_dir: str,
     step: Optional[int] = None,
@@ -105,14 +129,13 @@ def restore(
     mesh=None,
     shardings: Optional[Tree] = None,
 ) -> Tuple[int, Tree, Dict]:
-    """Load a checkpoint (the LATEST one without ``step``) onto ``device``:
-    (step, tree of tensors, extra)."""
-    if mesh is not None or shardings is not None:
-        raise NotImplementedError(
-            "restore onto a mesh (mesh=, shardings=) is not in the port yet; "
-            "pass device="
-        )
-    dev = resolve_device(device)
+    """Load a checkpoint (the LATEST one without ``step``): (step, tree of
+    tensors, extra).  A leaf with a sharding in ``shardings`` (a tree of
+    ``NamedSharding`` matching the checkpoint's paths) goes to that
+    sharding's device; every other leaf to ``mesh``'s device when a mesh is
+    given, else to ``device``."""
+    dev = _mesh_device(mesh) if mesh is not None else resolve_device(device)
+    flat_sh = dict(_flatten_with_paths(shardings)) if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -125,7 +148,9 @@ def restore(
         if rec["dtype"] not in DTYPES:
             raise TypeError(f"{rec['path']}: no torch dtype for {rec['dtype']!r}")
         raw = torch.from_numpy(np.load(os.path.join(d, rec["file"])))
-        pairs[rec["path"]] = raw.view(DTYPES[rec["dtype"]]).reshape(rec["shape"]).to(dev)
+        t = raw.view(DTYPES[rec["dtype"]]).reshape(rec["shape"])
+        sh = flat_sh.get(rec["path"])
+        pairs[rec["path"]] = _place(t, sh, rec["path"]) if sh is not None else t.to(dev)
     return step, _unflatten_from_paths(pairs), manifest.get("extra", {})
 
 

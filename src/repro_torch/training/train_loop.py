@@ -73,7 +73,7 @@ def make_train_step(
             loss = loss / n
         new_params, new_opt = adamw_update(
             opt_cfg, grads, opt_state, params,
-            compress_gen=seeded_generator(device),
+            compress_gen=seeded_generator(device) if opt_cfg.compress_bits else None,
         )
         return new_params, new_opt, {"loss": loss}
 

@@ -1041,3 +1041,113 @@ def test_cuda_pool_measures_in_spawned_workers_sharing_the_card():
     assert any(r.ok for r in out)
     assert (stats["inner_timeouts"], stats["inner_crashes"],
             stats["inner_quarantined_traces"]) == (0, 0, 0)
+
+
+# the mesh path on one card: a logical (data 2, model 3) mesh holding the
+# card six times, each per-shard kernel launched once a mesh coordinate
+
+
+def _servable_trace(op, kw):
+    """The first sampled trace of a workload that the cuda lowering takes."""
+    from repro_torch.backends.registry import get_backend
+    from repro_torch.core.modules import SpaceGenerator, default_modules
+    from repro_torch.core.validator import validate_trace
+    from repro_torch.core.workloads import get_workload
+
+    func = get_workload(op, **kw)
+    gen = SpaceGenerator(default_modules(use_mxu=True))
+    for seed in range(64):
+        tr = gen.generate(func, seed=seed).trace
+        v = validate_trace(func, tr)
+        if not v.ok:
+            continue
+        try:
+            get_backend("cuda").lower(v.schedule)
+        except ScheduleRejected:
+            continue
+        return tr.to_json()
+    raise AssertionError(f"no servable schedule for {op} {kw}")
+
+
+def _mesh_context(op, shard_kw):
+    from repro_torch.integration.dispatch import DispatchContext
+    from repro_torch.search.database import Database, TuningRecord, workload_key
+
+    db = Database()
+    db.put(TuningRecord(workload_key(op, **shard_kw), _servable_trace(op, shard_kw), 1e-6))
+    return DispatchContext(db, backend="cuda")
+
+
+def _card_mesh(shape, axes):
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=["cuda"] * math.prod(shape))
+
+
+@pytest.mark.parametrize("m,n,k,transpose", [
+    (512, 1536, 576, False),   # smollm's wi/wg: 256 x 512 a block
+    (512, 192, 576, False),    # wk/wv: 256 x 64
+    (512, 1152, 576, True),    # a table read transposed, as the unembed
+    (64, 30, 40, False),       # blocks of 5 columns: offsets not 16-byte aligned
+])
+def test_cuda_mesh_dense_against_plain(m, n, k, transpose):
+    from repro_torch.distributed.sharding import use_mesh
+
+    dev = _cuda()
+    mesh = _card_mesh((2, 3), ("data", "model"))
+    ctx = _mesh_context("dense", dict(m=m // 2, n=n // 3, k=k))
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, m // 2, k, generator=g, device=dev, requires_grad=True)
+    w = torch.randn((n, k) if transpose else (k, n), generator=g, device=dev,
+                    requires_grad=True)
+    n1 = mm.matmul.launches
+    with use_mesh(mesh):
+        got = ctx.dense(x, w, transpose_w=transpose)
+    torch.cuda.synchronize()
+    assert mm.matmul.launches - n1 == 6
+    assert ctx.stats["mesh_sharded"] == 1
+    want = torch.matmul(x, w.t() if transpose else w)
+    assert float((got - want).abs().max()) < TOL_MATMUL
+    gx, gw = torch.autograd.grad(got.sum(), (x, w))
+    px, pw = torch.autograd.grad(want.sum(), (x, w))
+    assert float((gx - px).abs().max()) < TOL_MATMUL
+    assert float((gw - pw).abs().max()) < TOL_MATMUL
+
+
+def test_cuda_mesh_batch_matmul_at_the_olmoe_expert_product():
+    from repro_torch.distributed.sharding import use_mesh
+
+    dev = _cuda()
+    mesh = _card_mesh((2,), ("model",))
+    ctx = _mesh_context("batch_matmul", dict(b=32, m=64, n=1024, k=2048))
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(64, 64, 2048, generator=g, device=dev)
+    b = torch.randn(64, 2048, 1024, generator=g, device=dev)
+    n2 = mm.batch_matmul.launches
+    with use_mesh(mesh):
+        got = ctx.batch_matmul(a, b)
+    torch.cuda.synchronize()
+    assert mm.batch_matmul.launches - n2 == 2
+    assert ctx.stats["mesh_sharded"] == 1
+    assert float((got - torch.bmm(a, b)).abs().max()) < TOL_MATMUL
+
+
+def test_cuda_mesh_attention_at_smollms_per_shard_shape():
+    from repro_torch.distributed.sharding import use_mesh
+
+    dev = _cuda()
+    mesh = _card_mesh((2, 3), ("data", "model"))
+    ctx = _mesh_context("attention", dict(b=1, h=3, kvh=1, s=256, d=64, causal=1,
+                                          window=0, softcap=0.0))
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(2, 9, 256, 64, generator=g, device=dev)
+    k = torch.randn(2, 3, 256, 64, generator=g, device=dev)
+    v = torch.randn(2, 3, 256, 64, generator=g, device=dev)
+    n3 = fa.flash_attention.launches
+    with use_mesh(mesh):
+        got = ctx.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - n3 == 6
+    assert ctx.stats["mesh_sharded"] == 1 and ctx.stats["attention_tuned"] == 1
+    want = tref.flash_attention(q, k, v, causal=True)
+    assert float((got - want).abs().max()) < 1e-4

@@ -75,6 +75,10 @@ MODULES = [
     "repro_torch.launch",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun",
+    "repro_torch.distributed",
+    "repro_torch.distributed.sharding",
     "repro_torch.data",
     "repro_torch.data.pipeline",
     "repro_torch.training",

@@ -463,8 +463,11 @@ def test_latest_pointer_gc_and_refusals(tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 4
     ckpt.gc_old(str(tmp_path), keep_last=2)
     assert {n for n in os.listdir(tmp_path) if n.startswith("step_")} == {"step_3", "step_4"}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ckpt.restore(str(tmp_path), mesh=object(), device="cpu")
+    from repro_torch.distributed.sharding import Mesh
+
+    # restoring onto a mesh across two devices waits for the multi-card mesh
+    with pytest.raises(NotImplementedError, match="multi-card mesh"):
+        ckpt.restore(str(tmp_path), mesh=Mesh(["cpu", "cpu:1"], ("data",)), device="cpu")
     with pytest.raises(FileNotFoundError):
         ckpt.restore(str(tmp_path / "none"), device="cpu")
 
