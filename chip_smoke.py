@@ -51,6 +51,19 @@ Phases, in order; a failing phase makes the run exit non-zero:
 3d. K3 at smollm-135m's forward shape (causal) at every tile that its tc
    variant takes, each against its plain version, with its device time
    beside ``scaled_dot_product_attention``'s and the bound;
+3e. K3 and K5 at gemma2-2b's shapes, head_dim 256 with the attention
+   softcap 50: K3 at (1, 8, 4608, 256) kvh 4 causal, with the 4096-token
+   window and global, on its fma variant; K5 at gemma2's tick (b4, kvh 4,
+   G 2, t 256) and over a 4608-position cache with the window and ragged
+   lengths; each run twice for the same bits (K5 also replayed twice from
+   one CUDA graph) against its plain version; the tiles whose CTA exceeds
+   shared memory there (K3 (64, 64), K5 block_kv 128) refused with
+   ``ScheduleRejected`` before any launch; each kernel's device time by
+   graph replay beside its plain version, its bound and the library's
+   (SDPA takes no softcap: the compiled ``flex_attention``, which a
+   process of its own compiles beside phase 8 and, once phases 8 and 22
+   are over, holds against the plain version and times on the same
+   inputs; SDPA's time without the softcap is printed beside it, as such);
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -78,21 +91,23 @@ Phases, in order; a failing phase makes the run exit non-zero:
 6. each kernel's time at its smollm main-path shapes with the tuned tiles
    (K7's at mamba2's forward shape is phase 3c's; K1's at the mamba2
    unembed follows phases 9 and 10), beside its plain version, the one
-   PyTorch call that computes the same function (where there is one), and
-   the least time the card could take (the tc variant of K1, K2 and K3 at
-   the 3xTF32 rate, K7 at the rate of each product's operand types, each
-   also at 67 TFLOP/s); device times (kernel
+   PyTorch call that computes the same function (where there is one;
+   with a softcap or a window the compiled ``flex_attention``), and the
+   least time the card could take (K1, K2 and K3, whatever variant
+   launched, at the card's best f32-accurate rate, 3xTF32, K7 at the rate
+   of each product's operand types, each also at 67 TFLOP/s); device times (kernel
    and library call) from CUDA events around a CUDA graph of 20 calls;
    then the same device times at fixed
    tiles (``FIXED_TILES``: the tiles of the per-shape tables PERF.md keeps
    for K1, K2, K3 and K4), so runs whose search picked other tiles compare
    at the same tile;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
-   seq 256), tune them the same way, then the full-width 48-layer bf16
-   forward under ``DispatchContext`` (49 rmsnorm hits, the unembed, K7 at
-   every layer), then held against the same forward with no context whose
+   seq 256), tune them the same way, then the full-width bf16 forward at
+   ``SSM_LAYERS`` = 24 of its 48 layers under ``DispatchContext`` (a
+   rmsnorm hit a layer and the final one, the unembed, K7 at every layer),
+   then held against the same forward with no context whose
    scan runs the plain version, both on the parameters cast to f32 (in
-   bf16 the random 48-layer model amplifies one-ulp differences; the bf16
+   bf16 the random deep model amplifies one-ulp differences; the bf16
    difference is reported);
 10. the mamba2-370m serving path: extract its decode tasks (4 slots,
    max_seq 256: the slot arena, whole-prompt prefill), tune them, serve 8
@@ -100,10 +115,10 @@ Phases, in order; a failing phase makes the run exit non-zero:
    (K7 in every admitted prompt's prefill), then with no context;
 11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
    1, seq 256), tune them, then the
-   full-width bf16 forward at ``MOE_LAYERS`` = 8 of its 16 layers under
-   ``DispatchContext`` (K2 at every expert product, 24 launches, printed
-   by variant; K3 8 launches, all fma, at head dim 128), traced, against the same forward with no
-   context.  Top-k routing is discontinuous, so the numbers are held in
+   full-width bf16 forward at ``MOE_LAYERS`` = 4 of its 16 layers under
+   ``DispatchContext`` (K2 at every expert product, three launches a
+   layer, printed by variant; K3 one a layer, all fma, at head dim 128),
+   traced, against the same forward with no context.  Top-k routing is discontinuous, so the numbers are held in
    f32, on the parameters cast to f32: each MoE layer dispatched against
    plain on the same input (routing runs plain in both) within
    ``TOL_MOE_REL``, and the whole forward within ``TOL_LOGITS_REL`` when no
@@ -112,48 +127,52 @@ Phases, in order; a failing phase makes the run exit non-zero:
 12. the olmoe-1b-7b serving path: extract its 16 decode tasks (4 slots,
    max_seq 256, paged, 32-token chunks), tune them the same way, serve 8
    requests on the paged arena under the tuned context and with no
-   context; one decode-only tick launches K2 24 times, all ``splitk``, and
-   K5 8 times, and is held against the plain tick in f32 as in phase 11;
+   context; one decode-only tick launches K2 three times a layer, all
+   ``splitk``, and K5 once a layer, and is held against the plain tick in
+   f32 as in phase 11;
    then phase 6 at olmoe's shapes;
 13. the smollm-135m training path, at the launcher's batch 8, seq 128:
    extract the reference's 10 tasks and tune them; one
-   ``make_train_step`` at ``TRAIN_LAYERS`` = 15 of its 30 layers under
+   ``make_train_step`` at ``TRAIN_LAYERS`` = 8 of its 30 layers under
    ``DispatchContext`` against the same step with
    no context on f32 parameters (the loss within ``TOL_TRAIN_LOSS_REL``,
    every gradient leaf within ``TOL_TRAIN_GRAD`` of its max |g|, the
-   updated parameters within 2·lr); its launches (K1 211, K3 30 ``tc``:
-   remat runs each layer's forward twice) and hits by key; bf16 steps
+   updated parameters within 2·lr); its launches (K1 14 a layer and the
+   unembed, K3 two a layer, all ``tc``: remat runs each layer's forward
+   twice) and hits by key; bf16 steps
    timed and one dispatched step traced; phase 6 at the step's shapes; then
    ``launch/train.py``'s ``main`` at full width for 20 steps with a
    checkpoint every 10, whose loss must fall, resumed from its step-10
    checkpoint and held against the uninterrupted run (``TOL_RESUME_REL``),
    with the checkpoint's round trip and the resumed batches bitwise;
 14. the mamba2-370m training path: one step's loss and gradients with the
-   scan on K7 (96 launches; backward the plain scan's autograd) against
+   scan on K7 (twice a layer; backward the plain scan's autograd) against
    the plain scan on f32 parameters, the six leaves that reach the loss
    only through the scan named and non-zero; then 4 bf16 steps on one
    batch, whose loss must fall;
 15. the qwen2-vl-2b paths (M-RoPE, embedding inputs): the reference's 10
    forward tasks (batch 1, seq 256, seeded embeddings) tuned, the
-   full-width bf16 forward at ``VL_LAYERS`` = 14 of its 28 layers under
-   ``DispatchContext`` (K3 14 launches, fma at D 128 GQA 6; K1 98, the
-   unembed plain: no schedule fits both the tile and the grid cap;
-   rmsnorm 29 hits) against
+   full-width bf16 forward at ``VL_LAYERS`` = 7 of its 28 layers under
+   ``DispatchContext`` (K3 one a layer, fma at D 128 GQA 6; K1 seven a
+   layer, the unembed plain: no schedule fits both the tile and the grid
+   cap; rmsnorm two a layer and the final one) against
    the same forward with no context, timed and traced, then both on f32
    parameters within ``TOL_F32_LOGITS_REL``; its 9 decode tasks tuned and
    8 requests served on the paged arena, dispatched
-   and plain, with one decode-only tick (K5 14 launches) compared;
+   and plain, with one decode-only tick (K5 once a layer) compared;
 16. the whisper-medium paths (encoder, cross-attention): the reference's
    20 forward tasks (batch 1, seq 256, 1500 seeded frames) tuned, the
-   full-width bf16 forward (``WHISPER_LAYERS`` = 12 encoder and 12
-   decoder layers) dispatched against plain as in phase 15 (K3 24: 12
-   non-causal fma at S 1500, 12 causal; K2 48 on the cross-attention's
-   chunked contractions; K1 181, the cross-attention's q/k/v plain as in
-   the reference; rmsnorm 62 hits); its 11 decode tasks tuned, then ``prefill`` of 4 prompts over 1500 frames and 16 greedy
-   ``decode_step`` calls, dispatched and plain: in f32 the tokens agree
-   (where one differs, the plain top-2 logits must be a near tie) and every
-   step launches K5 12 times over the 1500-frame cache and 12 over the
-   256-position one; bf16 steps timed and one traced; then phase 6 at the
+   full-width bf16 forward (``WHISPER_LAYERS`` = 6 encoder and 6 decoder
+   layers) dispatched against plain as in phase 15 (K3 a layer: non-causal
+   fma at S 1500 in the encoder, causal in the decoder; K2 four a decoder
+   layer on the cross-attention's chunked contractions; K1 seven an
+   encoder layer, eight a decoder layer and the unembed, the
+   cross-attention's q/k/v plain as in the reference; every rmsnorm); its
+   11 decode tasks tuned, then ``prefill`` of 4 prompts over 1500 frames
+   and 16 greedy ``decode_step`` calls, dispatched and plain: in f32 the
+   tokens agree (where one differs, the plain top-2 logits must be a near
+   tie) and every step launches K5 once a layer over the 1500-frame cache
+   and once over the 256-position one; bf16 steps timed and one traced; then phase 6 at the
    two models' shapes;
 17. the measurement fleet: phase 4's smollm-135m forward tasks tuned
    through ``cached+pool://workers=2`` (two spawned worker processes on
@@ -201,24 +220,53 @@ Phases, in order; a failing phase makes the run exit non-zero:
    over a (model 2) mesh against ``torch.bmm``; the dry run
    (``launch/dryrun.py``) of smollm's ``DRYRUN_SHAPES`` cells on both
    production meshes (meta tensors only); each per-shard kernel timed as
-   in phase 6.
+   in phase 6;
+20. the gemma2-2b forward (head_dim 256, attention softcap 50, a 4096-token
+   window on every other layer, post-norms, gelu, the tied 256000-wide
+   unembed with a logit softcap of 30): the reference's 12 tasks at batch
+   1, seq 4608 (the window narrower than the sequence) tuned but the three
+   products beyond the schedule caps (``schedulable``) and the norm
+   (``plain_norm``), which run plain; the full-width bf16 forward at
+   ``GEMMA_LAYERS`` = 14 of its 26 layers (a depth with a window period)
+   under ``DispatchContext`` against the same forward with no context,
+   timed and traced, then both on f32 parameters within
+   ``TOL_F32_LOGITS_REL`` (K3 14 launches, all fma, 7 with the window; K1
+   56; every gate derived from the config);
+21. the gemma2-2b serving path, phase 7's tier at the same depth: the
+   reference's 16 tasks of a paged tick tuned but the chunk norm
+   (``plain_norm``), which runs plain, 8 requests of 16 new tokens served dispatched
+   and plain, one decode-only tick held in f32 within ``TOL_F32_LOGITS_REL``
+   (K5 14 launches at D 256, K1 99 all splitk, the unembed over the
+   256000-wide table among them), its copies traced; then phase 6 at
+   gemma2's shapes;
+22. the three ``examples/*_torch.py`` twins, each its own process on the
+   card, the three at once and beside phase 8, their timings and phase
+   8's taking turns under one timing lock, collected before phase 6: the quickstart (``--smoke``) prints its trace
+   and a finite best, the serving twin serves 8 of 8 requests, the
+   training twin (``--steps 10 --rounds 1``) ends with a lower loss.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the sixteen paths (forward: phases 4-5; serving: phase 7;
+each of the eighteen paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
 whisper forward and decoding: phase 16; the fleet: phase 17; the router:
-phase 18; the mesh: phase 19) and read just after it.  A path's launches, and the ``launches``
+phase 18; the mesh: phase 19; gemma2 forward: phase 20; gemma2 serving:
+phase 21) and read just after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
 and on the fleet and router paths also the launches the spawned workers
 report (phase 17's read around each timing and sent in the result's meta,
 phase 18's read from ``stats`` from the end of each worker's warm-up to its
 kill or the drain's end; ``fleet_worker_launches`` and
-``router_worker_launches`` of the kernels line).  K1's, K2's and K3's launches are also counted by variant: K1's
+``router_worker_launches`` of the kernels line).  Each kernel's entry there
+is timed at the shape where it did the most work on the paths: its
+dispatch hits times its work a call (``shape_hits``; a kernel no
+dispatched key reaches keeps its timed shape of most extracted work).
+K1's, K2's and K3's launches are also counted by variant: K1's
 are printed for the tuned forward, one decode-only tick (every one
 ``splitk``) and the mamba2 forward, K2's for phase 3 (every variant), the
-serving path's tuning (every one ``splitk``), the olmoe forward and its
+serving path's tuning (every one ``splitk``, but gemma2's chunk
+contraction at M 64), the olmoe forward and its
 decode-only tick (every one ``splitk``), K3's for phase 3 (both variants),
 the tuned forward (every one ``tc``), the olmoe forward (every one
 ``fma``) and the dispatched train step (every one ``tc``).  TF32 is off for float32 matmuls in
@@ -237,6 +285,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from contextlib import contextmanager, nullcontext
@@ -273,12 +322,16 @@ BATCH = 1
 # time linear in its layers): whisper-medium's 24 encoder and 24 decoder
 # layers (phase 16), olmoe-1b-7b's 16 (phases 11-12), smollm-135m's 30 in
 # its train step (phase 13; the launcher trains all 30) and qwen2-vl-2b's
-# 28 (phase 15) are halved, so that every path fits the run's time limit
-# on a slow host (PERF.md §6); the other paths run every layer
-WHISPER_LAYERS = 12
-MOE_LAYERS = 8
-TRAIN_LAYERS = 15
-VL_LAYERS = 14
+# 28 (phase 15) were halved first, and since gemma2-2b's phases 20-22
+# came those four run a quarter of their depth and mamba2-370m half its 48
+# (phases 9, 10 and 14), so that every path fits the run's time limit on a
+# slow host (PERF.md §6); every gate is derived from the depth; gemma2-2b
+# runs 14 of its 26 (``GEMMA_LAYERS``), the other paths every layer
+WHISPER_LAYERS = 6
+MOE_LAYERS = 4
+TRAIN_LAYERS = 8
+VL_LAYERS = 7
+SSM_LAYERS = 24
 # search rounds a task, on every path.  Tuning takes most of the run (722 of
 # 1139 s on an H100 at two rounds a task), and all fifteen paths must fit its
 # time limit: phases 15-16 went from two rounds to one when phase 18 came
@@ -416,6 +469,55 @@ MESH_BMM = (64, 64, 2048, 1024)
 # the dry-run cells phase 19 runs on both production meshes (the whole
 # grid of smollm's cells takes ~27 s on a CPU; PERF.md)
 DRYRUN_SHAPES = ("train_4k",)
+# phases 20-21, gemma2-2b (head_dim 256, attention softcap 50, a 4096-token
+# window on every other layer, post-norms, gelu, a tied 256000-wide unembed
+# with a logit softcap of 30).  The forward runs at batch 1, seq 4608, so
+# that the local layers' window is narrower than the sequence; its depth is
+# 14 of 26 layers, as the other large paths run at half depth, and 14 has a
+# window period (2) where 13 has none: at such a depth neither package
+# extracts the fused attention task (``window_period``), and K3 would leave
+# the path.  Serving is phase 7's tier at the same depth
+GEMMA_ARCH = "gemma2-2b"
+GEMMA_LAYERS = 14
+GEMMA_SEQ = 4608
+GEMMA_FORWARD_TASKS = 12
+# the reference's tasks of gemma2's paged serving tick, every site
+# included: a decode step's and the 32-token chunks'.  All are tuned but
+# the chunk norm (128 tokens, d 2304, 57 sites a tick), which runs plain:
+# through the structural lowering it took 15.1 ms a call, so each prefill
+# tick spent about a second in host loops (PERF.md)
+GEMMA_SERVE_TASKS = 16
+# likewise the forward's norm (d 2304 over 4608 tokens, 57 sites) is
+# extracted but not tuned: it has no kernel, and the structural lowering's
+# candidates loop on the host, each over 0.5 s on its first call at this
+# size (8 of 8 in a round, 76.9 s, then the fresh searches past the run's
+# limit, on an H100: NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).  The decode
+# step's norm (4 tokens) is tuned
+
+# a gemma2 forward candidate (seq 4608) whose first call passes 0.5 s is
+# timed no further: the tuned tiles take 1-41 ms a call, and timing each
+# slow sampled tile in full (its warm-up and three repeats after the first
+# call) took 56.8-80.8 s of one fresh search (PERF.md)
+GEMMA_TUNE_TIMEOUT_S = 0.5
+# 8 requests of 16 new tokens, not phase 7's 32: every dispatched tick is
+# host-bound (230-400 ms), and the run's time limit holds
+GEMMA_NEW_TOKENS = 16
+# K3 at D 256 runs fma only (``TC_HEAD_DIMS``); (16, 64) fits its CTA in
+# shared memory there (168,384 bytes) and the lowering's grid cap (a q
+# block of 8 rows, whose CTA fits too, does not), (64, 64) does not fit;
+# K5's block_kv 64 fits at D 256 and G 2, 128 does not
+GEMMA_K3_TILE = (16, 64)
+GEMMA_K3_OVER_CAP = (64, 64)
+GEMMA_K5_TILE = 64
+GEMMA_K5_OVER_CAP = 128
+# the seed of phase 3e's inputs, which the flex process draws again
+FLEX_SEED = 26
+# phase 22: the three examples/ twins, each a process on the card
+EXAMPLE_RUNS = (
+    ("quickstart_torch.py", ["--smoke"]),
+    ("serve_batched_torch.py", []),
+    ("tune_and_train_torch.py", ["--steps", "10", "--rounds", "1"]),
+)
 
 
 def fail(msg: str) -> None:
@@ -493,18 +595,58 @@ def sdpa(q, k, v, causal: bool):
     )
 
 
+# compiled flex_attention calls by (q shape, k shape, window, softcap,
+# decode): the shapes and options of phases 3e and 6 compile once each
+_FLEX = {}
+
+
+def flex_call(q, k, v, *, window: int = 0, softcap=None, bias=None):
+    """The library call that computes K3's function, causal (``bias``
+    None), or K5's (q (B, KVH, G, D), ``bias`` (B, T)) with a softcap or a
+    window: PyTorch's ``flex_attention``, compiled, the softcap (and K5's
+    bias) as its score_mod and the causal window as its BlockMask.  A
+    yardstick only: the port never calls it.  Returns the call; its output
+    is (B, H, S, D), K5's (B, H, 1, D)."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    decode = bias is not None
+    B, _, T, D = k.shape
+    qq = q.reshape(B, -1, 1, D) if decode else q
+    key = (tuple(qq.shape), tuple(k.shape), window, softcap, decode)
+    if key not in _FLEX:
+        buf = torch.zeros(B, T, device=q.device) if decode else None
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            if softcap:
+                score = softcap * torch.tanh(score / softcap)
+            return score + buf[b, kv_idx] if decode else score
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            keep = q_idx >= kv_idx
+            return keep & (q_idx - kv_idx < window) if window else keep
+
+        mask = None if decode else create_block_mask(
+            mask_mod, None, None, qq.shape[2], T, device=q.device)
+        _FLEX[key] = (torch.compile(flex_attention, dynamic=False, fullgraph=True),
+                      score_mod, mask, buf)
+    fn, score_mod, mask, buf = _FLEX[key]
+    if decode:
+        buf.copy_(bias)
+    return lambda: fn(qq, k, v, score_mod=score_mod, block_mask=mask, enable_gqa=True)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def mm_bound(variant: str, M: int, N: int, K: int, B: int = 1):
+def mm_bound(M: int, N: int, K: int, B: int = 1):
     """(bound ms, by, bound ms at 67 TFLOP/s) of one K1 (B = 1) or K2 call:
-    2BMNK flops at the variant's peak (3xTF32 for tc), x and w read once, y
-    written once."""
+    2BMNK flops at the card's best f32-accurate rate (3xTF32), whatever
+    variant launched, x and w read once, y written once."""
     flops, nbytes = 2 * B * M * N * K, 4 * B * (M * K + K * N + M * N)
-    peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
-    b_ms, b_by = bound(flops, nbytes, peak)
+    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
     return b_ms, b_by, bound(flops, nbytes)[0]
 
 
@@ -799,20 +941,24 @@ def phase_kernels(gen) -> dict:
     return errs
 
 
-def attention_work(b, h, kvh, s, d, causal: bool = True):
+def attention_work(b, h, kvh, s, d, causal: bool = True, window: int = 0):
     """(flops, bytes) of one K3 call: q·k and p·v over the unmasked pairs
-    of each head, s(s+1)/2 causal and s² not; q, k and v read once, o
-    written once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
+    of each head, s(s+1)/2 causal and s² not, and with a causal window of
+    w < s keys w(w+1)/2 + (s - w)·w; q, k and v read once, o written
+    once."""
+    if causal and 0 < window < s:
+        pairs = window * (window + 1) // 2 + (s - window) * window
+    else:
+        pairs = s * (s + 1) // 2 if causal else s * s
     return 4 * b * h * d * pairs, 4 * (2 * b * h * s * d + 2 * b * kvh * s * d)
 
 
-def attention_bound(variant, b, h, kvh, s, d, causal: bool = True):
-    """(bound ms, by, bound ms at 67 TFLOP/s) of one K3 call: tc at the
-    3xTF32 rate, fma at the f32 rate."""
-    flops, nbytes = attention_work(b, h, kvh, s, d, causal)
-    peak = PEAK_3XTF32_FLOPS if variant == "tc" else PEAK_F32_FLOPS
-    b_ms, b_by = bound(flops, nbytes, peak)
+def attention_bound(b, h, kvh, s, d, causal: bool = True, window: int = 0):
+    """(bound ms, by, bound ms at 67 TFLOP/s) of one K3 call: its products
+    at the card's best f32-accurate rate (3xTF32), whatever variant
+    launched."""
+    flops, nbytes = attention_work(b, h, kvh, s, d, causal, window)
+    b_ms, b_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
     return b_ms, b_by, bound(flops, nbytes)[0]
 
 
@@ -853,7 +999,7 @@ def phase_attention_tiles(gen, errs: dict) -> dict:
                   f"{plan['sub']} parts) stages {plan['stages']}; max_abs_err {err:.3e} "
                   f"(tol {TOL_ATTN:g})")
     sdpa_ms = graph_ms(lambda: sdpa(q, k, v, True))
-    b_ms, b_by, b67 = attention_bound("tc", BATCH, H, KVH, SEQ, D)
+    b_ms, b_by, b67 = attention_bound(BATCH, H, KVH, SEQ, D)
     best = min(tiles, key=tiles.get)
     print(f"[time] flash_attention tc at {len(tiles)} tiles: {min(tiles.values()):.4f}-"
           f"{max(tiles.values()):.4f} ms (fastest ({best})); sdpa device {sdpa_ms:.4f} ms; "
@@ -1027,6 +1173,162 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
     sdpa_ms = graph_ms(lambda: sdpa_decode(q, k, v, bias))
     print(f"[time] decode sdpa ({B},{KVH},{G},{T},{D}): device {sdpa_ms:.4f} ms")
     return dict(block_kv_device_ms=tiles, sdpa_device_ms=sdpa_ms)
+
+
+def phase_gemma_kernels(errs: dict) -> dict:
+    """Phase 3e: K3 and K5 at gemma2-2b's shapes against their plain
+    versions in float32, each run twice for the same bits (K5 also replayed
+    twice from one CUDA graph); the tiles over the shared-memory cap
+    refused by ``ScheduleRejected`` before any launch, through the check
+    the lowering makes (``check_tile``, ``check_decode_tile``); each
+    kernel's device time by graph replay beside its plain version, its
+    bound and SDPA's at the same shape without the softcap (as such).  The
+    inputs are ``flex_inputs``': SDPA takes no softcap, so the library
+    call is the compiled ``flex_attention``, timed on the same inputs by
+    the flex process and added to the rows later (``add_flex_times``).
+    Returns the timing rows."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ScheduleRejected
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, sm_count
+
+    cfg = get_config(GEMMA_ARCH)
+    H, KVH, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, GEMMA_SEQ
+    G, W, CAP = H // KVH, cfg.local_window, cfg.attn_softcap
+    sms = sm_count("cuda")
+
+    def check(kernel, label, got, again, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        same = torch.equal(got, again)
+        print(f"[gemma-kernels] {kernel} {label}: max_abs_err {err:.3e} (tol "
+              f"{TOL_ATTN:g}); two runs {'the same bits' if same else 'DIFFER'}")
+        if not math.isfinite(err) or err > TOL_ATTN or not same:
+            fail(f"{kernel} {label}: max_abs_err {err} > {TOL_ATTN}, or two runs differ")
+
+    def refused(kernel, label, call, wrapper):
+        n = wrapper.launches
+        try:
+            call()
+        except ScheduleRejected as e:
+            print(f"[gemma-kernels] {kernel} {label}: rejected ({e.reason}) before any "
+                  f"launch: {e}")
+            if e.reason != "shared_memory" or wrapper.launches != n:
+                fail(f"{kernel} {label}: rejected for {e.reason}, launches {n} -> "
+                     f"{wrapper.launches}")
+        else:
+            fail(f"{kernel} {label} was not rejected")
+
+    rows = {}
+    # K3: (1, 8, 4608, 256) kvh 4 causal softcap 50, with the local layers'
+    # 4096-token window and global, on fma at a tile the search can pick
+    q, k, v, _ = flex_inputs((BATCH, H, S, D), (BATCH, KVH, S, D), None, 0)
+    bq, bkv = GEMMA_K3_TILE
+    for window in (W, 0):
+        # window None is global, in the kernel and its plain version alike
+        kw = dict(causal=True, window=window or None, softcap=CAP)
+
+        def launch():
+            return fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv, **kw)
+
+        got, again = launch(), launch()
+        plan = fa.flash_attention.last_launch
+        if plan != fa.launch_config(BATCH, H, KVH, S, D, bq, bkv, sms) or \
+                plan["variant"] != "fma":
+            fail(f"flash_attention {GEMMA_K3_TILE} at D {D} launched {plan}, want fma")
+        label = (f"fma ({BATCH},{H},{S},{D}) kvh {KVH} causal softcap={CAP:g} "
+                 f"window={window} blocks {GEMMA_K3_TILE} grid {plan['grid']} smem "
+                 f"{plan['smem_bytes']} B")
+        check("flash_attention", label, got, again, ref.flash_attention(q, k, v, **kw))
+        del got, again
+        d_ms = graph_ms(launch)
+        p_ms = median_ms(lambda: ref.flash_attention(q, k, v, **kw), reps=5, warmup=1)
+        sdpa_ms = graph_ms(lambda: sdpa(q, k, v, True))
+        flops = attention_work(BATCH, H, KVH, S, D, True, window)[0]
+        b_ms, b_by, b67 = attention_bound(BATCH, H, KVH, S, D, True, window)
+        key = f"gemma2 K3 window={window}"
+        rows[key] = dict(kernel="flash_attention", variant="fma", blocks=list(GEMMA_K3_TILE),
+                         ms=d_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=None,
+                         library_device_ms=None, sdpa_no_softcap_device_ms=sdpa_ms,
+                         bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b67, flops=flops,
+                         weight=0, flex=((BATCH, H, S, D), (BATCH, KVH, S, D), window))
+        print(f"[time] {key} {label}: device {d_ms:.4f} ms plain {p_ms:.4f} ms (sdpa "
+              f"without the softcap, causal, no window: device {sdpa_ms:.4f} ms) bound "
+              f"{b_ms:.4f} ms ({b_by}, {b67:.4f} ms at 67 TFLOP/s)")
+    over = GEMMA_K3_OVER_CAP
+    refused("flash_attention", f"{over} at D {D} ({fa.smem_bytes(*over, D)} B)",
+            lambda: fa.check_tile(BATCH, H, KVH, S, D, *over), fa.flash_attention)
+    refused("flash_attention", f"{over} at D {D}, through the wrapper",
+            lambda: fa.flash_attention(q, k, v, softcap=CAP, block_q=over[0],
+                                       block_kv=over[1]), fa.flash_attention)
+    del q, k, v
+
+    # K5: gemma2-2b's tick (b4, kvh 4, G 2, t 256, D 256, softcap 50), and
+    # over a 4608-position cache with the 4096 window and ragged lengths
+    B = SERVE_SLOTS
+    for T, tiles, cases in (
+        (SERVE_MAX_SEQ, (16, GEMMA_K5_TILE),
+         (("full", 0, [SERVE_MAX_SEQ] * B), ("ragged", 0, [SERVE_MAX_SEQ, 1, 77, 250]))),
+        (GEMMA_SEQ, (32, GEMMA_K5_TILE),
+         (("full, window 4096", W, [GEMMA_SEQ] * B),
+          ("ragged, window 4096", W, [GEMMA_SEQ, W + 3, 17, W - 1]))),
+    ):
+        q, k, v, _ = flex_inputs((B, KVH, G, D), (B, KVH, T, D), None, 0)
+        for blk in tiles:
+            for label, window, lengths in cases:
+                bias = decode_bias(lengths, T, window)
+
+                def launch():
+                    return fa.decode_flash_attention(q, k, v, bias, softcap=CAP,
+                                                     block_kv=blk)
+
+                got, again = launch(), launch()
+                plan = fa.decode_flash_attention.last_launch
+                if plan != fa.decode_launch_config(B, KVH, G, T, D, blk, sms):
+                    fail(f"decode_flash_attention block_kv {blk} at D {D} launched {plan}")
+                check("decode_flash_attention",
+                      f"({B},{KVH},{G},{T},{D}) softcap={CAP:g} block_kv {blk}, "
+                      f"{plan['splits']} splits of {plan['rows_per_split']} rows, smem "
+                      f"{plan['smem_bytes']} B, {label}", got, again,
+                      ref.decode_attention(q, k, v, bias, softcap=CAP))
+                if blk != GEMMA_K5_TILE or lengths[1] != lengths[0]:
+                    continue
+                d_ms = graph_ms(launch)
+                p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias, softcap=CAP))
+                sdpa_ms = graph_ms(lambda: sdpa_decode(q, k, v, bias))
+                flops, nbytes = decode_work(B, KVH, G, T, D, attended=min(T, window or T))
+                b_ms, b_by = bound(flops, nbytes)
+                key = f"gemma2 K5 t{T}" + (f" window={window}" if window else "")
+                rows[key] = dict(kernel="decode_flash_attention", blocks=[blk], ms=d_ms,
+                                 device_ms=d_ms, plain_ms=p_ms, library_ms=None,
+                                 library_device_ms=None, sdpa_no_softcap_device_ms=sdpa_ms,
+                                 bound_ms=b_ms, bound_by=b_by, flops=flops, weight=0,
+                                 splits=plan["splits"],
+                                 flex=((B, KVH, G, D), (B, KVH, T, D), window))
+                print(f"[time] {key} ({B},{KVH},{G},{T},{D}) block_kv {blk}, "
+                      f"{plan['splits']} splits: device {d_ms:.4f} ms plain {p_ms:.4f} ms "
+                      f"(sdpa without the softcap: device {sdpa_ms:.4f} ms) bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+        bias = decode_bias(cases[-1][2], T, cases[-1][1])
+        same = replay_twice(lambda: (fa.decode_flash_attention(
+            q, k, v, bias, softcap=CAP, block_kv=GEMMA_K5_TILE),))
+        print(f"[gemma-kernels] decode_flash_attention T {T} D {D} block_kv "
+              f"{GEMMA_K5_TILE}, replayed twice from one CUDA graph: "
+              f"{'the same bits' if same else 'DIFFERENT bits'}")
+        if not same:
+            fail("decode_flash_attention at D 256: a graph replay differs from the eager call")
+        over = GEMMA_K5_OVER_CAP
+        refused("decode_flash_attention",
+                f"block_kv {over} at G {G}, D {D}, T {T} "
+                f"({fa.decode_smem_bytes(G, over, D)} B)",
+                lambda: fa.check_decode_tile(G, T, D, over), fa.decode_flash_attention)
+        refused("decode_flash_attention", f"block_kv {over} at T {T}, through the wrapper",
+                lambda: fa.decode_flash_attention(q, k, v, bias, softcap=CAP,
+                                                  block_kv=over), fa.decode_flash_attention)
+    return rows
 
 
 def ssd_work(b, S, H, P, N, L, state_out: bool = False, elem_bytes: int = 2):
@@ -1284,15 +1586,49 @@ def variants_since(before: dict, kernel: str = "matmul") -> dict:
     return {k: n - before.get(k, 0) for k, n in read_variants(kernel).items()}
 
 
+# the hits by key of every DispatchContext a path runs under (each dict is
+# the context's own, which it fills in place)
+PATH_HITS = []
+
+
+def path_context(db, **kwargs):
+    """A ``DispatchContext`` whose hits by key count toward the kernels
+    line's choice of each kernel's shape (``path_hits``)."""
+    import repro_torch
+
+    ctx = repro_torch.DispatchContext(db, **kwargs)
+    PATH_HITS.append(ctx.hits_by_key)
+    return ctx
+
+
+def path_hits() -> Counter:
+    """The dispatch hits by key over every path run so far."""
+    hits = Counter()
+    for by_key in PATH_HITS:
+        hits.update(by_key)
+    return hits
+
+
 # the search every path tunes with: one round measures 8 candidates
 TUNE_SEARCH = dict(max_trials=32, init_random=8, population=16, measure_per_round=8,
                    rollout_factor=2)
 
 
-def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local"):
+def plain_norm(cfg, tokens: int) -> tuple:
+    """The key of ``cfg``'s norm over ``tokens`` rows, left plain
+    (``phase_tune``'s ``plain_keys``)."""
+    from repro_torch.search.database import workload_key
+
+    return (workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps, tokens=tokens),)
+
+
+def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
+               plain_keys=()):
     """Extract (the forward's tasks unless ``extract`` is given) and tune the
     schedulable tasks through ``runner_spec`` (a spec or a built runner,
-    which the caller closes) on the card; returns (tasks, best)."""
+    which the caller closes) on the card, but those whose keys are in
+    ``plain_keys`` (each must be extracted), which are printed and left
+    plain as the unschedulable ones are; returns (tasks, best)."""
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
@@ -1318,6 +1654,13 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local"):
               f"elements) and the lowering (a grid of at most {grid} steps) "
               f"accept, so not tuned: {[t.key for t in none]}")
         tasks = [t for t in tasks if schedulable(t)]
+    if set(plain_keys) - {t.key for t in tasks}:
+        fail(f"[{tag}] keys to leave plain that were not extracted: "
+             f"{sorted(set(plain_keys) - {t.key for t in tasks})}")
+    plain = [t.key for t in tasks if t.key in plain_keys]
+    if plain:
+        print(f"[{tag}] left plain, not tuned: {plain}")
+        tasks = [t for t in tasks if t.key not in plain]
     search = SearchConfig(**TUNE_SEARCH)
     groups = [(tasks, runner_spec)]
     if runner_spec == "cached+local":
@@ -1345,17 +1688,24 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local"):
         # m1024 needs bm·bn·bk >= 110592 under the grid-steps cap; its
         # untuned tile has 1536·64) can go stale before one candidate runs;
         # it gets further searches with fresh seeds, each as long as the
-        # scheduler grants a cold task
+        # scheduler grants a cold task, and each ended once every cold task
+        # has a tile the card runs
         for seed in range(1, COLD_SEARCHES + 1):
             cold = [t for t in group if not math.isfinite(best[t.key])]
             if not cold:
                 break
             print(f"[{tag}] no tile the card runs yet for {[t.key for t in cold]}: "
                   f"search seed {seed}")
+            t0 = time.perf_counter()
             retry = repro_torch.TaskScheduler(cold, database=db, config=dataclasses.replace(
                 config, search=dataclasses.replace(search, seed=seed)))
-            best.update(retry.tune(total_rounds=(config.patience + 1) * len(cold)))
+            for _ in range(config.patience + 1):
+                best.update(retry.tune(total_rounds=len(cold)))
+                if all(math.isfinite(best[t.key]) for t in cold):
+                    break
             searches += retry.searches
+            print(f"[{tag}] search seed {seed}: {retry.rounds_run} rounds in "
+                  f"{time.perf_counter() - t0:.1f} s")
     for key, lat in best.items():
         if not math.isfinite(lat):
             fail(f"task {key} has no finite best latency")
@@ -1548,7 +1898,7 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
     with torch.no_grad():
         T.forward(cfg, params, toks)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, toks))
-        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        ctx = path_context(db, tasks=tasks, backend="cuda")
         reset_counts()
         with ctx:
             tuned = T.forward(cfg, params, toks)
@@ -1564,7 +1914,8 @@ def phase_forward(cfg, tasks, db, gen_seed: int = 0):
             with ctx:
                 return T.forward(cfg, params, toks)
 
-        k3_traced = traced_ms(run_tuned, K3_KERNEL_NAMES)
+        # three forwards: the profiler's events of each take seconds to read
+        k3_traced = traced_ms(run_tuned, K3_KERNEL_NAMES, calls=3)
     diff = (tuned.float() - plain.float()).abs()
     max_abs = float(diff.max())
     rel = max_abs / float(plain.float().abs().max())
@@ -1655,7 +2006,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             l_ms = median_ms(library)
             flops = 2 * M * N * K
             var = mm.launch_config(1, M, N, K, snapped)["variant"]
-            b_ms, b_by, b67 = mm_bound(var, M, N, K)
+            b_ms, b_by, b67 = mm_bound(M, N, K)
             extra = dict(variant=var, bound_f32_ms=b67)
         elif kern == "batch_matmul":
             (B, M, K), N = shapes[0], shapes[1][2]
@@ -1671,7 +2022,7 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
             l_ms = median_ms(library)
             flops = 2 * B * M * N * K
             var = mm.launch_config(B, M, N, K, snapped)["variant"]
-            b_ms, b_by, b67 = mm_bound(var, M, N, K, B)
+            b_ms, b_by, b67 = mm_bound(M, N, K, B)
             extra = dict(variant=var, bound_f32_ms=b67)
         elif kern == "row_softmax":
             M, N = shapes[0]
@@ -1691,44 +2042,61 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
         elif kern == "decode_flash_attention":
             (b, kvh, g, d), t_len = shapes[0], shapes[1][2]
             (bkv,) = snapped
+            cap = parse_workload_key(t.key)[1]["softcap"] or None
             q = torch.randn(b, kvh, g, d, generator=gen, device="cuda")
             k = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
             v = torch.randn(b, kvh, t_len, d, generator=gen, device="cuda")
             bias = decode_bias([t_len] * b, t_len)
             def launch():
-                return fa.decode_flash_attention(q, k, v, bias, block_kv=bkv)
-            def library():
+                return fa.decode_flash_attention(q, k, v, bias, softcap=cap, block_kv=bkv)
+            def plain_mask():
                 return sdpa_decode(q, k, v, bias)
+            # SDPA takes no softcap: flex_attention computes K5's function
+            # then, timed at this shape by the flex process
+            library = flex_time(q, k, 0) if cap else plain_mask
             k_ms = median_ms(launch)
             extra = dict(splits=fa.decode_flash_attention.last_launch["splits"])
-            p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias))
-            l_ms = median_ms(library)
+            p_ms = median_ms(lambda: ref.decode_attention(q, k, v, bias, softcap=cap))
+            l_ms = library["ms"] if isinstance(library, dict) else median_ms(library)
             flops, nbytes = decode_work(b, kvh, g, t_len, d)
         else:
             b, kvh, g, s, d = shapes[0]
             h = kvh * g
-            causal = bool(parse_workload_key(t.key)[1]["causal"])
+            kw = parse_workload_key(t.key)[1]
+            causal, cap = bool(kw["causal"]), kw["softcap"] or None
+            window = kw["window"] or None  # 0 in a key is global
             q = torch.randn(b, h, s, d, generator=gen, device="cuda")
             k = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             v = torch.randn(b, kvh, s, d, generator=gen, device="cuda")
             bq, bkv = snapped
             def launch():
-                return fa.flash_attention(q, k, v, causal=causal, block_q=bq,
-                                          block_kv=bkv)
-            def library():
+                return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                          softcap=cap, block_q=bq, block_kv=bkv)
+            def plain_mask():
                 return sdpa(q, k, v, causal)
+            # SDPA takes no softcap and no window bound to the causal mask:
+            # flex_attention computes K3's function then (gemma2, causal),
+            # timed at this shape by the flex process
+            library = flex_time(q, k, window or 0) if cap or window else plain_mask
             k_ms = median_ms(launch)
-            p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=causal))
-            l_ms = median_ms(library)
+            p_ms = median_ms(lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                         window=window, softcap=cap))
+            l_ms = library["ms"] if isinstance(library, dict) else median_ms(library)
             var = fa.flash_attention.last_launch["variant"]
-            flops = attention_work(b, h, kvh, s, d, causal)[0]
-            b_ms, b_by, b67 = attention_bound(var, b, h, kvh, s, d, causal)
+            flops = attention_work(b, h, kvh, s, d, causal, window or 0)[0]
+            b_ms, b_by, b67 = attention_bound(b, h, kvh, s, d, causal, window or 0)
             extra = dict(variant=var, bound_f32_ms=b67)
         if kern not in ("matmul", "batch_matmul", "flash_attention"):
             b_ms, b_by = bound(flops, nbytes)
         # the kernel and the library call on one footing: device time by
         # CUDA-graph replay of 20 calls each
-        d_ms, l_d_ms = graph_ms(launch), graph_ms(library)
+        d_ms = graph_ms(launch)
+        l_d_ms = library["device_ms"] if isinstance(library, dict) else graph_ms(library)
+        if kern in ("flash_attention", "decode_flash_attention") and \
+                library is not plain_mask:
+            # SDPA's time without the softcap and the window, kept beside the
+            # library's under its own name
+            extra.update(sdpa_plain_mask_device_ms=graph_ms(plain_mask))
         rows[t.key] = dict(kernel=kern, blocks=list(snapped), ms=k_ms,
                            device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
                            library_device_ms=l_d_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1736,10 +2104,16 @@ def phase_timings(tasks, runs, gen, vocab: int) -> dict:
         var = f" {extra['variant']}" if "variant" in extra else ""
         if "splits" in extra:
             var = f" {extra['splits']} splits"
-        f32 = f", {extra['bound_f32_ms']:.4f} ms at 67 TFLOP/s" if var == " tc" else ""
+        f32 = (f", {extra['bound_f32_ms']:.4f} ms at 67 TFLOP/s"
+               if "bound_f32_ms" in extra else "")
+        lib = f"library {l_ms:.4f} ms (device {l_d_ms:.4f} ms)"
+        if "sdpa_plain_mask_device_ms" in extra:
+            lib += (f" [flex_attention, timed at this shape by the flex process; sdpa "
+                    f"without the softcap and window: device "
+                    f"{extra['sdpa_plain_mask_device_ms']:.4f} ms]")
         print(f"[time] {t.key} {kern}{var} blocks {list(snapped)}: kernel {k_ms:.4f} ms "
-              f"(device {d_ms:.4f} ms) plain {p_ms:.4f} ms library {l_ms:.4f} ms "
-              f"(device {l_d_ms:.4f} ms) bound {b_ms:.4f} ms ({b_by}{f32})")
+              f"(device {d_ms:.4f} ms) plain {p_ms:.4f} ms {lib} bound {b_ms:.4f} ms "
+              f"({b_by}{f32})")
     return rows
 
 
@@ -1857,12 +2231,14 @@ def structural_timings(tasks, db) -> dict:
     return rows
 
 
-def decode_work(b, kvh, g, t_len, d, table_entries: int = 0):
+def decode_work(b, kvh, g, t_len, d, table_entries: int = 0, attended: int = 0):
     """(flops, bytes) of one decode attention call: q·k and p·v over the
-    whole cache; K and V read once, q read and o written, the bias row read
-    (and the page table, for K6)."""
-    flops = 4 * b * kvh * g * t_len * d
-    nbytes = 4 * (2 * b * kvh * t_len * d + 2 * b * kvh * g * d + b * t_len
+    whole cache, or over the ``attended`` positions a slot's bias leaves
+    (a window); those K and V rows read once, q read and o written, the
+    bias row read (and the page table, for K6)."""
+    att = attended or t_len
+    flops = 4 * b * kvh * g * att * d
+    nbytes = 4 * (2 * b * kvh * att * d + 2 * b * kvh * g * d + b * t_len
                   + table_entries)
     return flops, nbytes
 
@@ -1907,10 +2283,11 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
-    """Serve ``prompts`` through the paged continuous-batching scheduler;
-    ``on_tick(sched)`` runs before every tick.  Returns (scheduler,
-    requests, wall seconds)."""
+def serve_requests(cfg, params, dispatch, prompts, on_tick=None,
+                   new_tokens: int = SERVE_NEW_TOKENS):
+    """Serve ``prompts`` through the paged continuous-batching scheduler,
+    ``new_tokens`` each; ``on_tick(sched)`` runs before every tick.
+    Returns (scheduler, requests, wall seconds)."""
     import torch
 
     from repro_torch.serving import ContinuousBatchingScheduler, ServeConfig
@@ -1919,7 +2296,7 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None):
         max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
         page_size=SERVE_PAGE, prefill_chunk=SERVE_CHUNK, dispatch=dispatch,
     ))
-    reqs = [sched.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    reqs = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while sched.pending():
@@ -2056,9 +2433,9 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     tick both ways on the host clock (median of 3, each on a fresh copy,
     under ``timing_ctx`` so ``ctx``'s counts stay the check's) and trace it
     once each way with the profiler (with ``runs``, the tuned tiles, K2's
-    kernels told from K1's by their grids).  With ``params32`` (an
-    MoE model) the logits are also compared on those f32 parameters and an
-    f32 copy of the arena, with each layer's routing flips."""
+    kernels told from K1's by their grids).  With ``params32`` the logits
+    are also compared on those f32 parameters and an f32 copy of the arena,
+    with each MoE layer's routing flips (none for a dense model)."""
     import torch
 
     toks, valid = snap["toks"], snap["valid"]
@@ -2131,22 +2508,30 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
 
 
 def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
-                decode_tasks: int = 0):
-    """Phase 7 (smollm-135m), 12 (olmoe-1b-7b) or 15 (qwen2-vl-2b): the
-    model's decode tasks tuned, its tuned tiles checked, 8 requests served
-    on the paged arena under the tuned context and with no context, then
-    one decode-only tick compared, timed and traced.  The tasks are those of
-    a decode step and a 32-wide paged serving tick, or with
-    ``decode_tasks`` the ``decode_tasks`` ones of a decode step alone
-    (the tick's chunk sites then run plain).  Returns the tasks, their
-    bests, the results, the tuning's launch counts and the checked
-    tiles."""
+                decode_tasks: int = 0, serve_tasks: int = 0, plain_keys=(),
+                tick_launches=None, new_tokens: int = SERVE_NEW_TOKENS):
+    """Phase 7 (smollm-135m), 12 (olmoe-1b-7b), 15 (qwen2-vl-2b) or 21
+    (gemma2-2b): the model's decode tasks tuned, its tuned tiles checked, 8
+    requests served on the paged arena under the tuned context and with no
+    context, then one decode-only tick compared, timed and traced.  The
+    tasks are those of a decode step and a 32-wide paged serving tick: the
+    dispatchable ones, or with ``serve_tasks`` (and for olmoe) all the
+    ``serve_tasks`` the reference extracts, non-dispatchable contractions
+    included as tuning targets; those of ``plain_keys`` are left plain.
+    With ``decode_tasks`` they are the ``decode_tasks`` ones of a decode
+    step alone (the tick's chunk sites then run plain).  With ``tick_launches``
+    (launches a kernel) the tick is also held in f32 within
+    ``TOL_F32_LOGITS_REL`` on the parameters cast to f32, and its launches
+    must be those.  Each request generates ``new_tokens``.  Returns the
+    tasks, their bests, the results, the tuning's launch counts and the
+    checked tiles."""
     import numpy as np
     import torch
 
     import repro_torch
+    from repro_torch.kernels.matmul import SPLITK_MAX_M
     from repro_torch.models import transformer as T
-    from repro_torch.search.database import workload_key
+    from repro_torch.search.database import parse_workload_key, workload_key
 
     moe = bool(cfg.moe_experts)
 
@@ -2159,27 +2544,34 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                      f"the reference's {decode_tasks}")
             return tasks
         # olmoe: all 16 tasks the reference extracts (its three
-        # non-dispatchable contractions are tuning targets); smollm: the 13
-        # dispatchable ones
+        # non-dispatchable contractions are tuning targets), gemma2 all 16;
+        # smollm: the 13 dispatchable ones
+        want = MOE_DECODE_TASKS if moe else serve_tasks
         tasks = repro_torch.extract_decode_tasks(
             cfg, batch=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
-            chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=not moe,
+            chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=not want,
         )
-        if moe and len(tasks) != MOE_DECODE_TASKS:
+        if want and len(tasks) != want:
             fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want the "
-                 f"reference's {MOE_DECODE_TASKS}")
+                 f"reference's {want}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune")
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
+                             plain_keys=plain_keys)
     tune_counts = read_counts()
     k2_tune = read_variants("batch_matmul")
     print(f"[{tag}-tune] batch_matmul launches by variant while tuning: {k2_tune}")
-    # smollm's one K2 task, the decode contraction (M = 3), tunes on K2's
-    # split-K variant alone; olmoe's expert products also at m32
-    if not moe and (k2_tune["splitk"] <= 0
-                    or k2_tune["splitk"] != tune_counts["batch_matmul"]):
+    # the decode contraction (smollm M = 3, gemma2 M = 2) tunes on K2's
+    # split-K variant, gemma2's chunk contraction (M = 64) on another, and
+    # olmoe's expert products also at m32: without a task of M >= 16 every
+    # launch is splitk
+    wide = any(parse_workload_key(t.key)[1]["m"] >= SPLITK_MAX_M for t in tasks
+               if t.key.startswith("batch_matmul/") and t.key in best)
+    others = tune_counts["batch_matmul"] - k2_tune["splitk"]
+    if not moe and (k2_tune["splitk"] <= 0 or bool(others) != wide):
         fail(f"serving tuning launched K2 {tune_counts['batch_matmul']} times, by "
-             f"variant {k2_tune}; want every launch splitk")
+             f"variant {k2_tune}; want splitk, and another variant only for a task "
+             f"of M >= {SPLITK_MAX_M}")
     runs = check_tiles(tasks, db)
     attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
     norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
@@ -2191,8 +2583,8 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     lens = rng.integers(32, 97, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
     print(f"[{tag}] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()}, "
-          f"{SERVE_NEW_TOKENS} new tokens each, greedy")
-    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+          f"{new_tokens} new tokens each, greedy")
+    ctx = path_context(db, tasks=tasks, backend="cuda")
     snap = {}
 
     def on_tick(sched):
@@ -2203,16 +2595,18 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
             snap.update(snapshot_tick(sched))
 
     counts0 = read_counts()
-    sched, reqs, wall = serve_requests(cfg, params, ctx, prompts, on_tick)
+    sched, reqs, wall = serve_requests(cfg, params, ctx, prompts, on_tick, new_tokens)
     serve_counts = {k: read_counts()[k] - counts0[k] for k in KERNELS}
     stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # the serving run's
     if not snap:
         fail("no decode-only tick was checked")
-    plain_sched, plain_reqs, plain_wall = serve_requests(cfg, params, None, prompts)
+    plain_sched, plain_reqs, plain_wall = serve_requests(cfg, params, None, prompts,
+                                                         new_tokens=new_tokens)
     # the check runs after both serving runs, so it perturbs neither their
     # times (its profiler trace included) nor the path's launch counts
-    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
-    params32 = _tree_map(lambda t: t.float(), params) if moe else None
+    timing_ctx = path_context(db, tasks=tasks, backend="cuda")
+    f32 = moe or tick_launches is not None
+    params32 = _tree_map(lambda t: t.float(), params) if f32 else None
     check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key,
                              runs if moe else None, params32)
     del params32
@@ -2285,6 +2679,11 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     print(f"[{tag}] K5 in one decode-only tick: "
           f"{check['launches']['decode_flash_attention']} launches, device time "
           f"{k5_ms} (traced)")
+    if check["profile"]:
+        # dispatch hands every kernel f32 operands: a bf16 weight is cast on
+        # each call, the tied embedding of the unembed too
+        print(f"[{tag}] copies in one decode-only tick: {check['profile']['copy_ms']:.3f} "
+              f"ms traced ({check['profile']['copy_events']} events)")
     print(f"[{tag}] one decode-only tick ({check['lanes']} lanes, host clock, median "
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
           f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
@@ -2294,10 +2693,10 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
           f"f32 kernels)")
     print(f"[{tag}] kernel launches while serving: {serve_counts}")
     for label, rs in (("dispatched", reqs), ("plain", plain_reqs)):
-        served = sum(r.done and len(r.generated) == SERVE_NEW_TOKENS for r in rs)
+        served = sum(r.done and len(r.generated) == new_tokens for r in rs)
         if served != len(rs):
             fail(f"{label}: {served} of {len(rs)} requests finished with "
-                 f"{SERVE_NEW_TOKENS} tokens")
+                 f"{new_tokens} tokens")
     if serve_counts["decode_flash_attention"] <= 0:
         fail("decode_flash_attention was not launched while serving")
     if serve_counts["matmul"] <= 0:
@@ -2318,9 +2717,13 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
              f"hits, {k5_tick} K5 launches; want {cfg.n_layers}")
-    if check["rmsnorm_hits"] != 2 * cfg.n_layers + 1:
-        fail(f"decode-only tick: {check['rmsnorm_hits']} {norm_key} hits; want "
-             f"{2 * cfg.n_layers + 1}")
+    # two norms a layer, four with gemma2's post-norms, and the final one
+    norms = (4 if cfg.post_norms else 2) * cfg.n_layers + 1
+    if check["rmsnorm_hits"] != norms:
+        fail(f"decode-only tick: {check['rmsnorm_hits']} {norm_key} hits; want {norms}")
+    for k, n in (tick_launches or {}).items():
+        if check["launches"][k] != n:
+            fail(f"decode-only tick: {check['launches'][k]} {k} launches; want {n}")
     if check["new_reasons"].get("lowering_failed") or check["new_reasons"].get("not_in_slice"):
         fail(f"decode-only tick reasons {check['new_reasons']}")
     if moe:
@@ -2332,6 +2735,13 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
         if not check["f32_finite"] or (not flips and check["f32_max_rel_err"] > TOL_LOGITS_REL):
             fail(f"decode-only tick f32 logits rel err {check['f32_max_rel_err']}, "
                  f"{flips} routing flips")
+    elif f32:
+        print(f"[{tag}] decode-only tick in f32: max_rel_err {check['f32_max_rel_err']:.4e} "
+              f"(tol {TOL_F32_LOGITS_REL:g}); bf16 max_rel_err {check['max_rel_err']:.4e} "
+              "(reported, not gated)")
+        if not check["f32_finite"] or not check["f32_max_rel_err"] <= TOL_F32_LOGITS_REL:
+            fail(f"decode-only tick f32 logits rel err {check['f32_max_rel_err']} > "
+                 f"{TOL_F32_LOGITS_REL}")
     elif not check["finite"] or check["max_rel_err"] > TOL_LOGITS_REL:
         fail(f"decode-only tick logits rel err {check['max_rel_err']} > {TOL_LOGITS_REL}")
     return tasks, best, res, tune_counts, runs
@@ -2380,7 +2790,7 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
 
         plain_fwd(params)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: plain_fwd(params))
-        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         variants0 = read_variants()
         with ctx:
@@ -2391,7 +2801,7 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
-        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
 
         def traced_fwd():
             with timing_ctx:
@@ -2400,13 +2810,13 @@ def phase_ssm_forward(cfg, db, gen_seed: int = 0):
         profiles = dict(dispatched=profile_device(traced_fwd),
                         plain=profile_device(lambda: plain_fwd(params)))
         # the numerical check, after the path's counts are read: in bf16 a
-        # one-ulp difference in the scan's output grows through 48 layers of
+        # one-ulp difference in the scan's output grows through the layers of
         # random weights to tens of percent of the logits (PERF.md, section 6),
         # so the kernels are held against the plain path on the same
         # parameters in f32, where the kernels' own error is ~1e-7
         params32 = _tree_map(lambda t: t.float(), params)
         plain32 = plain_fwd(params32)
-        with repro_torch.DispatchContext(db, tasks=tasks, backend="cuda"):
+        with path_context(db, tasks=tasks, backend="cuda"):
             tuned32 = T.forward(cfg, params32, toks)
         del params32
     bf16_rel = float((tuned.float() - plain.float()).abs().max() / plain.float().abs().max())
@@ -2509,7 +2919,7 @@ def phase_ssm_serve(cfg, db, gen_seed: int = 0):
         torch.cuda.synchronize()
         return sched, reqs, time.perf_counter() - t0
 
-    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    ctx = path_context(db, tasks=tasks, backend="cuda")
     counts0 = read_counts()
     sched, reqs, wall = serve(ctx)
     serve_counts = {k: n - counts0[k] for k, n in read_counts().items()}
@@ -2639,7 +3049,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
     with torch.no_grad():
         T.forward(cfg, params, toks)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, toks))
-        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
         with ctx:
@@ -2652,7 +3062,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
-        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
 
         def traced_fwd():
             with timing_ctx:
@@ -2673,14 +3083,14 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
         del params
         torch.cuda.empty_cache()
         routes_t, routes_p, inputs = [], [], []
-        with moe_routes(routes_t, inputs), repro_torch.DispatchContext(
+        with moe_routes(routes_t, inputs), path_context(
                 db, tasks=tasks, backend="cuda"):
             tuned32 = T.forward(cfg, params32, toks)
         with moe_routes(routes_p):
             plain32 = T.forward(cfg, params32, toks)
         flips = routing_flips(routes_t, routes_p)
         layer_rel = []
-        layer_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        layer_ctx = path_context(db, tasks=tasks, backend="cuda")
         for i, h2 in enumerate(inputs):
             p = T._layer(params32["layers"], i)["moe"]
             args = (cfg.moe_top_k, cfg.moe_capacity_factor)
@@ -2849,7 +3259,7 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
     params32 = _tree_map(lambda t: t.float(), params)
     pipe = SyntheticTokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=gen_seed)
     batch = _device_batch(pipe.batch_at(0))
-    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    ctx = path_context(db, tasks=tasks, backend="cuda")
 
     # one dispatched step on f32 parameters, counted
     step_d = make_train_step(model, opt, dispatch=ctx)
@@ -2876,7 +3286,7 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
 
     # bf16 steps, timed; one dispatched step traced
     opt_state = adamw_init(params)
-    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    timing_ctx = path_context(db, tasks=tasks, backend="cuda")
     step_t = make_train_step(model, opt, dispatch=timing_ctx)
     step_t(params, opt_state, batch)  # warm both paths
     step_p(params, opt_state, batch)
@@ -2992,7 +3402,7 @@ def phase_ssm_train(cfg, gen_seed: int = 0):
     loss and gradients with the scan on K7 (forward the kernel, backward the
     plain scan's autograd) against the plain scan, on f32 parameters; the
     six leaves that reach the loss only through the scan named; K7's
-    launches in one step, the forward's 48 twice (remat); then a few bf16
+    launches in one step, the forward's twice (remat); then a few bf16
     steps on one batch, whose loss must fall."""
     import torch
 
@@ -3074,47 +3484,55 @@ def phase_ssm_train(cfg, gen_seed: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def model_inputs(cfg, batch: int, seed: int) -> dict:
-    """The forward's stub-frontend inputs from a seeded generator, bf16:
-    ``embeds`` (batch, SEQ, D), and whisper's ``frames`` (batch, 1500,
-    D), N(0, 1) as the reference's ``make_train_batch`` draws them."""
+def model_inputs(cfg, batch: int, seed: int, seq: int = SEQ) -> dict:
+    """The forward's inputs from a seeded generator: ``tokens`` (batch,
+    seq) for a model that reads tokens; else the stub frontend's, bf16,
+    ``embeds`` (batch, seq, D), and whisper's ``frames`` (batch, 1500, D),
+    N(0, 1) as the reference's ``make_train_batch`` draws them."""
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    ins = {"embeds": torch.randn(batch, SEQ, cfg.d_model, generator=g, device="cuda")}
+    if not cfg.embedding_inputs:
+        return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                                        device="cuda")}
+    ins = {"embeds": torch.randn(batch, seq, cfg.d_model, generator=g, device="cuda")}
     if cfg.enc_layers:
         ins["frames"] = torch.randn(batch, cfg.enc_frames, cfg.d_model, generator=g,
                                     device="cuda")
     return {k: v.to(torch.bfloat16) for k, v in ins.items()}
 
 
-def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0):
-    """Phase 15 (qwen2-vl-2b) or 16 (whisper-medium), the forward: the
-    reference's ``n_tasks`` tasks (batch 1, seq 256, embeddings; whisper's
-    1500 frames) tuned and their tiles checked; the
+def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0,
+                         seq: int = SEQ, plain_keys=(), runner_spec="cached+local"):
+    """Phase 15 (qwen2-vl-2b), 16 (whisper-medium) or 20 (gemma2-2b), the
+    forward: the reference's ``n_tasks`` tasks (batch 1, ``seq`` tokens or
+    embeddings; whisper's 1500 frames) tuned and their tiles checked; the
     full-width bf16 forward under the tuned context against the same
     forward with no context, timed and traced; then both on the parameters
     cast to f32, held within ``TOL_F32_LOGITS_REL``.  ``want`` holds the
     dispatched forward's launches a kernel, K3's ``fma`` launches at least,
-    the rmsnorm hits and the attention hits by key."""
+    the rmsnorm hits and the attention hits by key; the tasks of
+    ``plain_keys`` are left plain, the others tuned through ``runner_spec``
+    (``phase_tune``)."""
     import torch
 
     import repro_torch
     from repro_torch.models import transformer as T
 
     def extract():
-        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
+        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=seq)
         if len(tasks) != n_tasks:
             fail(f"{cfg.name} forward extraction gave {len(tasks)} tasks, want the "
                  f"reference's {n_tasks}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune")
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
+                             runner_spec=runner_spec, plain_keys=plain_keys)
     tune_counts = read_counts()
     runs = check_tiles(tasks, db)
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
-    ins = model_inputs(cfg, BATCH, gen_seed + 1)
+    ins = model_inputs(cfg, BATCH, gen_seed + 1, seq)
 
     def fwd(c, p):
         return T.forward(c, p, **ins)
@@ -3122,7 +3540,7 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
     with torch.no_grad():
         fwd(cfg, params)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: fwd(cfg, params))
-        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
         with ctx:
@@ -3135,7 +3553,7 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
         with ctx:
             _, tuned_ms = timed_ms(lambda: fwd(cfg, params))
-        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
 
         def traced_fwd():
             with timing_ctx:
@@ -3155,7 +3573,7 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
         params32 = _tree_map(lambda t: t.float(), params)
         del params
         torch.cuda.empty_cache()
-        with repro_torch.DispatchContext(db, tasks=tasks, backend="cuda"):
+        with path_context(db, tasks=tasks, backend="cuda"):
             tuned32 = fwd(cfg32, params32)
         plain32 = fwd(cfg32, params32)
         del params32
@@ -3172,7 +3590,7 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
           f"{rel:.4e} (tol {TOL_F32_LOGITS_REL:g}); bf16 max_rel_err {bf16_rel:.4e} "
           "against the plain bf16 forward (reported, not gated)")
     print(f"[{tag}] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms (median of "
-          f"3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers"
+          f"3, batch {BATCH} seq {seq}, {cfg.n_layers} layers"
           + (f" and {cfg.enc_layers} encoder layers over {cfg.enc_frames} frames)"
              if cfg.enc_layers else ")"))
     for key, row in by_key.items():
@@ -3186,13 +3604,14 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
               f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
               f"span, idle share {prof['idle_share']:.3f}; traced K1 "
               f"{prof['matmul_ms']:.3f} ms, K2 {prof.get('batch_matmul_ms')} ms, K3 "
-              f"{prof['flash_attention_ms']:.3f} ms")
+              f"{prof['flash_attention_ms']:.3f} ms, copies {prof['copy_ms']:.3f} ms "
+              f"({prof['copy_events']} events)")
         for name, ms in prof["top_ms"].items():
             print(f"[{tag}]   {ms:8.3f} ms  {name}")
     print(f"[{tag}] kernel launches in one dispatched forward: {fwd_counts}; by "
           f"variant K1 {k1v}, K2 {k2v}, K3 {k3v}; rmsnorm hits {norm_hits}; "
           f"attention hits {attn_hits}")
-    if not finite or shape != (BATCH, SEQ, cfg.vocab):
+    if not finite or shape != (BATCH, seq, cfg.vocab):
         fail(f"{cfg.name} dispatched logits not finite or of shape {shape}")
     if not rel <= TOL_F32_LOGITS_REL:
         fail(f"{cfg.name} f32 logits rel err {rel} > {TOL_F32_LOGITS_REL}")
@@ -3277,10 +3696,10 @@ def phase_whisper_decode(cfg, db, gen_seed: int = 0):
         return torch.stack(toks, 1), logits_seen, step_ms
 
     # bf16: the steps timed, and one dispatched step traced
-    ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    ctx = path_context(db, tasks=tasks, backend="cuda")
     _, _, tuned_ms = generate(cfg, params, ctx)
     _, _, plain_ms = generate(cfg, params, None)
-    timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    timing_ctx = path_context(db, tasks=tasks, backend="cuda")
     cache = T.init_cache(cfg, B, SERVE_MAX_SEQ)
     with torch.no_grad(), timing_ctx:
         _, cache = T.prefill(cfg, params, cache, prompt, frames=frames)
@@ -3293,7 +3712,7 @@ def phase_whisper_decode(cfg, db, gen_seed: int = 0):
     params32 = _tree_map(lambda t: t.float(), params)
     del params
     torch.cuda.empty_cache()
-    ctx32 = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    ctx32 = path_context(db, tasks=tasks, backend="cuda")
     steps = []
     marks = {}
 
@@ -3549,7 +3968,7 @@ def phase_fleet(cfg, local_db, local_tune_s: float, gen_seed: int = 0) -> dict:
     before = read_counts()
     with torch.no_grad():
         plain = T.forward(cfg, params, toks)
-        with repro_torch.DispatchContext(pool_db, tasks=tasks, backend="cuda") as ctx:
+        with path_context(pool_db, tasks=tasks, backend="cuda") as ctx:
             tuned = T.forward(cfg, params, toks)
         torch.cuda.synchronize()
     fwd_counts = {k: n - before[k] for k, n in read_counts().items()}
@@ -4009,7 +4428,7 @@ def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
     # the f32 forward under the mesh, counted, against the plain one
     with torch.no_grad():
         plain32 = T.forward(cfg, params32, ins)
-        ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k3v0 = read_variants(), read_variants("flash_attention")
         with ctx, use_mesh(mesh):
@@ -4082,7 +4501,7 @@ def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
     with torch.no_grad():
         T.forward(cfg, params, ins)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: T.forward(cfg, params, ins))
-        timing_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
 
         def run_mesh():
             with timing_ctx, use_mesh(mesh):
@@ -4104,7 +4523,7 @@ def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
     torch.cuda.empty_cache()
     model = build_model(cfg)
     batch = {"tokens": toks.to(torch.int32)}
-    loss_ctx = repro_torch.DispatchContext(db, tasks=tasks, backend="cuda")
+    loss_ctx = path_context(db, tasks=tasks, backend="cuda")
     counts0 = read_counts()
     with loss_ctx, use_mesh(mesh):
         loss_d, g_d = value_and_grad(model.loss, params32, batch)
@@ -4140,7 +4559,7 @@ def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
     bmm_tune_counts = {k: n - counts0[k] for k, n in read_counts().items()}
     a = torch.randn(B, M, K, generator=gen, device="cuda")
     bm = torch.randn(B, K, N, generator=gen, device="cuda")
-    bctx = repro_torch.DispatchContext(bmm_db, tasks=[bmm_task], backend="cuda")
+    bctx = path_context(bmm_db, tasks=[bmm_task], backend="cuda")
     counts0 = read_counts()
     with use_mesh(mesh2):
         got = bctx.batch_matmul(a, bm)
@@ -4192,6 +4611,212 @@ def phase_mesh(cfg, db, gen, gen_seed: int = 0) -> dict:
         path_counts
 
 
+def start_examples() -> dict:
+    """Phase 22, started: the ``examples/*_torch.py`` twins, each its own
+    process on the card (``--device cuda``, the default), the three started
+    together with one temporary directory under the git-ignored ``build/``
+    for their databases, and this process's timing-lock directory
+    (``REPRO_TIMING_LOCK_DIR``), so that their timings and phase 8's, which
+    runs beside them, take turns on the card.  ``finish_examples`` collects
+    them."""
+    from repro_torch.search.measure.local import LOCK_DIR_ENV
+
+    tmp = ROOT / "build" / f"examples_{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    lock_dir = os.environ.get(LOCK_DIR_ENV) or tempfile.gettempdir()
+    env = dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=str(tmp),
+               **{LOCK_DIR_ENV: lock_dir})
+    procs = {script: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args, "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for script, args in EXAMPLE_RUNS}
+    return dict(procs=procs, tmp=tmp, t0=time.perf_counter())
+
+
+def finish_examples(started: dict) -> dict:
+    """Phase 22, collected: each twin must exit 0 and print its result, the
+    quickstart its recorded trace and a finite best, the serving twin 8 of
+    8 requests served, the training twin a falling loss.  Past 300 s from
+    their start the twins still running are killed and the phase fails;
+    their temporary directory is removed."""
+    import re
+    import shutil
+
+    procs, t0 = started["procs"], started["t0"]
+    outs = {}
+    try:
+        for script, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            outs[script] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    rows = {}
+    for script, args in EXAMPLE_RUNS:
+        rc, stdout, stderr, wall = outs[script]
+        tail = stdout.strip().splitlines()[-3:]
+        print(f"[examples] {script} {' '.join(args)}: exit {rc}, collected {wall:.1f} s "
+              f"after the three started; last lines {tail}")
+        if rc != 0:
+            fail(f"{script} exited {rc}: {stderr[-2000:]}")
+        if script == "quickstart_torch.py":
+            m = re.search(r"best latency\s*:\s*(\S+) us", stdout)
+            best = float(m.group(1)) if m else float("nan")
+            ok = "=== recorded trace (Figure 6) ===" in stdout and \
+                "device            : cuda" in stdout and math.isfinite(best)
+            rows[script] = dict(wall_s=wall, best_us=best)
+        elif script == "serve_batched_torch.py":
+            ok = "served 8/8 requests on cuda" in stdout
+            rows[script] = dict(wall_s=wall, served=ok)
+        else:
+            m = re.search(r"done: first loss (\S+) -> last (\S+) ", stdout)
+            first, last = (float(x) for x in m.groups()) if m else (math.nan, math.nan)
+            ok = last < first and "training improved loss" in stdout
+            rows[script] = dict(wall_s=wall, first_loss=first, last_loss=last)
+        if not ok:
+            fail(f"{script}: the output lacks its result: {stdout[-2000:]}")
+    return rows
+
+
+def flex_cases(cfg) -> list:
+    """The (q shape, k shape, bias shape, window) of every ``flex_call``
+    that phases 3e and 6 time for gemma2 (``cfg``): K3 at (1, H, GEMMA_SEQ,
+    D) with the window and global, K5 at the tick (t SERVE_MAX_SEQ, every
+    position) and over GEMMA_SEQ positions with the window, each with the
+    attention softcap."""
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = SERVE_SLOTS
+    k3 = [((BATCH, H, GEMMA_SEQ, D), (BATCH, KVH, GEMMA_SEQ, D), None, w)
+          for w in (cfg.local_window, 0)]
+    k5 = [((B, KVH, H // KVH, D), (B, KVH, t, D), (B, t), w)
+          for t, w in ((SERVE_MAX_SEQ, 0), (GEMMA_SEQ, cfg.local_window))]
+    return k3 + k5
+
+
+def flex_inputs(q_shape, k_shape, bias_shape, window):
+    """A ``flex_cases`` entry's inputs, the same in every process: q, k and
+    v N(0, 1) from a generator seeded ``FLEX_SEED``; K5's bias over every
+    position, inside the window."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(FLEX_SEED)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               for shape in (q_shape, k_shape, k_shape))
+    bias = None
+    if bias_shape is not None:
+        bias = decode_bias([bias_shape[1]] * bias_shape[0], bias_shape[1], window)
+    return q, k, v, bias
+
+
+def flex_process() -> None:
+    """``--flex``: compile ``flex_call`` at every ``flex_cases`` entry, wait
+    for a line on stdin (the parent's word that the card is idle), then
+    hold each call against the plain version on the entry's inputs and
+    time it (host median and CUDA-graph device ms); the results go out as
+    one JSON line."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ref
+
+    cfg = get_config(GEMMA_ARCH)
+    cap = cfg.attn_softcap
+    calls = []
+    for case in flex_cases(cfg):
+        q, k, v, bias = flex_inputs(*case)
+        call = (flex_call(q, k, v, window=case[3], softcap=cap) if bias is None else
+                flex_call(q, k, v, softcap=cap, bias=bias))
+        call()
+        calls.append((case, q, k, v, bias, call))
+    torch.cuda.synchronize()
+    print(f"[flex] compiled {len(calls)} calls", flush=True)
+    sys.stdin.readline()
+    rows = []
+    for case, q, k, v, bias, call in calls:
+        if bias is None:
+            want = ref.flash_attention(q, k, v, causal=True, window=case[3] or None,
+                                       softcap=cap)
+        else:
+            want = ref.decode_attention(q, k, v, bias, softcap=cap)
+        err = float((call().reshape(want.shape) - want).abs().max())
+        del want
+        rows.append(dict(case=case, max_abs_err=err, ms=median_ms(call),
+                         device_ms=graph_ms(call)))
+    print(json.dumps({"flex": rows}))
+
+
+# the flex_attention times by (q shape, k shape, window), from the flex
+# process (``finish_flex``), for phases 3e and 6
+FLEX_TIMES = {}
+
+
+def start_flex():
+    """``flex_process`` in its own process, started beside phase 8 so that
+    its compiles (over a minute for the four calls) overlap phase 8's
+    work; stopped at exit if still running."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--flex"],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def finish_flex(started) -> None:
+    """Tell the flex process that the card is idle (phases 8 and 22 over,
+    nothing else running), collect its times into ``FLEX_TIMES`` and hold
+    each call within TOL_ATTN of the plain version."""
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate("go\n", timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    print(f"[flex] the flex_attention process exited {proc.returncode} "
+          f"{time.perf_counter() - t0:.1f} s after its start: "
+          f"{[line for line in lines if line.startswith('[flex]')]}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"flex"'):
+        fail(f"the flex_attention process failed: {out[-2000:]}")
+    for row in json.loads(lines[-1])["flex"]:
+        q_shape, k_shape, bias_shape, window = row["case"]
+        kind = "K3" if bias_shape is None else "K5"
+        print(f"[flex] {kind} q {q_shape} k {k_shape} window {window}: max_abs_err "
+              f"{row['max_abs_err']:.3e} against plain (tol {TOL_ATTN:g}); host "
+              f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms")
+        if not row["max_abs_err"] <= TOL_ATTN:
+            fail(f"flex_attention {row['case']}: max_abs_err {row['max_abs_err']}")
+        FLEX_TIMES[(tuple(q_shape), tuple(k_shape), window)] = row
+
+
+def add_flex_times(rows: dict) -> None:
+    """Phase 3e's rows get the flex process's times on their inputs as
+    their library times (device ms, as the rows' own)."""
+    for key, row in rows.items():
+        q_shape, k_shape, window = row["flex"]
+        lib = FLEX_TIMES.get((q_shape, k_shape, window))
+        if lib is None:
+            fail(f"no flex_attention time for {key}")
+        row["library_ms"] = row["library_device_ms"] = lib["device_ms"]
+        print(f"[time] {key}: library {lib['device_ms']:.4f} ms (flex_attention, device; "
+              f"the kernel's {row['device_ms']:.4f} ms)")
+
+
+def flex_time(q, k, window: int) -> dict:
+    """The flex process's row at these shapes (the softcap is gemma2's)."""
+    row = FLEX_TIMES.get((tuple(q.shape), tuple(k.shape), window))
+    if row is None:
+        fail(f"no flex_attention time at q {tuple(q.shape)} k {tuple(k.shape)} "
+             f"window {window}: not a flex_cases entry")
+    return row
+
+
 def phase_operators() -> dict:
     """``tune_workload`` on the ``cuda`` backend for each paper operator at
     its reduced shape, and for ``sfm`` at its default 256x256: each must
@@ -4240,7 +4865,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory to write chip_smoke.json into")
+    ap.add_argument("--flex", action="store_true",
+                    help="only time the flex_attention calls (the process finish_flex reads)")
     args = ap.parse_args(argv)
+    # the compile caches of flex_attention (the flex process) inside the
+    # checkout
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
 
     import torch
 
@@ -4250,6 +4881,9 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.flex:
+        flex_process()
+        return 0
 
     t_start = time.perf_counter()
     card = card_line()
@@ -4272,7 +4906,8 @@ def main(argv=None) -> int:
     decode_tiles = phase_decode_kernels(gen, errs)
     ssd_row = phase_ssd_kernel(gen, errs)
     attention_tiles = phase_attention_tiles(gen, errs)
-    clock("phases 2-3d")
+    gemma_rows = phase_gemma_kernels(errs)
+    clock("phases 2-3e")
 
     cfg = get_config("smollm-135m")
     db = Database()
@@ -4297,10 +4932,21 @@ def main(argv=None) -> int:
     runs.update(serve_runs)
     clock("phase 7")
 
+    # phase 22, the examples' twins, runs beside phase 8 (each in its own
+    # process), and is collected before phase 6 times anything; so is the
+    # process that compiles the flex_attention calls beside phase 8 and
+    # times them once the card is idle
+    examples_run = start_examples()
+    flex_run = start_flex()
     reset_counts()  # the operator path starts here
     operators = phase_operators()
     op_counts = read_counts()
     clock("phase 8")
+    examples = finish_examples(examples_run)
+    clock("phase 22 (beside phase 8)")
+    finish_flex(flex_run)
+    add_flex_times(gemma_rows)
+    clock("phase 3e's library times")
     print(f"[operators] kernel launches: {op_counts}")
     if op_counts["row_softmax"] <= 0:
         fail("row_softmax was not launched on the operator path")
@@ -4314,7 +4960,7 @@ def main(argv=None) -> int:
     fixed = fixed_tile_timings(gen)
     clock("phase 6")
 
-    ssm_cfg = get_config(SSM_ARCH)
+    ssm_cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_LAYERS)
     ssm_db = Database()
     reset_counts()  # the mamba2 forward path starts here
     ssm_tasks, ssm_best, ssm_fwd, ssm_tune_counts, ssm_fwd_counts = phase_ssm_forward(
@@ -4439,6 +5085,51 @@ def main(argv=None) -> int:
     mesh, mesh_fwd_counts, mesh_counts = phase_mesh(cfg, Database(), gen)
     clock("phase 19")
 
+    from repro_torch.models.transformer import layer_windows
+
+    torch.cuda.empty_cache()
+    gm_cfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=GEMMA_LAYERS)
+    L = gm_cfg.n_layers
+    windows = [int(w) for w in layer_windows(gm_cfg)]
+    gm_attn = Counter(
+        f"attention/b={BATCH}/causal=1/d={gm_cfg.head_dim}/h={gm_cfg.n_heads}/"
+        f"kvh={gm_cfg.n_kv_heads}/s={GEMMA_SEQ}/softcap={gm_cfg.attn_softcap}/"
+        f"window={w if 0 < w < GEMMA_SEQ else 0}" for w in windows)
+    gm_db = Database()
+    reset_counts()  # the gemma2 forward path starts here
+    gm_tasks, gm_best, gm_fwd, gm_tune_counts, gm_fwd_counts, gm_runs = \
+        phase_embeds_forward(gm_cfg, gm_db, "gemma-forward", GEMMA_FORWARD_TASKS, dict(
+            # q, k, v and o of every layer: the MLP's products (m4608 k2304
+            # n9216 and k9216 n2304) and the unembed exceed the schedule
+            # caps (``schedulable``) and run plain
+            matmul=4 * L, batch_matmul=0, flash_attention=L, flash_attention_fma=L,
+            # the norm runs plain (``plain_norm``)
+            rmsnorm=0, attention=dict(gm_attn)), seq=GEMMA_SEQ,
+            plain_keys=plain_norm(gm_cfg, BATCH * GEMMA_SEQ),
+            runner_spec=f"cached+local://timeout_s={GEMMA_TUNE_TIMEOUT_S}")
+    clock("phase 20")
+
+    torch.cuda.empty_cache()
+    gm_serve_db = Database()
+    reset_counts()  # the gemma2 serving path starts here
+    gm_serve_tasks, gm_serve_best, gm_serve, gm_serve_tune_counts, gm_serve_runs = \
+        phase_serve(gm_cfg, gm_serve_db, tag="gemma-serve",
+                    serve_tasks=GEMMA_SERVE_TASKS, new_tokens=GEMMA_NEW_TOKENS,
+                    plain_keys=plain_norm(gm_cfg, SERVE_SLOTS * SERVE_CHUNK),
+                    tick_launches=dict(
+                        # q, k, v, o and the gated MLP's three of every layer,
+                        # and the decode unembed; K5 at every layer
+                        matmul=7 * L + 1, decode_flash_attention=L))
+    clock("phase 21")
+    # phase 6 at gemma2's shapes: K1 at m4608 and the m4 unembed over the
+    # 256000-wide table, K2 b4 m9216, K3 fma at D 256 with the softcap and
+    # window, K4 m36864 n1024, K5 at D 256 G 2
+    torch.cuda.empty_cache()
+    rows.update(gemma_rows)
+    rows.update(phase_timings(gm_tasks, gm_runs, gen, gm_cfg.vocab))
+    rows.update(phase_timings(gm_serve_tasks, gm_serve_runs, gen, gm_cfg.vocab))
+    clock("phase 6 (gemma2)")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -4465,6 +5156,9 @@ def main(argv=None) -> int:
         # tuning, one f32 forward, one loss and its gradients, K2's expert
         # product: each per-shard kernel once a mesh coordinate
         "mesh": mesh_counts,
+        "gemma2_forward": {k: gm_tune_counts[k] + gm_fwd_counts[k] for k in KERNELS},
+        "gemma2_serving": {k: gm_serve_tune_counts[k] + gm_serve["launches"][k]
+                           for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -4487,10 +5181,17 @@ def main(argv=None) -> int:
         "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:60"),
     }
     entries = []
+    hits = path_hits()
     for k in KERNELS:
-        # the main-path shape where the kernel has the most work
-        key = max((r for r in rows if rows[r]["kernel"] == k),
-                  key=lambda r: rows[r]["weight"] * rows[r]["flops"])
+        # the shape where the kernel did the most work on the paths: its
+        # hits under dispatch times its work a call.  A kernel that no
+        # dispatched key reaches (K6 and K7, launched directly, and K4,
+        # whose sites the fused attention replaces) keeps the timed shape of
+        # most extracted work; ``shape_hits`` 0 says so
+        mine = [r for r in rows if rows[r]["kernel"] == k]
+        on_path = [r for r in mine if hits[r]]
+        key = max(on_path or mine, key=lambda r: rows[r]["flops"] * (
+            hits[r] if on_path else rows[r]["weight"]))
         r = rows[key]
         entries.append(dict(
             name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
@@ -4507,11 +5208,14 @@ def main(argv=None) -> int:
             fleet_worker_launches=fleet["worker_launches"].get(k, {}).get("launches", 0),
             router_worker_launches=router["worker_launches"][k],
             mesh_forward_launches=mesh_fwd_counts[k],
+            gemma2_forward_launches=gm_fwd_counts[k],
+            gemma2_tick_launches=gm_serve["tick_check"]["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=key, blocks=r["blocks"],
+            library_ms=r["library_ms"], shape=key, shape_hits=hits[key],
+            blocks=r["blocks"],
             **{k: r[k] for k in ("variant", "bound_f32_ms", "bound_3xtf32_ms", "splits") if k in r},
         ))
     total_s = time.perf_counter() - t_start
@@ -4536,7 +5240,9 @@ def main(argv=None) -> int:
                            vl_serve_tune_best=vl_serve_best, whisper_forward=wh_fwd,
                            whisper_tune_best=wh_best, whisper_decode=wh_dec,
                            whisper_decode_tune_best=wh_dec_best, fleet=fleet,
-                           router=router, mesh=mesh,
+                           router=router, mesh=mesh, gemma2_forward=gm_fwd,
+                           gemma2_tune_best=gm_best, gemma2_serve=gm_serve,
+                           gemma2_serve_tune_best=gm_serve_best, examples=examples,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

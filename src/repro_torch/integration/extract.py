@@ -137,6 +137,17 @@ class SiteRecorder:
     def add_site(self, op: str, dispatchable: bool = True, **kwargs: Any) -> None:
         self.op_sites.append(TaskSite(op, dict(kwargs), 1.0, dispatchable=dispatchable))
 
+    def add_bmm(self, a_shape, b_shape) -> None:
+        """The site of :func:`~repro_torch.models.layers.bmm_op` on operands
+        (..., m, k) and (..., k, n): the reference's einsum traces to one
+        ``dot_general`` with the leading dims as batch dims, a ``dense``
+        site (not dispatchable: its rhs is not 2-D) where they multiply to
+        1, as at batch 1 over one kv head."""
+        r = len(a_shape)
+        batch = tuple(range(r - 2))
+        self.op_sites.append(_dot_site(tuple(a_shape), tuple(b_shape), (r - 1,),
+                                       (r - 2,), batch, batch))
+
     def add_einsum(self, spec: str, *shapes) -> None:
         """The sites of a plain ``einsum`` the reference writes as
         ``jnp.einsum`` (see :func:`einsum_sites`)."""

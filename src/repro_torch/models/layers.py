@@ -88,13 +88,7 @@ def bmm_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """
     rec = _site_recorder()
     if rec is not None:
-        bsz = 1
-        for s in a.shape[:-2]:
-            bsz *= int(s)
-        rec.add_site(
-            "batch_matmul", b=bsz, m=int(a.shape[-2]), n=int(b.shape[-1]),
-            k=int(a.shape[-1]),
-        )
+        rec.add_bmm(tuple(a.shape), tuple(b.shape))
     ctx = _dispatch_ctx()
     if ctx is not None:
         out = ctx.batch_matmul(a, b)
@@ -362,6 +356,9 @@ def decode_attention(
             return tuned
     if rec is not None:
         _record_cache_contractions(rec, B, KVH, G, S, T, D)
+        # the softmax's exp over the cache: a tuning-only sfm site of B·H·S
+        # rows, as the reference's jaxpr walk finds it
+        rec.add_exp((B, KVH, G, S, T))
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
     pos = torch.arange(T, device=dev)

@@ -134,10 +134,22 @@ def time_call(fn, device: torch.device, repeats: int, warmup: int) -> List[float
     return times
 
 
+# the directory of the per-card timing locks; processes with different
+# temporary directories that share a card set it to one directory
+LOCK_DIR_ENV = "REPRO_TIMING_LOCK_DIR"
+
+
+def timing_lock_path(uuid) -> str:
+    """The lock file of the card with ``uuid``: in ``$REPRO_TIMING_LOCK_DIR``
+    when set, else in the system temp directory."""
+    lock_dir = os.environ.get(LOCK_DIR_ENV) or tempfile.gettempdir()
+    return os.path.join(lock_dir, f"repro_torch-timing-{uuid}.lock")
+
+
 @contextmanager
 def timing_lock(device: torch.device):
     """Hold ``device`` alone while timing on it: an exclusive ``flock`` on a
-    file in the system temp directory named by the card's UUID, so every
+    file named by the card's UUID (:func:`timing_lock_path`), so every
     process timing on the same card, whatever its device index, waits for
     the others.  Lowering and trace replay stay outside the lock and run in
     parallel.  Nothing to hold on the CPU."""
@@ -146,8 +158,7 @@ def timing_lock(device: torch.device):
         return
     index = device.index if device.index is not None else torch.cuda.current_device()
     uuid = torch.cuda.get_device_properties(index).uuid
-    path = os.path.join(tempfile.gettempdir(), f"repro_torch-timing-{uuid}.lock")
-    with open(path, "a") as fh:
+    with open(timing_lock_path(uuid), "a") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
             yield

@@ -92,6 +92,7 @@ _PROBE = """
 import importlib, sys
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
+sys.path.insert(0, {examples!r})
 for name in {mods!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -103,7 +104,8 @@ print("LEAKED", bad)
 
 def _probe(mods):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT), mods=list(mods))
+    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
+                         examples=str(ROOT / "examples"), mods=list(mods))
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env,
         timeout=300,
@@ -118,6 +120,41 @@ def test_port_modules_import_no_jax_and_no_reference():
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
     assert _probe(["chip_smoke"]) == "LEAKED []"
+
+
+EXAMPLE_TWINS = ["quickstart_torch", "serve_batched_torch", "tune_and_train_torch"]
+
+
+@pytest.mark.parametrize("name", EXAMPLE_TWINS)
+def test_example_twin_imports_no_jax_and_no_reference(name):
+    assert _probe([name]) == "LEAKED []"
+
+
+_RUN_PROBE = """
+import runpy, sys
+sys.path.insert(0, {src!r})
+sys.argv = [{script!r}, "--device", "cpu"]
+runpy.run_path({script!r}, run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
+print("LEAKED", bad)
+"""
+
+
+def test_running_the_serving_twin_imports_no_jax_and_no_reference(tmp_path):
+    """The serving twin run to its end in this process (smoke gemma2-2b, 8
+    requests on the CPU) leaves neither package in ``sys.modules``;
+    ``tests/test_torch_examples.py`` reads the same of every twin's run
+    from its ``-X importtime`` log."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = _RUN_PROBE.format(src=str(ROOT / "src"),
+                             script=str(ROOT / "examples" / "serve_batched_torch.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(env, TMPDIR=str(tmp_path)), timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert "served 8/8 requests on cpu" in lines
+    assert lines[-1] == "LEAKED []"
 
 
 # a module the spawned pool worker imports to report its own modules after

@@ -17,10 +17,13 @@ import torch
 
 import repro_torch
 from repro.configs.base import get_config as jcfg
+from repro.integration.extract import DECODE_EXTRACTABLE_OPS as JDECODE_OPS
 from repro.integration.extract import EXTRACTABLE_OPS as JOPS
+from repro.integration.extract import extract_decode_task_specs as jextract_decode
 from repro.integration.extract import extract_task_specs as jextract
 from repro_torch.configs.base import get_config as tcfg
 from repro_torch.integration.dispatch import DispatchContext
+from repro_torch.integration.extract import extract_decode_task_specs as textract_decode
 from repro_torch.integration.extract import extract_task_specs as textract
 from repro_torch.models import transformer as TT
 from repro_torch.search.database import Database, TuningRecord
@@ -80,6 +83,69 @@ def test_extraction_refuses_ops_of_later_slices():
     by_op = {t.op: t for t in specs}
     assert by_op["rmsnorm"].dispatchable and by_op["rmsnorm"].weight == 5
     assert not by_op["sfm"].dispatchable
+
+
+@pytest.mark.parametrize("chunk,want", [
+    (0, {"sfm/m=6/n=32": 2}),
+    # the serve tick's softmax over the cache, B·H·chunk rows
+    (8, {"sfm/m=6/n=32": 2, "sfm/m=48/n=32": 2}),
+])
+def test_decode_extraction_finds_the_cache_softmax_sites(chunk, want):
+    """``decode_attention``'s plain softmax is an sfm site (m = B·H at a
+    decode step, B·H·chunk at a serve tick; n = T), as the reference's
+    jaxpr walk finds its ``exp``: keys, weights, structural hashes and
+    dispatchability equal."""
+    kw = dict(batch=2, max_seq=32, ops=("sfm",), min_task_elems=1, chunk=chunk)
+    ref = jextract_decode(jcfg("smollm-135m", smoke=True), mesh=None, **kw)
+    got = textract_decode(tcfg("smollm-135m", smoke=True), **kw)
+    assert {t.key: t.weight for t in got} == {t.key: t.weight for t in ref} == want
+    assert [(t.key, t.struct_hash, t.dispatchable) for t in got] == \
+        [(t.key, t.struct_hash, t.dispatchable) for t in ref]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module, for the depths and tiers it drives."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+PAGED = dict(paged=True, chunk=CS.SERVE_CHUNK, page_size=CS.SERVE_PAGE)
+# the serving paths chip_smoke.py drives: (arch, layers, the extraction's
+# kwargs); smollm-135m serves at its full 30 layers
+SERVING_PATHS = [
+    ("smollm-135m", 30, dict(PAGED, dispatchable_only=True)),
+    ("olmoe-1b-7b", CS.MOE_LAYERS, PAGED),
+    ("qwen2-vl-2b", CS.VL_LAYERS, dict()),
+    ("gemma2-2b", CS.GEMMA_LAYERS, PAGED),
+    ("whisper-medium", CS.WHISPER_LAYERS, dict()),
+    ("mamba2-370m", CS.SSM_LAYERS, dict()),
+]
+
+
+@pytest.mark.parametrize("arch,layers,kw", SERVING_PATHS)
+def test_decode_extraction_default_ops_leave_the_softmax_out(arch, layers, kw):
+    """With the default ops (no sfm in either package) the cache softmax's
+    sites change no key or weight of a serving path: each of
+    ``chip_smoke.py``'s decode extractions equals the reference's."""
+    import dataclasses
+
+    from repro_torch.integration.extract import DECODE_EXTRACTABLE_OPS
+
+    assert "sfm" not in DECODE_EXTRACTABLE_OPS and DECODE_EXTRACTABLE_OPS == JDECODE_OPS
+    jc, tc = jcfg(arch), tcfg(arch)
+    jc = dataclasses.replace(jc, n_layers=layers, enc_layers=layers if jc.enc_layers else 0)
+    tc = dataclasses.replace(tc, n_layers=layers, enc_layers=layers if tc.enc_layers else 0)
+    kw = dict(kw, batch=CS.SERVE_SLOTS, max_seq=CS.SERVE_MAX_SEQ)
+    want = {t.key: t.weight for t in jextract_decode(jc, mesh=None, **kw)}
+    got = {t.key: t.weight for t in textract_decode(tc, **kw)}
+    assert got == want and not any(k.startswith("sfm/") for k in got)
 
 
 @pytest.fixture(scope="module")

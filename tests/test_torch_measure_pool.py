@@ -425,3 +425,18 @@ def test_legacy_runner_checks_against_the_plain_version(pkgs, monkeypatch):
     with pytest.raises(AssertionError):
         TLegacy(device="cpu", check_against_oracle=True).measure(sch)
     assert TLegacy(device="cpu").measure(sch).ok  # unchecked, it is timed
+
+
+def test_timing_lock_path_follows_the_lock_directory(monkeypatch, tmp_path):
+    """Processes that share a card but not a temporary directory take one
+    timing lock when they share ``REPRO_TIMING_LOCK_DIR``."""
+    import tempfile
+
+    from repro_torch.search.measure import local
+
+    monkeypatch.delenv(local.LOCK_DIR_ENV, raising=False)
+    default = local.timing_lock_path("GPU-1")
+    assert default == os.path.join(tempfile.gettempdir(), "repro_torch-timing-GPU-1.lock")
+    monkeypatch.setenv(local.LOCK_DIR_ENV, str(tmp_path))
+    monkeypatch.setenv("TMPDIR", str(tmp_path / "elsewhere"))
+    assert local.timing_lock_path("GPU-1") == str(tmp_path / "repro_torch-timing-GPU-1.lock")
