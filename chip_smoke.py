@@ -103,16 +103,19 @@ Phases, in order; a failing phase makes the run exit non-zero:
    at the same tile;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
    seq 256), tune them the same way, then the full-width bf16 forward at
-   ``SSM_LAYERS`` = 24 of its 48 layers under ``DispatchContext`` (a
+   ``SSM_LAYERS`` = 12 of its 48 layers under ``DispatchContext`` (a
    rmsnorm hit a layer and the final one, the unembed, K7 at every layer),
    then held against the same forward with no context whose
    scan runs the plain version, both on the parameters cast to f32 (in
    bf16 the random deep model amplifies one-ulp differences; the bf16
-   difference is reported);
+   difference is reported); the same phase function as 15, 16, 20 and 23
+   (``phase_model_forward``);
 10. the mamba2-370m serving path: extract its decode tasks (4 slots,
    max_seq 256: the slot arena, whole-prompt prefill), tune them, serve 8
    requests through ``ContinuousBatchingScheduler`` under the tuned context
-   (K7 in every admitted prompt's prefill), then with no context;
+   (K7 in every admitted prompt's prefill), then with no context; one
+   decode-only tick with every slot live replayed both ways, timed and
+   traced (``phase_ssm_serve``, as phase 24);
 11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
    1, seq 256), tune them, then the
    full-width bf16 forward at ``MOE_LAYERS`` = 4 of its 16 layers under
@@ -243,16 +246,37 @@ Phases, in order; a failing phase makes the run exit non-zero:
    card, the three at once and beside phase 8, their timings and phase
    8's taking turns under one timing lock, collected before phase 6: the quickstart (``--smoke``) prints its trace
    and a finite best, the serving twin serves 8 of 8 requests, the
-   training twin (``--steps 10 --rounds 1``) ends with a lower loss.
+   training twin (``--steps 10 --rounds 1``) ends with a lower loss;
+23. the hymba-1.5b forward (attention and Mamba-2 SSD heads in parallel in
+   every layer; global attention at the first, middle and last layers, a
+   1024-token window elsewhere: a pattern with no period, whose window the
+   reference traces through its layer scan) at ``HYMBA_LAYERS`` = 16 of
+   its 32 layers: the reference's 20 tasks (batch 1, seq 256) tuned but
+   the unembed (``HYMBA_PLAIN_UNEMBED``) and the norm (``plain_norm``),
+   which run plain; the bf16 forward dispatched
+   against plain, timed and traced, then in f32 within
+   ``TOL_F32_LOGITS_REL``: K2 at both chunked-attention contractions once
+   a layer, ``traced_window`` at every layer's attention, K3 and the
+   backend's fused attention never, K7 once a layer, K1 seven a layer;
+24. the hymba-1.5b serving path: its 11 decode tasks (4 slots, max_seq
+   1152) tuned, 8 requests of 16 new tokens served on the slot arena in
+   f32, dispatched and plain, one prompt of 1088 tokens so that its
+   decode steps pass the window: each dispatched stream equal to the plain
+   one or differing first at a near tie (phase 18's rule), decode
+   attention ``traced_window`` once a layer a tick and K5 never, K7 in
+   every prefill; one decode-only tick replayed, compared, timed and
+   traced; then phase 6 at hymba's shapes (K7 at N 16 on the forward and
+   on the long prefill with its state).
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the eighteen paths (forward: phases 4-5; serving: phase 7;
+each of the twenty paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
 whisper forward and decoding: phase 16; the fleet: phase 17; the router:
 phase 18; the mesh: phase 19; gemma2 forward: phase 20; gemma2 serving:
-phase 21) and read just after it.  A path's launches, and the ``launches``
+phase 21; hymba forward: phase 23; hymba serving: phase 24) and read just
+after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
 and on the fleet and router paths also the launches the spawned workers
 report (phase 17's read around each timing and sent in the result's meta,
@@ -323,15 +347,17 @@ BATCH = 1
 # layers (phase 16), olmoe-1b-7b's 16 (phases 11-12), smollm-135m's 30 in
 # its train step (phase 13; the launcher trains all 30) and qwen2-vl-2b's
 # 28 (phase 15) were halved first, and since gemma2-2b's phases 20-22
-# came those four run a quarter of their depth and mamba2-370m half its 48
-# (phases 9, 10 and 14), so that every path fits the run's time limit on a
-# slow host (PERF.md §6); every gate is derived from the depth; gemma2-2b
-# runs 14 of its 26 (``GEMMA_LAYERS``), the other paths every layer
+# came those four run a quarter of their depth, and since hymba-1.5b's
+# phases 23-24 came mamba2-370m a quarter of its 48 (phases 9, 10 and 14),
+# so that every path fits the run's time limit on a slow host (PERF.md §6);
+# every gate is derived from the depth; gemma2-2b runs 14 of its 26
+# (``GEMMA_LAYERS``), hymba-1.5b 16 of its 32 (``HYMBA_LAYERS``), the other
+# paths every layer
 WHISPER_LAYERS = 6
 MOE_LAYERS = 4
 TRAIN_LAYERS = 8
 VL_LAYERS = 7
-SSM_LAYERS = 24
+SSM_LAYERS = 12
 # search rounds a task, on every path.  Tuning takes most of the run (722 of
 # 1139 s on an H100 at two rounds a task), and all fifteen paths must fit its
 # time limit: phases 15-16 went from two rounds to one when phase 18 came
@@ -512,6 +538,40 @@ GEMMA_K5_TILE = 64
 GEMMA_K5_OVER_CAP = 128
 # the seed of phase 3e's inputs, which the flex process draws again
 FLEX_SEED = 26
+# phases 23-24: hymba-1.5b, attention and Mamba-2 SSD heads in parallel in
+# every layer, global attention at the first, middle and last layers and a
+# 1024-token window elsewhere.  That pattern has no period at any depth
+# over 4, so the reference traces the window through its layer scan and
+# serves attention through its chunked path's two contractions (K2), never
+# the fused kernel (K3), and decode attention plainly, never K5; a cut
+# depth must stay over 4.  16 of its 32 layers (globals at 0, 8 and 15), as
+# the other large paths run at a half or a quarter: at 32 the two phases
+# and their phase 6 took 95 s on an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6)
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_LAYERS = 16
+HYMBA_FORWARD_TASKS = 20
+HYMBA_DECODE_TASKS = 11
+# one prompt of 1088 tokens (17 SSD chunks of 64) decodes 16 tokens at
+# positions 1088-1103, past the window, so every windowed layer's mask
+# drops its oldest keys; the cache holds 1152 positions (its global layers
+# keep the whole context)
+HYMBA_LONG_PROMPT = 1088
+HYMBA_MAX_SEQ = 1152
+HYMBA_NEW_TOKENS = 16
+# the forward's norm (256 tokens, d 1600) is extracted but left plain, as
+# gemma2's are: 2 of its 8 structural candidates passed
+# STRUCTURAL_TIMEOUT_S on their first call, and its round took 10.6 s
+# (measured on one H100); the decode tick's norm (4 tokens) is tuned.
+# The forward unembed (m256 k1600 n32001) is extracted but left plain:
+# 32001 = 3 x 10667 with 10667 prime, so K1's bn is 1 or 3 (a wider tile
+# needs more than its 512 threads), and a tile under the grid cap then
+# needs bm·bk >= 16,667, which the seeded search's tilings (their inner
+# reduce factor at most 128, and a divisor of 1600) almost never draw: a
+# fresh search and its three reseeded ones rejected every candidate
+# (tests/test_torch_hymba.py runs that search).  FIXED_TILES times K1 at
+# the tile (256, 3, 80) instead; the decode unembed (m4) is tuned
+HYMBA_PLAIN_UNEMBED = "dense/k=1600/m=256/n=32001"
 # phase 22: the three examples/ twins, each a process on the card
 EXAMPLE_RUNS = (
     ("quickstart_torch.py", ["--smoke"]),
@@ -1350,13 +1410,14 @@ def ssd_work(b, S, H, P, N, L, state_out: bool = False, elem_bytes: int = 2):
     return b * nc * 2 * pairs * N, b * H * per_head, nbytes
 
 
-def ssd_bound(b, S, H, P, N, L, elem_bytes: int = 2):
+def ssd_bound(b, S, H, P, N, L, elem_bytes: int = 2, state_out: bool = False):
     """(bound ms, by, bound ms at the 3xTF32 rate, bound ms at 67 TFLOP/s,
     flops, bytes) of one K7 call: each product at the rate of its operand
     types.  In bf16, C·Bᵀ (two bf16 operands) runs at the bf16 rate and the
     other three (an f32 operand against a bf16 one) at half the TF32 rate;
     in f32 all four at the 3xTF32 rate."""
-    cb, rest, nbytes = ssd_work(b, S, H, P, N, L, elem_bytes=elem_bytes)
+    cb, rest, nbytes = ssd_work(b, S, H, P, N, L, state_out=state_out,
+                                elem_bytes=elem_bytes)
     flops = cb + rest
     if elem_bytes == 2:
         t_ops = cb / PEAK_BF16_FLOPS + rest / (PEAK_TF32_FLOPS / 2)
@@ -1495,36 +1556,62 @@ def phase_ssd_kernel(gen, errs: dict) -> dict:
             fail(f"ssd chunk {chunk} at S={S}, N={N} was not rejected")
 
     # the main path's shape: mamba2-370m's forward, bf16 x/B/C, chunk 64
-    b, S, H, P, N = 1, 256, 32, 64, 128
-    x, la, B, C = inputs(b, S, H, P, N)
-    x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    row = ssd_timing(gen, "mamba2-370m forward", (1, 256, 32, 64, 128))
+    if any(ms is None for ms in row["traced_ms"].values()):
+        fail(f"ssd's kernels were not all traced at mamba2-370m's forward shape: "
+             f"{row['traced_ms']}")
+    if row["chunk_ctas"] < 128:
+        fail(f"ssd's chunk kernel ran {row['chunk_ctas']} CTAs at mamba2-370m's "
+             "forward shape")
+    return row
+
+
+def ssd_timing(gen, label: str, shape: tuple, f32: bool = False,
+               state: bool = False) -> dict:
+    """K7's timing row at ``shape`` (b, S, H, P, N), chunk 64: x, B and C
+    in bf16 (or f32), the final state returned with ``state``; the kernel's
+    host and device ms, its two kernels traced, the plain version's ms and
+    the bound at the operand types' rates."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_k
+
+    b, S, H, P, N = shape
+    x = torch.randn(b, S, H, P, generator=gen, device="cuda")
+    la = -torch.rand(b, S, H, generator=gen, device="cuda") * 0.3
+    B = torch.randn(b, S, N, generator=gen, device="cuda") * 0.3
+    C = torch.randn(b, S, N, generator=gen, device="cuda") * 0.3
+    if not f32:
+        x, B, C = x.bfloat16(), B.bfloat16(), C.bfloat16()
 
     def launch():
-        return ssd_k.ssd(x, la, B, C, chunk=SSM_CHUNK)
+        return ssd_k.ssd(x, la, B, C, chunk=SSM_CHUNK, return_state=state)
 
     k_ms = median_ms(launch)
     d_ms = graph_ms(launch)
     plan = ssd_k.ssd.last_launch
-    p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK))
-    b_ms, b_by, b3x, b67, flops, nbytes = ssd_bound(b, S, H, P, N, SSM_CHUNK)
+    p_ms = median_ms(lambda: ref.ssd_chunked(x, la, B, C, chunk=SSM_CHUNK,
+                                             return_state=state))
+    b_ms, b_by, b3x, b67, flops, nbytes = ssd_bound(
+        b, S, H, P, N, SSM_CHUNK, elem_bytes=4 if f32 else 2, state_out=state)
+    # a kernel the profiler saw no event of prints None (not measured): it
+    # loses events over short windows (PERF.md §7)
     traced = traced_ms(launch, K7_KERNEL_NAMES)
-    if any(ms is None for ms in traced.values()):
-        fail(f"ssd's kernels were not all traced at mamba2-370m's forward shape: {traced}")
     ctas = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
-    print(f"[time] ssd ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} bf16: kernel "
-          f"{k_ms:.4f} ms (device {d_ms:.4f} ms, both kernels: {ctas} chunk CTAs, "
-          f"pass grid {plan['pass_grid']}; traced "
-          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in traced.items())
+    print(f"[time] ssd {label} ({b},{S},{H},{P}) N {N} chunk {SSM_CHUNK} "
+          f"{'f32' if f32 else 'bf16'}{' with its state' if state else ''}: kernel "
+          f"{k_ms:.4f} ms (device {d_ms:.4f} ms, {plan['kernels']} kernel(s): {ctas} "
+          f"chunk CTAs, pass grid {plan['pass_grid']}; traced "
+          + ", ".join(f"{n} {ms if ms is None else round(ms, 4)} ms"
+                      for n, ms in traced.items())
           + f") plain {p_ms:.4f} ms library - (no single PyTorch call computes the "
-          f"SSD scan) bound {b_ms:.5f} ms ({b_by}, C·Bᵀ at the bf16 rate, the rest "
-          f"at half the TF32 rate; {b3x:.5f} ms at the 3xTF32 rate, {b67:.5f} ms at "
-          f"67 TFLOP/s; {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
-    if ctas < 128:
-        fail(f"ssd's chunk kernel ran {ctas} CTAs at mamba2-370m's forward shape")
-    return dict(kernel="ssd", blocks=[SSM_CHUNK], ms=k_ms, device_ms=d_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                bound_3xtf32_ms=b3x, bound_f32_ms=b67, traced_ms=traced,
-                chunk_ctas=ctas, flops=flops, weight=0)
+          f"SSD scan) bound {b_ms:.5f} ms ({b_by}; {b3x:.5f} ms at the 3xTF32 rate, "
+          f"{b67:.5f} ms at 67 TFLOP/s; {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB)")
+    return dict(kernel="ssd", blocks=[SSM_CHUNK], shape=list(shape), f32=f32,
+                state=state, ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=b3x, bound_f32_ms=b67,
+                traced_ms=traced, chunk_ctas=ctas, flops=flops, weight=0)
 
 
 # ---------------------------------------------------------------------------
@@ -1546,8 +1633,11 @@ STRUCTURAL_OPS = ("rmsnorm",)
 # rmsnorm's best at 1500 tokens took 0.028 s a call and its other
 # candidates 0.06-3.2 s and one over 10 s; the candidates of whisper's two
 # rmsnorm tasks took 55.7 s of its forward's 96.8 s of tuning, and those of
-# the train step's one 53.5 s of 84.7 s
-STRUCTURAL_TIMEOUT_S = 0.5
+# the train step's one 53.5 s of 84.7 s.  At 0.5 s the norm rounds still
+# took 147 s of a 1066 s run, and every tuned norm's best took 1.8-27.2 ms
+# a call (measured on one H100), so 0.2 s leaves each best 7x its time;
+# one round a task measures its seeded first samples, the same each run
+STRUCTURAL_TIMEOUT_S = 0.2
 
 
 def _wrappers():
@@ -2143,6 +2233,9 @@ FIXED_TILES = (
     ("matmul", (4, 1024, 50280, "k"), (4, 60, 64)),
     # qwen2-vl-2b's forward unembed, which no schedule reaches (schedulable)
     ("matmul", (256, 1536, 151936, "k"), (64, 128, 32)),
+    # hymba-1.5b's forward unembed, left plain (HYMBA_PLAIN_UNEMBED): bn 3,
+    # the largest divisor of 32001 that K1's threads take
+    ("matmul", (256, 1600, 32001, "k"), (256, 3, 80)),
     ("batch_matmul", (3, 768, 256, 64), (24, 32, 32)),
     ("row_softmax", (2304, 256), (12,)),
     ("flash_attention", (1, 9, 3, 256, 64), (8, 128)),
@@ -2188,10 +2281,17 @@ def fixed_tile_timings(gen) -> list:
         calls[0]()
         var = _wrappers()[kern].last_launch["variant"]
         d_ms, l_ms = (graph_ms(fn) for fn in calls)
+        b_ms, b_by = None, None
+        if kern == "matmul":
+            b_ms, b_by, _ = mm_bound(M, N, K)
+        elif kern == "batch_matmul":
+            b_ms, b_by, _ = mm_bound(M, N, K, B)
         print(f"[time] fixed tile {kern} {var} {shape} {list(blocks)}: device "
-              f"{d_ms:.4f} ms, library {l_ms:.4f} ms ({d_ms / l_ms:.2f}x)")
+              f"{d_ms:.4f} ms, library {l_ms:.4f} ms ({d_ms / l_ms:.2f}x)"
+              + (f", bound {b_ms:.4f} ms ({b_by})" if b_ms is not None else ""))
         rows.append(dict(kernel=kern, variant=var, shape=list(shape),
-                         blocks=list(blocks), device_ms=d_ms, library_device_ms=l_ms))
+                         blocks=list(blocks), device_ms=d_ms, library_device_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -2428,8 +2528,10 @@ def snapshot_tick(sched) -> dict:
 
 def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
                      norm_key: str, runs=None, params32=None) -> dict:
-    """Run a snapshotted decode-only tick on copies of its arena, under
-    ``ctx`` and with no context, and compare the logits; then time the same
+    """Run a snapshotted decode-only tick (a paged ``serve_step`` tick, or
+    with no ``valid`` in ``snap`` a slot arena's ``decode_step``) on copies
+    of its arena, under ``ctx`` and with no context, and compare the
+    logits; then time the same
     tick both ways on the host clock (median of 3, each on a fresh copy,
     under ``timing_ctx`` so ``ctx``'s counts stay the check's) and trace it
     once each way with the profiler (with ``runs``, the tuned tiles, K2's
@@ -2438,7 +2540,9 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     with each MoE layer's routing flips (none for a dense model)."""
     import torch
 
-    toks, valid = snap["toks"], snap["valid"]
+    toks, valid = snap["toks"], snap.get("valid")
+    if valid is None:  # a slot-arena tick (``decode_step``): every lane live
+        valid = torch.ones(toks.shape[0], dtype=torch.int32, device=toks.device)
 
     def copy(dtype=None):
         return {k: v.to(dtype) if dtype and v.is_floating_point() else v.clone()
@@ -2446,6 +2550,8 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
 
     def run(dispatch, cache, params=None):
         with torch.no_grad(), (dispatch if dispatch is not None else nullcontext()):
+            if "valid" not in snap:
+                return sched.model.decode_step(params or sched.params, cache, toks)[0]
             return sched.model.serve_step(params or sched.params, cache, toks, valid)[0]
 
     def tick_ms(dispatch):
@@ -2761,124 +2867,91 @@ def dispatch_reasons(by_key) -> Counter:
     return Counter({r: n for row in by_key.values() for r, n in row["reasons"].items()})
 
 
-def phase_ssm_forward(cfg, db, gen_seed: int = 0):
-    """Phase 9: the reference's forward tasks of mamba2-370m tuned, then the
-    full-width forward under the tuned context against the plain one."""
+def slot_recording(sched, prompts, new_tokens: int, long_prompt: int):
+    """Serve ``prompts`` on a slot-arena scheduler to the end, recording for
+    every token generated the logits row it was sampled from (kept on the
+    device) and that row's top-2 gap over its max |logit|, K7's launches in
+    the prefill of the ``long_prompt``-token prompt, and a copy of the first
+    decode tick's inputs with every slot live.  Returns (requests, gaps,
+    rows, wall s, that prefill's K7 launches, the tick's snapshot)."""
     import torch
 
-    import repro_torch
-    from repro_torch.models import transformer as T
-    from repro_torch.search.database import workload_key
+    model = sched.model
+    prefill, decode_step = model.prefill, model.decode_step
+    log = {"prefills": [], "tick": None, "snap": None, "long_ssd": None}
 
-    def extract():
-        tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=SEQ)
-        if len(tasks) != SSM_FORWARD_TASKS:
-            fail(f"{cfg.name} forward extraction gave {len(tasks)} tasks, want "
-                 f"the reference's {SSM_FORWARD_TASKS}")
-        return tasks
+    def top2_gaps(logits):
+        rows = logits[:, 0].float()
+        top2 = rows.topk(2, -1).values
+        return logits[:, 0], ((top2[:, 0] - top2[:, 1]) / rows.abs().amax(-1)).tolist()
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="ssm-tune")
-    tune_counts = read_counts()
-    params = T.init_params(cfg, seed=gen_seed, device="cuda")
-    g = torch.Generator(device="cuda")
-    g.manual_seed(gen_seed + 1)
-    toks = torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=g, device="cuda")
+    def recording_prefill(params, cache, tokens, **kwargs):
+        n0 = _wrappers()["ssd"].launches
+        logits, cache = prefill(params, cache, tokens, **kwargs)
+        if tokens.shape[1] == long_prompt:
+            log["long_ssd"] = _wrappers()["ssd"].launches - n0
+        log["prefills"].append(top2_gaps(logits))
+        return logits, cache
 
-    with torch.no_grad():
-        def plain_fwd(p):
-            return T.forward(cfg, p, toks, ssd_backend="torch")
+    def recording_decode(params, cache, tokens):
+        if log["snap"] is None and len(sched.active) == sched.n_slots:
+            log["snap"] = dict(toks=tokens.clone(),
+                               cache={k: v.clone() for k, v in cache.items()})
+        logits, cache = decode_step(params, cache, tokens)
+        # the tick's lanes, read before sampling releases any
+        log["tick"] = top2_gaps(logits) + ({r.rid: s for s, r in sched.active.items()},)
+        return logits, cache
 
-        plain_fwd(params)  # warm the plain path
-        plain, plain_ms = timed_ms(lambda: plain_fwd(params))
-        ctx = path_context(db, tasks=tasks, backend="cuda")
-        counts0 = read_counts()
-        variants0 = read_variants()
-        with ctx:
-            tuned = T.forward(cfg, params, toks)
-        torch.cuda.synchronize()
-        fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
-        fwd_variants = variants_since(variants0)
-        stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
-        with ctx:
-            _, tuned_ms = timed_ms(lambda: T.forward(cfg, params, toks))
-        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
-
-        def traced_fwd():
-            with timing_ctx:
-                T.forward(cfg, params, toks)
-
-        profiles = dict(dispatched=profile_device(traced_fwd),
-                        plain=profile_device(lambda: plain_fwd(params)))
-        # the numerical check, after the path's counts are read: in bf16 a
-        # one-ulp difference in the scan's output grows through the layers of
-        # random weights to tens of percent of the logits (PERF.md, section 6),
-        # so the kernels are held against the plain path on the same
-        # parameters in f32, where the kernels' own error is ~1e-7
-        params32 = _tree_map(lambda t: t.float(), params)
-        plain32 = plain_fwd(params32)
-        with path_context(db, tasks=tasks, backend="cuda"):
-            tuned32 = T.forward(cfg, params32, toks)
-        del params32
-    bf16_rel = float((tuned.float() - plain.float()).abs().max() / plain.float().abs().max())
-    # the yardstick for the line above: how far bf16 rounding alone moves
-    # the plain forward from the same forward in f32
-    bf16_floor = float((plain.float() - plain32).abs().max() / plain32.abs().max())
-    diff = (tuned32 - plain32).abs()
-    max_abs = float(diff.max())
-    rel = max_abs / float(plain32.abs().max())
-    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps, tokens=BATCH * SEQ)
-    unembed_key = workload_key("dense", k=cfg.d_model, m=BATCH * SEQ, n=cfg.vocab)
-    norm_hits = by_key.get(norm_key, {}).get("hits", 0)
-    unembed_hits = by_key.get(unembed_key, {}).get("hits", 0)
-    reasons = dispatch_reasons(by_key)
-    print(f"[ssm-forward] logits {tuple(tuned.shape)} {tuned.dtype}: max_rel_err "
-          f"{bf16_rel:.4e} against the plain bf16 forward (reported, not gated; the "
-          f"plain bf16 forward is {bf16_floor:.4e} from the plain f32 one); "
-          f"in f32 max_abs_err {max_abs:.4e} max_rel_err {rel:.4e} (tol "
-          f"{TOL_LOGITS_REL:g}; the plain forward's scan is the plain version)")
-    print(f"[ssm-forward] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms "
-          f"(median of 3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers)")
-    for key, row in by_key.items():
-        print(f"[ssm-forward]   {key}: hits {row['hits']} misses {row['misses']} "
-              f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
-    for label, prof in profiles.items():
-        if not prof:
-            print(f"[ssm-forward] {label}: the profiler saw no device event (not measured)")
-            continue
-        print(f"[ssm-forward] profile of one {label} forward: {prof['events']} device "
-              f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
-              f"span, idle share {prof['idle_share']:.3f}")
-        for name, ms in prof["top_ms"].items():
-            print(f"[ssm-forward]   {ms:8.3f} ms  {name}")
-        print(f"[ssm-forward] K7 in one {label} forward: {prof['ssd_ms']:.3f} ms "
-              f"traced over its kernels")
-    print(f"[ssm-forward] {norm_key}: {norm_hits} hits, {unembed_key}: {unembed_hits} "
-          f"hits; kernel launches in one dispatched forward: {fwd_counts}; K1 by "
-          f"variant {fwd_variants}")
-    if not torch.isfinite(tuned.float()).all() or tuned.shape != (BATCH, SEQ, cfg.vocab):
-        fail(f"{cfg.name} dispatched logits not finite or of shape {tuple(tuned.shape)}")
-    if rel > TOL_LOGITS_REL:
-        fail(f"{cfg.name} logits rel err {rel} > {TOL_LOGITS_REL}")
-    if norm_hits != cfg.n_layers + 1 or unembed_hits != 1:
-        fail(f"{cfg.name} forward: {norm_hits} rmsnorm and {unembed_hits} unembed "
-             f"hits; want {cfg.n_layers + 1} and 1")
-    if reasons.get("lowering_failed"):
-        fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
-    if fwd_counts["ssd"] != cfg.n_layers:
-        fail(f"{cfg.name} forward launched ssd {fwd_counts['ssd']} times, want "
-             f"{cfg.n_layers}")
-    res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
-               plain_bf16_vs_f32_rel=bf16_floor,
-               plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
-               rmsnorm_hits=norm_hits,
-               unembed_hits=unembed_hits, reasons=dict(reasons), profiles=profiles,
-               launches=fwd_counts, matmul_variants=fwd_variants, tasks=len(tasks))
-    return tasks, best, res, tune_counts, fwd_counts
+    model.prefill, model.decode_step = recording_prefill, recording_decode
+    reqs = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    gaps, rows = [[] for _ in reqs], [[] for _ in reqs]
+    n_prefills = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        while sched.pending():
+            before = [len(r.generated) for r in reqs]
+            sched.step()
+            # the step's prefills ran in submission order, each giving its
+            # request's first token; its decode tick gave one to each live lane
+            for i, (r, n) in enumerate(zip(reqs, before)):
+                new = len(r.generated) - n
+                if new and n == 0:
+                    row, gap = log["prefills"][n_prefills]
+                    n_prefills += 1
+                    rows[i].append(row[0].clone())
+                    gaps[i].append(gap[0])
+                    new -= 1
+                if new:
+                    row, gap, slots = log["tick"]
+                    rows[i].append(row[slots[r.rid]].clone())
+                    gaps[i].append(gap[slots[r.rid]])
+    finally:
+        del model.prefill, model.decode_step
+    torch.cuda.synchronize()
+    return reqs, gaps, rows, time.perf_counter() - t0, log["long_ssd"], log["snap"]
 
 
-def phase_ssm_serve(cfg, db, gen_seed: int = 0):
-    """Phase 10: mamba2-370m's decode tasks tuned, then 8 requests served on
-    the slot arena under the tuned context and with no context."""
+def phase_ssm_serve(cfg, db, gen_seed: int = 0, tag: str = "ssm-serve",
+                    n_tasks: int = SSM_DECODE_TASKS, max_seq: int = SERVE_MAX_SEQ,
+                    long_prompt: int = 128, f32: bool = False,
+                    new_tokens: int = SERVE_NEW_TOKENS, tick_launches=None):
+    """Phase 10 (mamba2-370m) or 24 (hymba-1.5b): the model's ``n_tasks``
+    decode tasks (batch 4, ``max_seq``) tuned and their tiles checked, then
+    8 requests served on the slot arena under the tuned context and with no
+    context: 7 prompts of one SSD chunk (16-64 tokens) and one of
+    ``long_prompt`` tokens (whole chunks of 64), ``new_tokens`` each, greedy;
+    then the first decode tick with every slot live replayed on copies of
+    its arena, compared, timed and traced both ways.  With ``f32`` both runs
+    serve the parameters cast to f32, and each dispatched stream must equal
+    the plain one or differ first where the plain top-2 logits are within
+    2d of max |logit|, d the largest difference of the two runs' logits
+    over the steps whose streams agree before them (phase 18's rule), with
+    d itself within ``TOL_F32_LOGITS_REL``; in bf16 the streams are
+    reported only.  A model with attention (hymba, whose windows the
+    reference traces) must note ``traced_window`` at its decode attention
+    once a layer a tick and launch K5 never; ``tick_launches`` holds the
+    replayed tick's launches a kernel."""
     import numpy as np
     import torch
 
@@ -2888,57 +2961,68 @@ def phase_ssm_serve(cfg, db, gen_seed: int = 0):
     from repro_torch.serving import ContinuousBatchingScheduler, KVArena, ServeConfig
 
     def extract():
-        tasks = repro_torch.extract_decode_tasks(cfg, batch=SERVE_SLOTS,
-                                                 max_seq=SERVE_MAX_SEQ)
-        if len(tasks) != SSM_DECODE_TASKS:
+        tasks = repro_torch.extract_decode_tasks(cfg, batch=SERVE_SLOTS, max_seq=max_seq)
+        if len(tasks) != n_tasks:
             fail(f"{cfg.name} decode extraction gave {len(tasks)} tasks, want "
-                 f"the reference's {SSM_DECODE_TASKS}")
+                 f"the reference's {n_tasks}")
         return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="ssm-serve-tune")
+    tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune")
     tune_counts = read_counts()
+    runs = check_tiles(tasks, db)
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    serve_cfg = cfg
+    if f32:
+        serve_cfg = dataclasses.replace(cfg, dtype="float32")
+        params = _tree_map(lambda t: t.float(), params)
     rng = np.random.default_rng(0)
-    # prompt lengths the reference can prefill: one chunk of at most 64
-    # tokens, or whole chunks of 64
-    lens = rng.integers(16, 65, SERVE_REQUESTS - 1).tolist() + [128]
+    lens = rng.integers(16, 65, SERVE_REQUESTS - 1).tolist() + [long_prompt]
     rng.shuffle(lens)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
-    print(f"[ssm-serve] {SERVE_REQUESTS} requests, prompt lengths {lens}, "
-          f"{SERVE_NEW_TOKENS} new tokens each, greedy")
+    print(f"[{tag}] {SERVE_REQUESTS} requests, prompt lengths {lens}, {new_tokens} new "
+          f"tokens each, greedy, max_seq {max_seq}, "
+          f"{'f32' if f32 else 'bf16'} parameters, {cfg.n_layers} layers")
 
     def serve(dispatch):
-        sched = ContinuousBatchingScheduler(cfg, params, config=ServeConfig(
-            max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, dispatch=dispatch))
+        sched = ContinuousBatchingScheduler(serve_cfg, params, config=ServeConfig(
+            max_slots=SERVE_SLOTS, max_seq=max_seq, dispatch=dispatch))
         if not isinstance(sched.arena, KVArena) or sched.config.prefill_chunk:
             fail(f"{cfg.name} is not served on the slot arena with whole prompts")
-        reqs = [sched.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sched.run()
-        torch.cuda.synchronize()
-        return sched, reqs, time.perf_counter() - t0
+        return sched, *slot_recording(sched, prompts, new_tokens, long_prompt)
 
     ctx = path_context(db, tasks=tasks, backend="cuda")
     counts0 = read_counts()
-    sched, reqs, wall = serve(ctx)
+    sched, reqs, gaps, rows, wall, long_ssd, snap = serve(ctx)
     serve_counts = {k: n - counts0[k] for k, n in read_counts().items()}
     stats, by_key = dict(ctx.stats), ctx.stats_by_key()
-    plain_sched, plain_reqs, plain_wall = serve(None)
-    done = sum(r.done and len(r.generated) == SERVE_NEW_TOKENS for r in reqs)
+    plain_sched, plain_reqs, plain_gaps, plain_rows, plain_wall, _, _ = serve(None)
+    done = sum(r.done and len(r.generated) == new_tokens for r in reqs)
     agree = total = 0
-    for r, pr in zip(reqs, plain_reqs):
-        for a, b in zip(r.generated, pr.generated):
+    differ = []
+    for i, (r, pr) in enumerate(zip(reqs, plain_reqs)):
+        for j, (a, b) in enumerate(zip(r.generated, pr.generated)):
             agree, total = agree + (a == b), total + 1
+        first = next((j for j, (a, b) in enumerate(zip(r.generated, pr.generated))
+                      if a != b), None)
+        if first is not None:
+            differ.append(dict(request=i, step=first, top2_gap=plain_gaps[i][first]))
+    d, d_steps = logit_spread((plain_reqs, plain_rows), (reqs, rows))
+    del rows, plain_rows
     ttft = [r.ttft_s for r in reqs]
     plain_ttft = [r.ttft_s for r in plain_reqs]
     norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps, tokens=SERVE_SLOTS)
     norm_hits = by_key.get(norm_key, {}).get("hits", 0)
     reasons = dispatch_reasons(by_key)
+    decode_reasons = by_key.get("site:attention_decode", {}).get("reasons", {})
     s = sched.stats
+    timing_ctx = path_context(db, tasks=tasks, backend="cuda")
+    attn_key = workload_key("attention_decode", b=SERVE_SLOTS, h=cfg.n_heads,
+                            kvh=cfg.n_kv_heads, t=T.cache_max_len(cfg, max_seq),
+                            d=cfg.head_dim, softcap=float(cfg.attn_softcap or 0.0))
+    tick = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key, runs)
     res = dict(
         requests=len(reqs), completed=done, prompt_lens=lens, wall_s=wall,
-        plain_wall_s=plain_wall, decode_steps=s["decode_steps"],
+        plain_wall_s=plain_wall, decode_steps=s["decode_steps"], f32=f32,
         decode_tok_s=sched.decode_tok_s, prefill_tok_s=sched.prefill_tok_s,
         plain_decode_tok_s=plain_sched.decode_tok_s,
         plain_prefill_tok_s=plain_sched.prefill_tok_s,
@@ -2946,37 +3030,73 @@ def phase_ssm_serve(cfg, db, gen_seed: int = 0):
         ttft_p95_s=float(np.percentile(ttft, 95)),
         plain_ttft_p50_s=float(np.percentile(plain_ttft, 50)),
         plain_ttft_p95_s=float(np.percentile(plain_ttft, 95)),
-        greedy_equal=agree, greedy_total=total, rmsnorm_hits=norm_hits,
-        stats=stats, launches=serve_counts,
+        greedy_equal=agree, greedy_total=total, first_differences=differ,
+        logit_spread=d, logit_spread_steps=d_steps, rmsnorm_hits=norm_hits,
+        decode_attention_reasons=decode_reasons, long_prompt_ssd_launches=long_ssd,
+        stats=stats, launches=serve_counts, tick_check=tick,
     )
-    print(f"[ssm-serve] completed {done}/{len(reqs)} requests in {wall:.2f} s "
+    print(f"[{tag}] completed {done}/{len(reqs)} requests in {wall:.2f} s "
           f"({s['decode_steps']} decode ticks on the slot arena)")
-    print(f"[ssm-serve] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
+    print(f"[{tag}] dispatched: decode {sched.decode_tok_s:.1f} tok/s, prefill "
           f"{sched.prefill_tok_s:.1f} tok/s, TTFT p50 {res['ttft_p50_s'] * 1e3:.1f} ms "
           f"p95 {res['ttft_p95_s'] * 1e3:.1f} ms")
-    print(f"[ssm-serve] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
+    print(f"[{tag}] plain: decode {plain_sched.decode_tok_s:.1f} tok/s, prefill "
           f"{plain_sched.prefill_tok_s:.1f} tok/s, TTFT p50 "
           f"{res['plain_ttft_p50_s'] * 1e3:.1f} ms p95 "
           f"{res['plain_ttft_p95_s'] * 1e3:.1f} ms, wall {plain_wall:.2f} s")
     for key, row in by_key.items():
-        print(f"[ssm-serve]   {key}: hits {row['hits']} misses {row['misses']} "
+        print(f"[{tag}]   {key}: hits {row['hits']} misses {row['misses']} "
               f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
-    print(f"[ssm-serve] greedy tokens equal to the plain run: {agree}/{total} "
-          "(reported, not gated: bf16 plain vs f32 kernels)")
-    print(f"[ssm-serve] kernel launches while serving: {serve_counts} (ssd: "
+    print(f"[{tag}] greedy tokens equal to the plain run: {agree}/{total}; first "
+          f"differences {differ}; the runs' logits differ by d = {d:.4e} of max "
+          f"|logit| over {d_steps} steps"
+          + ("" if f32 else " (reported, not gated: bf16 plain vs f32 kernels)"))
+    print(f"[{tag}] kernel launches while serving: {serve_counts} (ssd: "
           f"{cfg.n_layers} a prefill x {len(reqs)} requests = "
-          f"{cfg.n_layers * len(reqs)} expected)")
+          f"{cfg.n_layers * len(reqs)} expected; {long_ssd} in the {long_prompt}-token "
+          "prompt's prefill)")
+    tp = tick["profile"]
+    print(f"[{tag}] decode-only tick ({tick['lanes']} lanes): dispatched "
+          f"{tick['dispatched_ms']:.2f} ms, plain {tick['plain_ms']:.2f} ms (median of "
+          f"3); logits max_rel_err {tick['max_rel_err']:.4e}; launches "
+          f"{tick['launches']}; new reasons {tick['new_reasons']}"
+          + (f"; traced busy {tp['busy_ms']:.2f} ms of {tp['span_ms']:.2f} ms, idle "
+             f"{tp['idle_share']:.3f}, K1 {tp['matmul_ms']:.3f} ms" if tp else ""))
     if done != len(reqs):
         fail(f"{cfg.name}: {done} of {len(reqs)} requests finished with "
-             f"{SERVE_NEW_TOKENS} tokens")
-    if serve_counts["ssd"] != cfg.n_layers * len(reqs):
-        fail(f"{cfg.name} serving launched ssd {serve_counts['ssd']} times")
+             f"{new_tokens} tokens")
+    if serve_counts["ssd"] != cfg.n_layers * len(reqs) or long_ssd != cfg.n_layers:
+        fail(f"{cfg.name} serving launched ssd {serve_counts['ssd']} times, "
+             f"{long_ssd} in the long prompt's prefill")
     if serve_counts["matmul"] <= 0 or norm_hits <= 0:
         fail(f"{cfg.name} serving: matmul launches {serve_counts['matmul']}, "
              f"{norm_hits} rmsnorm hits")
     if reasons.get("lowering_failed"):
         fail(f"{cfg.name} serving: {reasons['lowering_failed']} lowering_failed misses")
-    return tasks, best, res, tune_counts
+    if not tick["finite"]:
+        fail(f"{cfg.name}: the replayed tick's logits are not finite")
+    if not cfg.attn_free:
+        want = {"traced_window": cfg.n_layers * s["decode_steps"]}
+        if decode_reasons != want or serve_counts["decode_flash_attention"] != 0:
+            fail(f"{cfg.name} serving: decode attention reasons {decode_reasons}, want "
+                 f"{want}; K5 launched {serve_counts['decode_flash_attention']} times")
+        if tick["new_reasons"].get("traced_window") != cfg.n_layers:
+            fail(f"{cfg.name} tick: new reasons {tick['new_reasons']}, want "
+                 f"traced_window once a layer")
+    for k, n in (tick_launches or {}).items():
+        if tick["launches"][k] != n:
+            fail(f"{cfg.name} tick launched {k} {tick['launches'][k]} times, want {n}")
+    if f32:
+        if not d <= TOL_F32_LOGITS_REL:
+            fail(f"{cfg.name}: the dispatched f32 logits differ from plain by {d} of "
+                 f"max |logit|, over {TOL_F32_LOGITS_REL}")
+        ties = [t for t in differ if t["top2_gap"] > 2 * d]
+        if ties:
+            fail(f"{cfg.name}: streams differ where the plain top-2 gap exceeds 2d = "
+                 f"{2 * d:.3e}: {ties}")
+        if not tick["max_rel_err"] <= TOL_F32_LOGITS_REL:
+            fail(f"{cfg.name} tick: f32 logits rel err {tick['max_rel_err']}")
+    return tasks, best, res, tune_counts, runs
 
 
 # ---------------------------------------------------------------------------
@@ -3503,18 +3623,23 @@ def model_inputs(cfg, batch: int, seed: int, seq: int = SEQ) -> dict:
     return {k: v.to(torch.bfloat16) for k, v in ins.items()}
 
 
-def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0,
-                         seq: int = SEQ, plain_keys=(), runner_spec="cached+local"):
-    """Phase 15 (qwen2-vl-2b), 16 (whisper-medium) or 20 (gemma2-2b), the
-    forward: the reference's ``n_tasks`` tasks (batch 1, ``seq`` tokens or
-    embeddings; whisper's 1500 frames) tuned and their tiles checked; the
-    full-width bf16 forward under the tuned context against the same
-    forward with no context, timed and traced; then both on the parameters
-    cast to f32, held within ``TOL_F32_LOGITS_REL``.  ``want`` holds the
-    dispatched forward's launches a kernel, K3's ``fma`` launches at least,
-    the rmsnorm hits and the attention hits by key; the tasks of
-    ``plain_keys`` are left plain, the others tuned through ``runner_spec``
-    (``phase_tune``)."""
+def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0,
+                        seq: int = SEQ, plain_keys=(), runner_spec="cached+local",
+                        tol: float = TOL_F32_LOGITS_REL):
+    """Phase 9 (mamba2-370m), 15 (qwen2-vl-2b), 16 (whisper-medium), 20
+    (gemma2-2b) or 23 (hymba-1.5b), the forward: the reference's
+    ``n_tasks`` tasks (batch 1, ``seq`` tokens or embeddings; whisper's 1500
+    frames) tuned and their tiles checked; the full-width bf16 forward under
+    the tuned context against the plain forward (the SSD scan's plain
+    version too), timed and traced; then both on the parameters cast to
+    f32, held within ``tol``.  ``want`` holds the dispatched forward's
+    launches of each kernel it names (K1 ``matmul``, K2 ``batch_matmul``,
+    K3 ``flash_attention``, K7 ``ssd``), K3's ``fma`` launches at least,
+    the rmsnorm hits, the attention hits by key, and optionally
+    ``hits`` (key: hits) and ``reasons`` (key or ``site:...``: its reasons
+    exactly) and ``attention_fused`` (the backend's fused attention's
+    count); the tasks of ``plain_keys`` are left plain, the others tuned
+    through ``runner_spec`` (``phase_tune``)."""
     import torch
 
     import repro_torch
@@ -3537,9 +3662,12 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
     def fwd(c, p):
         return T.forward(c, p, **ins)
 
+    def plain_fwd(c, p):
+        return T.forward(c, p, **ins, ssd_backend="torch")
+
     with torch.no_grad():
-        fwd(cfg, params)  # warm the plain path
-        plain, plain_ms = timed_ms(lambda: fwd(cfg, params))
+        plain_fwd(cfg, params)  # warm the plain path
+        plain, plain_ms = timed_ms(lambda: plain_fwd(cfg, params))
         ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
@@ -3561,12 +3689,12 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
 
         grids = k2_grids(runs, [k for k, row in by_key.items() if row["hits"]])
         profiles = dict(dispatched=profile_device(traced_fwd, grids),
-                        plain=profile_device(lambda: fwd(cfg, params)))
+                        plain=profile_device(lambda: plain_fwd(cfg, params)))
         bf16_rel = float((tuned.float() - plain.float()).abs().max()
                          / plain.float().abs().max())
         finite = bool(torch.isfinite(tuned.float()).all())
         shape = tuple(tuned.shape)
-        del plain, tuned
+        del tuned
         # the numerical check in f32: the config's dtype too, which the
         # embeddings and frames are cast to
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3575,20 +3703,24 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
         torch.cuda.empty_cache()
         with path_context(db, tasks=tasks, backend="cuda"):
             tuned32 = fwd(cfg32, params32)
-        plain32 = fwd(cfg32, params32)
+        plain32 = plain_fwd(cfg32, params32)
         del params32
         torch.cuda.empty_cache()
     max_abs = float((tuned32 - plain32).abs().max())
     rel = max_abs / float(plain32.abs().max())
-    del tuned32, plain32
+    # the yardstick of the bf16 line: how far bf16 rounding alone moves the
+    # plain forward from the same forward in f32
+    bf16_floor = float((plain.float() - plain32).abs().max() / plain32.abs().max())
+    del tuned32, plain32, plain
     reasons = dispatch_reasons(by_key)
     norm_hits = sum(row["hits"] for key, row in by_key.items()
                     if key.startswith("rmsnorm/"))
     attn_hits = {key: row["hits"] for key, row in by_key.items()
                  if key.startswith("attention/")}
     print(f"[{tag}] logits {shape}: f32 max_abs_err {max_abs:.4e} max_rel_err "
-          f"{rel:.4e} (tol {TOL_F32_LOGITS_REL:g}); bf16 max_rel_err {bf16_rel:.4e} "
-          "against the plain bf16 forward (reported, not gated)")
+          f"{rel:.4e} (tol {tol:g}); bf16 max_rel_err {bf16_rel:.4e} against the "
+          f"plain bf16 forward (reported, not gated; the plain bf16 forward is "
+          f"{bf16_floor:.4e} from the plain f32 one)")
     print(f"[{tag}] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms (median of "
           f"3, batch {BATCH} seq {seq}, {cfg.n_layers} layers"
           + (f" and {cfg.enc_layers} encoder layers over {cfg.enc_frames} frames)"
@@ -3604,35 +3736,117 @@ def phase_embeds_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: 
               f"events, busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
               f"span, idle share {prof['idle_share']:.3f}; traced K1 "
               f"{prof['matmul_ms']:.3f} ms, K2 {prof.get('batch_matmul_ms')} ms, K3 "
-              f"{prof['flash_attention_ms']:.3f} ms, copies {prof['copy_ms']:.3f} ms "
-              f"({prof['copy_events']} events)")
+              f"{prof['flash_attention_ms']:.3f} ms, K7 {prof['ssd_ms']:.3f} ms, "
+              f"copies {prof['copy_ms']:.3f} ms ({prof['copy_events']} events)")
         for name, ms in prof["top_ms"].items():
             print(f"[{tag}]   {ms:8.3f} ms  {name}")
     print(f"[{tag}] kernel launches in one dispatched forward: {fwd_counts}; by "
           f"variant K1 {k1v}, K2 {k2v}, K3 {k3v}; rmsnorm hits {norm_hits}; "
-          f"attention hits {attn_hits}")
+          f"attention hits {attn_hits}; backend fused attention "
+          f"{stats['attention_fused']}")
     if not finite or shape != (BATCH, seq, cfg.vocab):
         fail(f"{cfg.name} dispatched logits not finite or of shape {shape}")
-    if not rel <= TOL_F32_LOGITS_REL:
-        fail(f"{cfg.name} f32 logits rel err {rel} > {TOL_F32_LOGITS_REL}")
-    for k in ("matmul", "batch_matmul", "flash_attention"):
-        if fwd_counts[k] != want[k]:
+    if not rel <= tol:
+        fail(f"{cfg.name} f32 logits rel err {rel} > {tol}")
+    for k in ("matmul", "batch_matmul", "flash_attention", "ssd"):
+        if k in want and fwd_counts[k] != want[k]:
             fail(f"{cfg.name} forward launched {k} {fwd_counts[k]} times, want {want[k]}")
-    if k3v["fma"] < want["flash_attention_fma"]:
+    if k3v["fma"] < want.get("flash_attention_fma", 0):
         fail(f"{cfg.name} forward: K3 by variant {k3v}, want at least "
              f"{want['flash_attention_fma']} fma")
     if norm_hits != want["rmsnorm"] or attn_hits != want["attention"]:
         fail(f"{cfg.name} forward: rmsnorm hits {norm_hits}, attention hits "
              f"{attn_hits}; want {want['rmsnorm']}, {want['attention']}")
+    for key, n in want.get("hits", {}).items():
+        if by_key.get(key, {}).get("hits", 0) != n:
+            fail(f"{cfg.name} forward: {key} hit {by_key.get(key, {}).get('hits', 0)} "
+                 f"times, want {n}")
+    for key, rs in want.get("reasons", {}).items():
+        if by_key.get(key, {}).get("reasons") != rs:
+            fail(f"{cfg.name} forward: {key} reasons {by_key.get(key, {}).get('reasons')}, "
+                 f"want {rs}")
+    if "attention_fused" in want and stats["attention_fused"] != want["attention_fused"]:
+        fail(f"{cfg.name} forward: the backend's fused attention ran "
+             f"{stats['attention_fused']} times, want {want['attention_fused']}")
     if reasons.get("lowering_failed"):
         fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
     res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
+               plain_bf16_vs_f32_rel=bf16_floor,
                plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
                reasons=dict(reasons), profiles=profiles, launches=fwd_counts,
                matmul_variants=k1v, batch_matmul_variants=k2v,
                flash_attention_variants=k3v, rmsnorm_hits=norm_hits,
                attention_hits=attn_hits, tasks=len(tasks))
     return tasks, best, res, tune_counts, fwd_counts, runs
+
+
+def phase_hymba(cfg, gen, gen_seed: int = 0):
+    """Phases 23-24, hymba-1.5b at full width and ``cfg.n_layers`` (over 4:
+    its window pattern has no period): the forward (phase 23: 20 tasks,
+    K2 at both attention contractions once a layer, ``traced_window`` at
+    every layer's attention, K3 never, K7 once a layer, f32 within
+    ``TOL_F32_LOGITS_REL``) and slot-arena serving in f32 across the
+    1024-token window (phase 24); then phase 6 at its shapes (K1, K2, K4,
+    and K7 at N 16 on the forward and on the long prompt's prefill with its
+    state).  Returns (forward result, serving result, timing rows)."""
+    import torch
+
+    from repro_torch.models.transformer import layer_windows, window_period
+    from repro_torch.search.database import Database, workload_key
+
+    L = cfg.n_layers
+    if window_period(layer_windows(cfg)) is not None:
+        fail(f"{cfg.name} at {L} layers has a window period: the reference would "
+             "serve its attention through K3")
+    print(f"[hymba] {L} layers, windows {[int(w) for w in layer_windows(cfg)]} (no "
+          "period: the reference traces them)")
+    G, KVH = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+    bmm = [workload_key("batch_matmul", b=BATCH * KVH, m=G * SEQ, n=n, k=k)
+           for n, k in ((SEQ, cfg.head_dim), (cfg.head_dim, SEQ))]
+    print(f"[hymba] the forward unembed {HYMBA_PLAIN_UNEMBED} is left plain: bn can "
+          "only be 1 or 3 and the seeded searches draw no tile under the grid cap "
+          "(HYMBA_PLAIN_UNEMBED)")
+    db = Database()
+    reset_counts()  # the hymba forward path starts here
+    tasks, best, fwd, tune_counts, fwd_counts, runs = phase_model_forward(
+        cfg, db, "hymba-forward", HYMBA_FORWARD_TASKS, dict(
+            # q, k, v, o and the MLP's three, every layer (the unembed
+            # plain; the SSD mixer's projections are plain einsums in both
+            # packages, extracted as tuning targets); both chunked
+            # attention contractions through K2, the SSD scan through K7;
+            # the norm plain
+            matmul=7 * L, batch_matmul=2 * L, flash_attention=0, ssd=L,
+            rmsnorm=0, attention={}, hits={k: L for k in bmm},
+            reasons={"site:attention": {"traced_window": L}}, attention_fused=0),
+        plain_keys=(HYMBA_PLAIN_UNEMBED,) + plain_norm(cfg, BATCH * SEQ))
+    fwd.update(tune_launches=tune_counts, best=best)
+    clock_s = time.perf_counter()
+    serve_db = Database()
+    torch.cuda.empty_cache()
+    reset_counts()  # the hymba serving path starts here
+    serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_ssm_serve(
+        cfg, serve_db, tag="hymba-serve", n_tasks=HYMBA_DECODE_TASKS,
+        max_seq=HYMBA_MAX_SEQ, long_prompt=HYMBA_LONG_PROMPT, f32=True,
+        new_tokens=HYMBA_NEW_TOKENS,
+        # the 7 products of every layer and the decode unembed; no K5
+        tick_launches=dict(matmul=7 * L + 1, batch_matmul=0,
+                           decode_flash_attention=0, flash_attention=0))
+    serve.update(tune_launches=serve_tune_counts, best=serve_best,
+                 seconds=time.perf_counter() - clock_s)
+    torch.cuda.empty_cache()
+    # phase 6 at the keys the two paths served (the tuning-only sites of
+    # the SSD mixer's einsums and softmaxes left out, for time)
+    hits = path_hits()
+    rows = phase_timings([t for t in tasks if hits[t.key]], runs, gen, cfg.vocab)
+    rows.update(phase_timings([t for t in serve_tasks if hits[t.key]], serve_runs,
+                              gen, cfg.vocab))
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    rows["ssd_hymba"] = ssd_timing(gen, "hymba-1.5b forward",
+                                   (BATCH, SEQ, cfg.ssm_heads, P, N))
+    rows["ssd_hymba_prefill"] = ssd_timing(
+        gen, "hymba-1.5b long prefill", (1, HYMBA_LONG_PROMPT, cfg.ssm_heads, P, N),
+        f32=True, state=True)
+    return fwd, serve, rows
 
 
 def phase_whisper_decode(cfg, db, gen_seed: int = 0):
@@ -4893,7 +5107,7 @@ def main(argv=None) -> int:
           "allow_tf32 False (matmul, cudnn)")
 
     from repro_torch.configs.base import get_config
-    from repro_torch.search.database import Database
+    from repro_torch.search.database import Database, workload_key
 
     def clock(phase: str) -> None:
         print(f"[clock] {phase} done at {time.perf_counter() - t_start:.1f} s")
@@ -4963,9 +5177,14 @@ def main(argv=None) -> int:
     ssm_cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_LAYERS)
     ssm_db = Database()
     reset_counts()  # the mamba2 forward path starts here
-    ssm_tasks, ssm_best, ssm_fwd, ssm_tune_counts, ssm_fwd_counts = phase_ssm_forward(
-        ssm_cfg, ssm_db)
-    ssm_runs = check_tiles(ssm_tasks, ssm_db)
+    ssm_tasks, ssm_best, ssm_fwd, ssm_tune_counts, ssm_fwd_counts, ssm_runs = \
+        phase_model_forward(ssm_cfg, ssm_db, "ssm-forward", SSM_FORWARD_TASKS, dict(
+            # every layer's scan through K7, its norm and the final one, and
+            # the unembed; held in f32 at TOL_LOGITS_REL: one-ulp differences
+            # of the scan grow through the layers of random weights
+            ssd=ssm_cfg.n_layers, rmsnorm=ssm_cfg.n_layers + 1, attention={},
+            hits={workload_key("dense", k=ssm_cfg.d_model, m=BATCH * SEQ,
+                               n=ssm_cfg.vocab): 1}), tol=TOL_LOGITS_REL)
     # phase 6 for the mamba2 unembed, the one K1 site of its paths
     rows.update(phase_timings(unembed_tasks(ssm_tasks, ssm_runs, ssm_cfg.vocab),
                               ssm_runs, gen, ssm_cfg.vocab))
@@ -4973,9 +5192,8 @@ def main(argv=None) -> int:
 
     ssm_serve_db = Database()
     reset_counts()  # the mamba2 serving path starts here
-    ssm_serve_tasks, ssm_serve_best, ssm_serve, ssm_serve_tune_counts = phase_ssm_serve(
-        ssm_cfg, ssm_serve_db)
-    ssm_serve_runs = check_tiles(ssm_serve_tasks, ssm_serve_db)
+    ssm_serve_tasks, ssm_serve_best, ssm_serve, ssm_serve_tune_counts, ssm_serve_runs = \
+        phase_ssm_serve(ssm_cfg, ssm_serve_db)
     rows.update(phase_timings(
         unembed_tasks(ssm_serve_tasks, ssm_serve_runs, ssm_cfg.vocab),
         ssm_serve_runs, gen, ssm_cfg.vocab))
@@ -5018,7 +5236,7 @@ def main(argv=None) -> int:
     vl_db = Database()
     reset_counts()  # the qwen2-vl forward path starts here
     vl_tasks, vl_best, vl_fwd, vl_tune_counts, vl_fwd_counts, vl_runs = \
-        phase_embeds_forward(vl_cfg, vl_db, "vl-forward", VL_FORWARD_TASKS, dict(
+        phase_model_forward(vl_cfg, vl_db, "vl-forward", VL_FORWARD_TASKS, dict(
             # q, k, v, o and the MLP of every layer; the unembed has no
             # schedule (``schedulable``) and runs plain
             matmul=7 * vl_cfg.n_layers, batch_matmul=0,
@@ -5039,7 +5257,7 @@ def main(argv=None) -> int:
     reset_counts()  # the whisper forward path starts here
     L_enc, L_dec = wh_cfg.enc_layers, wh_cfg.n_layers
     wh_tasks, wh_best, wh_fwd, wh_tune_counts, wh_fwd_counts, wh_runs = \
-        phase_embeds_forward(wh_cfg, wh_db, "whisper-forward", WHISPER_FORWARD_TASKS, dict(
+        phase_model_forward(wh_cfg, wh_db, "whisper-forward", WHISPER_FORWARD_TASKS, dict(
             # the encoder's q, k, v, o and MLP (7 a layer), the decoder's
             # self-attention, cross-attention wo and MLP (8 a layer), the
             # unembed; the cross-attention's q, k, v run plain, as in the
@@ -5098,7 +5316,7 @@ def main(argv=None) -> int:
     gm_db = Database()
     reset_counts()  # the gemma2 forward path starts here
     gm_tasks, gm_best, gm_fwd, gm_tune_counts, gm_fwd_counts, gm_runs = \
-        phase_embeds_forward(gm_cfg, gm_db, "gemma-forward", GEMMA_FORWARD_TASKS, dict(
+        phase_model_forward(gm_cfg, gm_db, "gemma-forward", GEMMA_FORWARD_TASKS, dict(
             # q, k, v and o of every layer: the MLP's products (m4608 k2304
             # n9216 and k9216 n2304) and the unembed exceed the schedule
             # caps (``schedulable``) and run plain
@@ -5130,6 +5348,12 @@ def main(argv=None) -> int:
     rows.update(phase_timings(gm_serve_tasks, gm_serve_runs, gen, gm_cfg.vocab))
     clock("phase 6 (gemma2)")
 
+    torch.cuda.empty_cache()
+    hy_cfg = dataclasses.replace(get_config(HYMBA_ARCH), n_layers=HYMBA_LAYERS)
+    hy, hy_serve, hy_rows = phase_hymba(hy_cfg, gen)
+    rows.update(hy_rows)
+    clock("phases 23-24 and phase 6 (hymba)")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -5159,6 +5383,9 @@ def main(argv=None) -> int:
         "gemma2_forward": {k: gm_tune_counts[k] + gm_fwd_counts[k] for k in KERNELS},
         "gemma2_serving": {k: gm_serve_tune_counts[k] + gm_serve["launches"][k]
                            for k in KERNELS},
+        "hymba_forward": {k: hy["tune_launches"][k] + hy["launches"][k] for k in KERNELS},
+        "hymba_serving": {k: hy_serve["tune_launches"][k] + hy_serve["launches"][k]
+                          for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -5210,6 +5437,8 @@ def main(argv=None) -> int:
             mesh_forward_launches=mesh_fwd_counts[k],
             gemma2_forward_launches=gm_fwd_counts[k],
             gemma2_tick_launches=gm_serve["tick_check"]["launches"][k],
+            hymba_forward_launches=hy["launches"][k],
+            hymba_tick_launches=hy_serve["tick_check"]["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -5243,6 +5472,7 @@ def main(argv=None) -> int:
                            router=router, mesh=mesh, gemma2_forward=gm_fwd,
                            gemma2_tune_best=gm_best, gemma2_serve=gm_serve,
                            gemma2_serve_tune_best=gm_serve_best, examples=examples,
+                           hymba_forward=hy, hymba_serve=hy_serve,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

@@ -53,6 +53,7 @@ from ..core.tir import PrimFunc
 from ..core.validator import validate_trace
 from ..distributed.sharding import P, get_mesh, shard_map, shard_workload
 from ..kernels import ScheduleRejected
+from ..models.layers import TracedWindow
 from ..obs import emit, metrics, trace_enabled
 from ..search.database import Database, parse_workload_key, workload_key
 
@@ -370,7 +371,10 @@ class DispatchContext:
         Lookup order: (1) a tuned ``attention`` workload record keyed by
         ``(b, h, kvh, s, d, causal, window, softcap)``; (2) the backend's
         default fused path (the pre-tuning fixed blocks).  A nonzero
-        ``q_offset`` (decode) falls back to the layer's chunked path.
+        ``q_offset`` (decode) or a window the reference traces through its
+        layer scan (a :class:`~repro_torch.models.layers.TracedWindow`)
+        falls back to the layer's chunked path, whose contractions
+        dispatch through ``bmm_op``.
         """
         if q_offset != 0:
             self._note("fallback", None, "attention", "decode_offset")
@@ -379,6 +383,9 @@ class DispatchContext:
         KVH, T = int(k.shape[1]), int(k.shape[2])
         if v.shape != k.shape or T != S or H % KVH != 0:
             self._note("fallback", None, "attention", "shape_mismatch")
+            return None
+        if isinstance(window, TracedWindow):
+            self._note("fallback", None, "attention", "traced_window")
             return None
         if window is not None:
             w = int(window)
@@ -483,9 +490,12 @@ class DispatchContext:
         (per-slot lengths, the layer's window) folds into an additive bias
         built as data on the cache's device and fed to the kernel as the
         workload's BIAS input: one tuned kernel serves every decode step of
-        a continuous-batching arena.  The JAX package also falls back for a
-        traced window or softcap (``traced_window`` / ``traced_softcap``);
-        eager PyTorch has no traced values, so those reasons cannot occur.
+        a continuous-batching arena.  A window the reference traces through
+        its layer scan (a :class:`~repro_torch.models.layers.TracedWindow`,
+        every layer of an aperiodic pattern) falls back to the plain path
+        (``traced_window``), as in the reference.  The reference's
+        ``traced_softcap`` cannot occur: every model's softcap is a config
+        constant.
         """
         B, H, S, D = (int(s) for s in q.shape)
         KVH, T = int(k.shape[1]), int(k.shape[2])
@@ -497,6 +507,9 @@ class DispatchContext:
             return None
         if v.shape != k.shape or H % KVH != 0:
             self._note("fallback", None, "attention_decode", "shape_mismatch")
+            return None
+        if isinstance(window, TracedWindow):
+            self._note("fallback", None, "attention_decode", "traced_window")
             return None
         if scale is not None and abs(scale - D**-0.5) > 1e-12:
             self._note(

@@ -52,6 +52,15 @@ def _site_recorder():
     return mod.current_recorder() if mod is not None else None
 
 
+class TracedWindow(int):
+    """A layer's attention window (0 = global) that the JAX package traces
+    through its layer scan: every window of a model whose window pattern
+    has no period (``transformer.window_period``; hymba's first, middle and
+    last layers global).  It masks as the int it holds; the dispatch hooks
+    read the type and keep the chunked path (``fallback traced_window``),
+    as the reference's do for a traced value."""
+
+
 def _rows(x: torch.Tensor) -> int:
     m = 1
     for s in x.shape[:-1]:

@@ -10,8 +10,10 @@ training loss ``loss_fn`` and the serving functions ``init_cache``,
 have the reference's names, shapes and dtypes, with layers stacked along a
 leading L axis; the reference's ``lax.scan`` over the stack becomes a
 Python loop over it, and the per-layer window reaches each layer as a
-Python int.  A layer mixes with attention, the Mamba-2 SSD mixer, or both
-summed (hymba), attends the encoder's output (whisper), then runs its FFN:
+Python int, typed :class:`~.layers.TracedWindow` where the reference traces
+it (an aperiodic window pattern).  A layer mixes with attention, the
+Mamba-2 SSD mixer, or both summed (hymba), attends the encoder's output
+(whisper), then runs its FFN:
 the gated MLP, or the capacity-bounded top-k MoE (plus the MLP on the same
 input with ``moe_dense_residual``), whose expert products dispatch through
 ``bmm_op``.  An attention-free model has no KV cache, only the (L, B, H, N,
@@ -140,8 +142,10 @@ def window_period(windows: np.ndarray, max_period: int = MAX_WINDOW_PERIOD):
 
     ``p`` divides the layer count and ``windows[i] == windows[i % p]`` for
     all i — uniform models give 1, gemma-2 local/global alternation 2.
-    The layer loop here needs no period (every window is a Python int);
-    the function is kept for callers that group layers by pattern.
+    None (hymba at any depth over 4) means the reference traces the window
+    through its layer scan; ``_windows`` marks such windows traced, and
+    extraction and dispatch keep such a model's attention on the chunked
+    path.
     """
     Ln = len(windows)
     for p in range(1, min(max_period, Ln) + 1):
@@ -397,7 +401,15 @@ def _unembed(cfg: ModelConfig, params: Params, x):
 
 
 def _windows(cfg: ModelConfig) -> List[Optional[int]]:
-    return [int(w) or None for w in layer_windows(cfg)]
+    """Each layer's window as the attention hooks take it: an int (None =
+    global) where the pattern has a period, as the reference closes it over
+    its scan body; otherwise a :class:`~.layers.TracedWindow` for every
+    layer, globals included, where the reference traces it through the
+    scan."""
+    windows = layer_windows(cfg)
+    if window_period(windows) is None:
+        return [L.TracedWindow(int(w)) for w in windows]
+    return [int(w) or None for w in windows]
 
 
 # ---------------------------------------------------------------------------

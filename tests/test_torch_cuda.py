@@ -111,6 +111,7 @@ def _k1_against_plain(x, w, bias, blocks, variant):
     (4, 1536, 576, (4, 18, 48)),
     (3, 72, 120, (3, 40, 18)),
     (4, 1024, 50280, (4, 60, 64)),  # mamba2's unembed at decode
+    (4, 1600, 32001, (4, 3, 100)),  # hymba's at decode: n = 3 x 10667
 ])
 @pytest.mark.parametrize("w_layout", ["n", "k"])
 def test_cuda_matmul_splitk_against_plain(M, K, N, blocks, w_layout):
@@ -190,6 +191,16 @@ def test_cuda_matmul_fma_variant_against_plain():
     assert cfg["grid"] == (8, 2, 1)
 
 
+def test_cuda_matmul_fma_at_hymbas_forward_unembed():
+    """hymba-1.5b's forward unembed, (256, 1600) @ the (32001, 1600) table
+    read transposed: bn 3, the widest divisor of 32001 K1's threads take,
+    one CTA for each of its 10667 column tiles."""
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, 11, 256, 1600, 32001, "k")
+    cfg = _k1_against_plain(x, w, bias, (256, 3, 80), "fma")
+    assert cfg["grid"] == (10667, 1, 1) and cfg["threads"] == 256
+
+
 def test_cuda_batch_matmul_against_plain():
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
@@ -263,6 +274,7 @@ def _k2_against_plain(x, w, blocks, variant):
     (3, 768, 64, 256, (48, 64, 64), 2),
     (5, 1280, 256, 64, (64, 64, 64), 2),
     (5, 1280, 64, 256, (128, 128, 64), 2),
+    (5, 1280, 256, 64, (64, 16, 8), 2),  # hymba's value product, its search's tile
 ])
 @pytest.mark.parametrize("layout", ["c", "t", "pad"])
 def test_cuda_batch_matmul_tc_variant_against_plain(B, M, K, N, blocks, stages, layout):
@@ -292,6 +304,17 @@ def test_cuda_batch_matmul_fma_variant_against_plain():
     x, w = _k2_operands(dev, 9, 3, 768, 256, 64, "t")
     cfg = _k2_against_plain(x, w, (24, 32, 32), "fma")
     assert cfg["grid"] == (2, 32, 3)
+
+
+@pytest.mark.parametrize("layout", ["c", "t", "pad"])
+def test_cuda_batch_matmul_fma_at_hymbas_score_contraction(layout):
+    """hymba-1.5b's chunked-attention score product (q by the keys, b5
+    m1280 k64 n256) at the fma tile its search picked on the card, (40,
+    64, 8): bm not a multiple of 16."""
+    dev = _cuda()
+    x, w = _k2_operands(dev, 13, 5, 1280, 64, 256, layout)
+    cfg = _k2_against_plain(x, w, (40, 64, 8), "fma")
+    assert cfg["grid"] == (4, 32, 5)
 
 
 def test_cuda_batch_matmul_batch_of_one_is_matmul():
@@ -662,6 +685,7 @@ def _rel(got, want):
     ((1, 128, 4, 64, 128), 64, 20.0),   # exp overflows above the diagonal
     ((4, 256, 32, 64, 128), 64, 0.3),   # head groups of 3, the last of 2
     ((8, 128, 25, 64, 16), 64, 0.3),    # head groups of 3, the last of 1
+    ((1, 1088, 25, 64, 16), 64, 0.3),   # hymba's 1088-token prefill: 17 chunks
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 8e-3)])
 def test_cuda_ssd_against_plain(shape, chunk, decay, dtype, tol):

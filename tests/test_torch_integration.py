@@ -126,6 +126,7 @@ SERVING_PATHS = [
     ("gemma2-2b", CS.GEMMA_LAYERS, PAGED),
     ("whisper-medium", CS.WHISPER_LAYERS, dict()),
     ("mamba2-370m", CS.SSM_LAYERS, dict()),
+    ("hymba-1.5b", CS.HYMBA_LAYERS, dict(max_seq=CS.HYMBA_MAX_SEQ)),
 ]
 
 
@@ -142,7 +143,7 @@ def test_decode_extraction_default_ops_leave_the_softmax_out(arch, layers, kw):
     jc, tc = jcfg(arch), tcfg(arch)
     jc = dataclasses.replace(jc, n_layers=layers, enc_layers=layers if jc.enc_layers else 0)
     tc = dataclasses.replace(tc, n_layers=layers, enc_layers=layers if tc.enc_layers else 0)
-    kw = dict(kw, batch=CS.SERVE_SLOTS, max_seq=CS.SERVE_MAX_SEQ)
+    kw = dict(dict(batch=CS.SERVE_SLOTS, max_seq=CS.SERVE_MAX_SEQ), **kw)
     want = {t.key: t.weight for t in jextract_decode(jc, mesh=None, **kw)}
     got = {t.key: t.weight for t in textract_decode(tc, **kw)}
     assert got == want and not any(k.startswith("sfm/") for k in got)
