@@ -26,17 +26,20 @@ Phases, in order; a failing phase makes the run exit non-zero:
    large for shared memory must be rejected; K3 on its tc variant (causal,
    window, softcap, full, at S 256 and 96) and its fma variant, at
    olmoe's (1, 16, 256, 128) on fma, at whisper-medium's encoder shape
-   (1, 16, 1500, 64) not causal, where every tile is fma, and at
-   qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, each run twice for the
-   same bits);
+   (1, 16, 1500, 64) not causal, where every tile is fma, at qwen2-vl-2b's
+   (1, 12, 256, 128) kvh 2 causal and at stablelm-3b's (1, 32, 256, 80)
+   kvh 32 causal, fma at D 80, each run twice for the same bits, with
+   the bound);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
    shapes, with ragged lengths, sentinels, a softcap and a window, at kv
    tiles whose split of the kv axis leaves whole splits masked (a length-1
    slot, the window), and K5 at olmoe's decode tick (b4, 16 kv heads of
    one query head, D 128), over whisper-medium's 1500-frame cross-attention
-   cache (b4, kvh 16, G 1, D 64) and at qwen2-vl-2b's tick (b4, kvh 2, G
-   6, D 128), each run twice for the same bits; each replayed twice from one
+   cache (b4, kvh 16, G 1, D 64), at qwen2-vl-2b's tick (b4, kvh 2, G
+   6, D 128) and at stablelm-3b's (b4, kvh 32, G 1, D 80), each run twice
+   for the same bits, the last tile of each timed beside SDPA and the
+   bound; each replayed twice from one
    CUDA graph for the
    eager call's bits; K5's device time at every kv tile that divides 256,
    beside ``scaled_dot_product_attention`` on the same inputs;
@@ -61,7 +64,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    ``ScheduleRejected`` before any launch; each kernel's device time by
    graph replay beside its plain version, its bound and the library's
    (SDPA takes no softcap: the compiled ``flex_attention``, which a
-   process of its own compiles beside phase 8 and, once phases 8 and 22
+   process of its own compiles beside phases 7 and 8 and, once phases 8 and 22
    are over, holds against the plain version and times on the same
    inputs; SDPA's time without the softcap is printed beside it, as such);
 4. the forward path, part one: extract every task the reference extracts
@@ -103,13 +106,13 @@ Phases, in order; a failing phase makes the run exit non-zero:
    at the same tile;
 9. the mamba2-370m forward path: extract the reference's 14 tasks (batch 1,
    seq 256), tune them the same way, then the full-width bf16 forward at
-   ``SSM_LAYERS`` = 12 of its 48 layers under ``DispatchContext`` (a
+   ``SSM_LAYERS`` = 4 of its 48 layers under ``DispatchContext`` (a
    rmsnorm hit a layer and the final one, the unembed, K7 at every layer),
    then held against the same forward with no context whose
    scan runs the plain version, both on the parameters cast to f32 (in
    bf16 the random deep model amplifies one-ulp differences; the bf16
-   difference is reported); the same phase function as 15, 16, 20 and 23
-   (``phase_model_forward``);
+   difference is reported); the same phase function as 15, 16, 20, 23 and
+   25 (``phase_model_forward``);
 10. the mamba2-370m serving path: extract its decode tasks (4 slots,
    max_seq 256: the slot arena, whole-prompt prefill), tune them, serve 8
    requests through ``ContinuousBatchingScheduler`` under the tuned context
@@ -118,7 +121,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    traced (``phase_ssm_serve``, as phase 24);
 11. the olmoe-1b-7b forward path: extract the reference's 11 tasks (batch
    1, seq 256), tune them, then the
-   full-width bf16 forward at ``MOE_LAYERS`` = 4 of its 16 layers under
+   full-width bf16 forward at ``MOE_LAYERS`` = 2 of its 16 layers under
    ``DispatchContext`` (K2 at every expert product, three launches a
    layer, printed by variant; K3 one a layer, all fma, at head dim 128),
    traced, against the same forward with no context.  Top-k routing is discontinuous, so the numbers are held in
@@ -135,27 +138,29 @@ Phases, in order; a failing phase makes the run exit non-zero:
    f32 as in phase 11;
    then phase 6 at olmoe's shapes;
 13. the smollm-135m training path, at the launcher's batch 8, seq 128:
-   extract the reference's 10 tasks and tune them; one
-   ``make_train_step`` at ``TRAIN_LAYERS`` = 8 of its 30 layers under
-   ``DispatchContext`` against the same step with
-   no context on f32 parameters (the loss within ``TOL_TRAIN_LOSS_REL``,
-   every gradient leaf within ``TOL_TRAIN_GRAD`` of its max |g|, the
-   updated parameters within 2·lr); its launches (K1 14 a layer and the
-   unembed, K3 two a layer, all ``tc``: remat runs each layer's forward
-   twice) and hits by key; bf16 steps
-   timed and one dispatched step traced; phase 6 at the step's shapes; then
-   ``launch/train.py``'s ``main`` at full width for 20 steps with a
-   checkpoint every 10, whose loss must fall, resumed from its step-10
+   extract the reference's 10 tasks and tune them; one step at
+   ``TRAIN_LAYERS`` = 2 of its 30 layers under ``DispatchContext``
+   against the same step with no context on f32 parameters (the loss
+   within ``TOL_TRAIN_LOSS_REL``, every gradient leaf within
+   ``TOL_TRAIN_GRAD`` of its max |g|, the AdamW updates within 2·lr); its
+   launches (K1 14 a layer and the unembed, K3 two a layer, all ``tc``:
+   remat runs each layer's forward twice) and hits by key; 4 bf16 steps on
+   one batch under the tuned context, each timed, whose loss must fall,
+   the plain step timed beside them and one step of each traced; phase 6
+   at the step's shapes; then
+   ``launch/train.py``'s ``main`` at full width for 10 steps with a
+   checkpoint every 5, whose loss must fall, resumed from its step-5
    checkpoint and held against the uninterrupted run (``TOL_RESUME_REL``),
    with the checkpoint's round trip and the resumed batches bitwise;
 14. the mamba2-370m training path: one step's loss and gradients with the
    scan on K7 (twice a layer; backward the plain scan's autograd) against
    the plain scan on f32 parameters, the six leaves that reach the loss
    only through the scan named and non-zero; then 4 bf16 steps on one
-   batch, whose loss must fall;
+   batch, whose loss must fall (the same phase function as 13 and 27,
+   ``phase_train``);
 15. the qwen2-vl-2b paths (M-RoPE, embedding inputs): the reference's 10
    forward tasks (batch 1, seq 256, seeded embeddings) tuned, the
-   full-width bf16 forward at ``VL_LAYERS`` = 7 of its 28 layers under
+   full-width bf16 forward at ``VL_LAYERS`` = 2 of its 28 layers under
    ``DispatchContext`` (K3 one a layer, fma at D 128 GQA 6; K1 seven a
    layer, the unembed plain: no schedule fits both the tile and the grid
    cap; rmsnorm two a layer and the final one) against
@@ -165,7 +170,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    and plain, with one decode-only tick (K5 once a layer) compared;
 16. the whisper-medium paths (encoder, cross-attention): the reference's
    20 forward tasks (batch 1, seq 256, 1500 seeded frames) tuned, the
-   full-width bf16 forward (``WHISPER_LAYERS`` = 6 encoder and 6 decoder
+   full-width bf16 forward (``WHISPER_LAYERS`` = 2 encoder and 2 decoder
    layers) dispatched against plain as in phase 15 (K3 a layer: non-causal
    fma at S 1500 in the encoder, causal in the decoder; K2 four a decoder
    layer on the cross-attention's chunked contractions; K1 seven an
@@ -197,7 +202,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    spawned on the card, each serving smollm-135m at full width (30 layers,
    bf16, seed-0 parameters) on phase 7's paged arena and dispatching phase
    7's database (saved to a file), each warmed up with one short request;
-   16 greedy requests of 32 tokens (phase 7's 8 prompts and 8 more from
+   16 greedy requests of 16 tokens (phase 7's 8 prompts and 8 more from
    the same generator) through ``ServingRouter``, worker 0 SIGKILLed after
    the first poll round in which a request has tokens, then drained: all
    16 complete, exactly one death and at least one resubmit, the
@@ -230,16 +235,16 @@ Phases, in order; a failing phase makes the run exit non-zero:
    1, seq 4608 (the window narrower than the sequence) tuned but the three
    products beyond the schedule caps (``schedulable``) and the norm
    (``plain_norm``), which run plain; the full-width bf16 forward at
-   ``GEMMA_LAYERS`` = 14 of its 26 layers (a depth with a window period)
+   ``GEMMA_LAYERS`` = 4 of its 26 layers (a depth with a window period)
    under ``DispatchContext`` against the same forward with no context,
    timed and traced, then both on f32 parameters within
-   ``TOL_F32_LOGITS_REL`` (K3 14 launches, all fma, 7 with the window; K1
-   56; every gate derived from the config);
+   ``TOL_F32_LOGITS_REL`` (K3 4 launches, all fma, 2 with the window; K1
+   16; every gate derived from the config);
 21. the gemma2-2b serving path, phase 7's tier at the same depth: the
    reference's 16 tasks of a paged tick tuned but the chunk norm
    (``plain_norm``), which runs plain, 8 requests of 16 new tokens served dispatched
    and plain, one decode-only tick held in f32 within ``TOL_F32_LOGITS_REL``
-   (K5 14 launches at D 256, K1 99 all splitk, the unembed over the
+   (K5 4 launches at D 256, K1 29 all splitk, the unembed over the
    256000-wide table among them), its copies traced; then phase 6 at
    gemma2's shapes;
 22. the three ``examples/*_torch.py`` twins, each its own process on the
@@ -250,7 +255,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
 23. the hymba-1.5b forward (attention and Mamba-2 SSD heads in parallel in
    every layer; global attention at the first, middle and last layers, a
    1024-token window elsewhere: a pattern with no period, whose window the
-   reference traces through its layer scan) at ``HYMBA_LAYERS`` = 16 of
+   reference traces through its layer scan) at ``HYMBA_LAYERS`` = 6 of
    its 32 layers: the reference's 20 tasks (batch 1, seq 256) tuned but
    the unembed (``HYMBA_PLAIN_UNEMBED``) and the norm (``plain_norm``),
    which run plain; the bf16 forward dispatched
@@ -266,16 +271,44 @@ Phases, in order; a failing phase makes the run exit non-zero:
    attention ``traced_window`` once a layer a tick and K5 never, K7 in
    every prefill; one decode-only tick replayed, compared, timed and
    traced; then phase 6 at hymba's shapes (K7 at N 16 on the forward and
-   on the long prefill with its state).
+   on the long prefill with its state);
+25. the stablelm-3b forward at full width and its whole depth,
+   ``STABLELM_LAYERS`` = 32 (32 heads of 80 over 32 kv heads, no window):
+   the reference's 9 tasks (batch 1, seq 256) tuned but the norm
+   (``plain_norm``) and the unembed (``STABLELM_UNEMBED``), which run
+   plain; the bf16 forward dispatched against plain, timed and traced,
+   then in f32 within ``TOL_F32_LOGITS_REL``: K3 once a layer, all fma at
+   D 80, its key hit once a layer, K1 seven a layer, the dispatch reasons
+   the plain keys' ``unknown_key`` misses alone;
+26. the stablelm-3b serving path, phase 7's paged tier at the same depth:
+   its 11 dispatchable tasks tuned but the chunk norm (``plain_norm``), 8
+   requests of 16 new tokens served on f32 parameters, dispatched and
+   plain, each dispatched stream equal to the plain one or differing
+   first at a near tie (phase 18's rule); one decode-only tick held within
+   ``TOL_F32_LOGITS_REL`` (K1 225 all splitk, K5 32 at D 80, G 1); then
+   phase 6 at stablelm's shapes;
+27. hymba-1.5b's train step at batch 8, seq 128 and ``HYMBA_TRAIN_LAYERS``
+   = 8 (over 4: no window period) through ``phase_train``: the reference's
+   20 tasks tuned but the norm (``plain_norm``) and the unembed
+   (``schedulable``); one f32 step under the
+   tuned context against the plain step (no context, the plain scan):
+   K1 seven a layer and K2 at both chunked contractions, each in the
+   forward and in remat's recompute, K7 in both, K3 never,
+   ``traced_window`` at every layer's attention in both, the loss, the
+   gradients (the six scan leaves named) and the updates as in phase 13;
+   then 4 bf16 steps on one batch, whose loss must fall; phase 6 at the
+   step's keys.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the twenty paths (forward: phases 4-5; serving: phase 7;
+each of the twenty-three paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
 whisper forward and decoding: phase 16; the fleet: phase 17; the router:
 phase 18; the mesh: phase 19; gemma2 forward: phase 20; gemma2 serving:
-phase 21; hymba forward: phase 23; hymba serving: phase 24) and read just
+phase 21; hymba forward: phase 23; hymba serving: phase 24; stablelm
+forward: phase 25; stablelm serving: phase 26; hymba training: phase 27)
+and read just
 after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
 and on the fleet and router paths also the launches the spawned workers
@@ -314,6 +347,7 @@ import time
 from collections import Counter
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -348,16 +382,19 @@ BATCH = 1
 # its train step (phase 13; the launcher trains all 30) and qwen2-vl-2b's
 # 28 (phase 15) were halved first, and since gemma2-2b's phases 20-22
 # came those four run a quarter of their depth, and since hymba-1.5b's
-# phases 23-24 came mamba2-370m a quarter of its 48 (phases 9, 10 and 14),
-# so that every path fits the run's time limit on a slow host (PERF.md §6);
-# every gate is derived from the depth; gemma2-2b runs 14 of its 26
-# (``GEMMA_LAYERS``), hymba-1.5b 16 of its 32 (``HYMBA_LAYERS``), the other
-# paths every layer
-WHISPER_LAYERS = 6
-MOE_LAYERS = 4
-TRAIN_LAYERS = 8
-VL_LAYERS = 7
-SSM_LAYERS = 12
+# phases 23-24 came mamba2-370m a quarter of its 48 (phases 9, 10 and 14);
+# since stablelm-3b's phases 25-26 and hymba's train step (phase 27) came
+# (101.6 s of a 1008.1 s run on an H100) and a run took 1187.1 s on a host
+# 28 % slower, these paths run 2 to 4 layers, so that every path fits the
+# run's time limit on a slow host (PERF.md §6); every gate is derived from
+# the depth; gemma2-2b runs 4 of its 26 (``GEMMA_LAYERS``), hymba-1.5b 6 of
+# its 32 (``HYMBA_LAYERS``), stablelm-3b all 32 (``STABLELM_LAYERS``), the
+# other paths every layer
+WHISPER_LAYERS = 2
+MOE_LAYERS = 2
+TRAIN_LAYERS = 2
+VL_LAYERS = 2
+SSM_LAYERS = 4
 # search rounds a task, on every path.  Tuning takes most of the run (722 of
 # 1139 s on an H100 at two rounds a task), and all fifteen paths must fit its
 # time limit: phases 15-16 went from two rounds to one when phase 18 came
@@ -388,7 +425,9 @@ SERVE_MAX_SEQ = 256
 SERVE_PAGE = 16
 SERVE_CHUNK = 32
 SERVE_REQUESTS = 8
-SERVE_NEW_TOKENS = 32
+# 16 new tokens a request on phase 7's tier and the router's, as on
+# gemma2's, hymba's and stablelm's: for the run's time on a slow host
+SERVE_NEW_TOKENS = 16
 
 # the mamba2-370m paths (phases 9 and 10): the slot arena, whole prompts
 SSM_ARCH = "mamba2-370m"
@@ -423,8 +462,8 @@ TRAIN_TASKS = 10
 TRAIN_LR = 3e-4
 TOL_TRAIN_LOSS_REL = 1e-4
 TOL_TRAIN_GRAD = 1e-3
-LAUNCHER_STEPS = 20
-LAUNCHER_CKPT_EVERY = 10
+LAUNCHER_STEPS = 10
+LAUNCHER_CKPT_EVERY = 5
 TOL_RESUME_REL = 1e-3
 SSM_TRAIN_STEPS = 4
 # the leaves of the SSD mixer that reach the loss only through the scan
@@ -499,12 +538,12 @@ DRYRUN_SHAPES = ("train_4k",)
 # window on every other layer, post-norms, gelu, a tied 256000-wide unembed
 # with a logit softcap of 30).  The forward runs at batch 1, seq 4608, so
 # that the local layers' window is narrower than the sequence; its depth is
-# 14 of 26 layers, as the other large paths run at half depth, and 14 has a
-# window period (2) where 13 has none: at such a depth neither package
-# extracts the fused attention task (``window_period``), and K3 would leave
-# the path.  Serving is phase 7's tier at the same depth
+# 4 of 26 layers, an even depth, with the window period 2, where an odd
+# one has none: at such a depth neither
+# package extracts the fused attention task (``window_period``), and K3
+# would leave the path.  Serving is phase 7's tier at the same depth
 GEMMA_ARCH = "gemma2-2b"
-GEMMA_LAYERS = 14
+GEMMA_LAYERS = 4
 GEMMA_SEQ = 4608
 GEMMA_FORWARD_TASKS = 12
 # the reference's tasks of gemma2's paged serving tick, every site
@@ -544,12 +583,12 @@ FLEX_SEED = 26
 # over 4, so the reference traces the window through its layer scan and
 # serves attention through its chunked path's two contractions (K2), never
 # the fused kernel (K3), and decode attention plainly, never K5; a cut
-# depth must stay over 4.  16 of its 32 layers (globals at 0, 8 and 15), as
-# the other large paths run at a half or a quarter: at 32 the two phases
-# and their phase 6 took 95 s on an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md §6)
+# depth must stay over 4.  6 of its 32 layers (globals at 0, 3 and 5), as
+# the other large paths run at a fraction: at 32 the two phases and their
+# phase 6 took 95 s on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# §6), 42.5 s at 16
 HYMBA_ARCH = "hymba-1.5b"
-HYMBA_LAYERS = 16
+HYMBA_LAYERS = 6
 HYMBA_FORWARD_TASKS = 20
 HYMBA_DECODE_TASKS = 11
 # one prompt of 1088 tokens (17 SSD chunks of 64) decodes 16 tokens at
@@ -572,6 +611,32 @@ HYMBA_NEW_TOKENS = 16
 # (tests/test_torch_hymba.py runs that search).  FIXED_TILES times K1 at
 # the tile (256, 3, 80) instead; the decode unembed (m4) is tuned
 HYMBA_PLAIN_UNEMBED = "dense/k=1600/m=256/n=32001"
+# hymba-1.5b's train step (phase 27) at batch 8, seq 128: 8 layers, over
+# 4, so its windows (globals at 0, 4 and 7) have no period and the
+# reference traces them (K2 at the chunked contractions, never K3); the
+# reference's 20 tasks, the unembed (1024·32001·1600 multiply-adds) beyond
+# the schedule caps and the norm left plain
+HYMBA_TRAIN_LAYERS = 8
+HYMBA_TRAIN_TASKS = 20
+# phases 25-26: stablelm-3b at full width (d_model 2560, 32 heads of 80
+# over 32 kv heads, d_ff 6912, vocab 50304) and its whole depth of 32
+# layers: no window, so any depth is periodic and the reference serves its
+# attention through K3, on fma (D 80 is no tc head dim), and K5 at D 80,
+# G 1.  The forward's norm is left plain, as gemma2's and hymba's are
+# (plain_norm); the serving chunk's too, the tick's is tuned.  The forward
+# unembed needs 256·50304·2560 = 3.30e10 multiply-adds, 4 % under the two
+# caps' product, so only tiles of 125,770-131,072 elements whose bn divides
+# 50304 = 2^7·3·131 fit both caps.  It is left plain: the seeded searches
+# draw such a tile only in their third reseed (tests/test_torch_stablelm.py
+# runs them), and the tile a search drew on the card changed from run to
+# run, once an fma tile 20 times slower than the plain product, so the
+# tuned path would have two modes.  FIXED_TILES times K1 at the valid tile
+# (256, 128, 4)
+STABLELM_ARCH = "stablelm-3b"
+STABLELM_LAYERS = 32
+STABLELM_FORWARD_TASKS = 9
+STABLELM_UNEMBED = "dense/k=2560/m=256/n=50304"
+STABLELM_NEW_TOKENS = 16
 # phase 22: the three examples/ twins, each a process on the card
 EXAMPLE_RUNS = (
     ("quickstart_torch.py", ["--smoke"]),
@@ -926,10 +991,13 @@ def phase_kernels(gen) -> dict:
            median_ms(lambda: sdpa(q, k, v, True)))
     # whisper-medium's encoder attention, (1, 16, 1500, 64) non-causal: no
     # divisor of 1500 is a multiple of 8, so every tile K3 takes there is
-    # fma; and qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, fma at D 128
+    # fma; qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, fma at D 128; and
+    # stablelm-3b's (1, 32, 256, 80) kvh 32 causal, fma at D 80 (no tc head
+    # dim), with its bound
     for (h, kvh, s, d, causal), tiles in (
         ((16, 16, ENC_FRAMES, 64, False), ((60, 50), (125, 125))),
         ((12, 2, SEQ, 128, True), ((32, 32), (64, 16))),
+        ((32, 32, SEQ, 80, True), ((32, 32), (16, 64))),
     ):
         q = randn(BATCH, h, s, d)
         k, v = randn(BATCH, kvh, s, d), randn(BATCH, kvh, s, d)
@@ -946,9 +1014,11 @@ def phase_kernels(gen) -> dict:
             if not torch.equal(got, again):
                 fail(f"flash_attention fma ({bq}, {bkv}) on {(h, kvh, s, d)}: two "
                      "runs differ")
+            b_ms, b_by, _ = attention_bound(BATCH, h, kvh, s, d, causal)
             report("flash_attention",
                    f"fma (1,{h},{s},{d}) kvh {kvh} {'causal' if causal else 'full'} "
-                   f"blocks ({bq}, {bkv}) grid {plan['grid']}, twice the same bits",
+                   f"blocks ({bq}, {bkv}) grid {plan['grid']}, twice the same bits, "
+                   f"bound {b_ms:.4f} ms ({b_by})",
                    got, want, TOL_ATTN,
                    median_ms(lambda: fa.flash_attention(
                        q, k, v, causal=causal, block_q=bq, block_kv=bkv)),
@@ -1172,9 +1242,12 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
                    ref.decode_attention(q128, k128, v128, bias))
     # whisper-medium's cross-attention over the 1500 encoder frames (16 kv
     # heads of one query head, D 64; a tile above 375 rows overflows shared
-    # memory) and qwen2-vl-2b's tick (2 kv heads of 6 query heads, D 128)
+    # memory), qwen2-vl-2b's tick (2 kv heads of 6 query heads, D 128) and
+    # stablelm-3b's (32 kv heads of one query head, D 80); each shape's
+    # last tile timed beside SDPA and the bound
     for (kvh, g, T, d), tiles in (((16, 1, ENC_FRAMES, 64), (50, 125, 300, 375)),
-                                  ((2, 6, SERVE_MAX_SEQ, 128), (16, 64, 128))):
+                                  ((2, 6, SERVE_MAX_SEQ, 128), (16, 64, 128)),
+                                  ((32, 1, SERVE_MAX_SEQ, 80), (16, 64, 128))):
         qx = randn(B, kvh, g, d)
         kx, vx = randn(B, kvh, T, d), randn(B, kvh, T, d)
         for bkv in tiles:
@@ -1191,6 +1264,13 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
                        f"({B},{kvh},{g},{T},{d}) block_kv {bkv}, {plan['splits']} "
                        f"splits of {plan['rows_per_split']} rows, {label}, twice the "
                        "same bits", got, ref.decode_attention(qx, kx, vx, bias))
+        bias = decode_bias([T] * B, T)
+        k_ms = graph_ms(lambda: fa.decode_flash_attention(qx, kx, vx, bias, block_kv=bkv))
+        l_ms = graph_ms(lambda: sdpa_decode(qx, kx, vx, bias))
+        b_ms, b_by = bound(*decode_work(B, kvh, g, T, d))
+        print(f"[time] decode_flash_attention ({B},{kvh},{g},{T},{d}) block_kv {bkv}: "
+              f"device {k_ms:.4f} ms, sdpa device {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
     # K6: pages scattered over a pool, sentinel entries, ragged lengths
     P = SERVE_MAX_SEQ // SERVE_PAGE
     n_pages = B * P + 3
@@ -1718,7 +1798,8 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
     schedulable tasks through ``runner_spec`` (a spec or a built runner,
     which the caller closes) on the card, but those whose keys are in
     ``plain_keys`` (each must be extracted), which are printed and left
-    plain as the unschedulable ones are; returns (tasks, best)."""
+    plain as the unschedulable ones are; returns (tasks, best), the tasks
+    tuned."""
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
 
@@ -2236,7 +2317,13 @@ FIXED_TILES = (
     # hymba-1.5b's forward unembed, left plain (HYMBA_PLAIN_UNEMBED): bn 3,
     # the largest divisor of 32001 that K1's threads take
     ("matmul", (256, 1600, 32001, "k"), (256, 3, 80)),
+    # stablelm-3b's forward unembed, left plain (STABLELM_UNEMBED), at a
+    # tile of 131,072 elements under both caps
+    ("matmul", (256, 2560, 50304, "k"), (256, 128, 4)),
     ("batch_matmul", (3, 768, 256, 64), (24, 32, 32)),
+    # hymba-1.5b's train-step SSD product over 65536 batches, a tuning
+    # target the step does not hit: two splitk launches of at most 65535
+    ("batch_matmul", (65536, 1, 1, 25), (1, 25, 1)),
     ("row_softmax", (2304, 256), (12,)),
     ("flash_attention", (1, 9, 3, 256, 64), (8, 128)),
     ("flash_attention", (1, 9, 3, 256, 64), (64, 128)),
@@ -2384,10 +2471,12 @@ def paged_timing(gen, t_len: int, ps: int) -> dict:
 
 
 def serve_requests(cfg, params, dispatch, prompts, on_tick=None,
-                   new_tokens: int = SERVE_NEW_TOKENS):
+                   new_tokens: int = SERVE_NEW_TOKENS, record: bool = False):
     """Serve ``prompts`` through the paged continuous-batching scheduler,
-    ``new_tokens`` each; ``on_tick(sched)`` runs before every tick.
-    Returns (scheduler, requests, wall seconds)."""
+    ``new_tokens`` each; ``on_tick(sched)`` runs before every tick.  With
+    ``record``, each token's logits row and top-2 gap are kept
+    (:func:`serve_recording`).  Returns (scheduler, requests, wall seconds,
+    (gaps, rows), each a list per request, empty without ``record``)."""
     import torch
 
     from repro_torch.serving import ContinuousBatchingScheduler, ServeConfig
@@ -2396,15 +2485,11 @@ def serve_requests(cfg, params, dispatch, prompts, on_tick=None,
         max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
         page_size=SERVE_PAGE, prefill_chunk=SERVE_CHUNK, dispatch=dispatch,
     ))
-    reqs = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    while sched.pending():
-        if on_tick is not None:
-            on_tick(sched)
-        sched.step()
+    reqs, gaps, rows, _ = serve_recording(sched, prompts, new_tokens, on_tick, record)
     torch.cuda.synchronize()
-    return sched, reqs, time.perf_counter() - t0
+    return sched, reqs, time.perf_counter() - t0, (gaps, rows)
 
 
 # the kernels K1 launches; K2 shares all three, but launches in neither
@@ -2615,9 +2700,10 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
 
 def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                 decode_tasks: int = 0, serve_tasks: int = 0, plain_keys=(),
-                tick_launches=None, new_tokens: int = SERVE_NEW_TOKENS):
-    """Phase 7 (smollm-135m), 12 (olmoe-1b-7b), 15 (qwen2-vl-2b) or 21
-    (gemma2-2b): the model's decode tasks tuned, its tuned tiles checked, 8
+                tick_launches=None, new_tokens: int = SERVE_NEW_TOKENS,
+                f32: bool = False):
+    """Phase 7 (smollm-135m), 12 (olmoe-1b-7b), 15 (qwen2-vl-2b), 21
+    (gemma2-2b) or 26 (stablelm-3b): the model's decode tasks tuned, its tuned tiles checked, 8
     requests served on the paged arena under the tuned context and with no
     context, then one decode-only tick compared, timed and traced.  The
     tasks are those of a decode step and a 32-wide paged serving tick: the
@@ -2628,9 +2714,14 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     step alone (the tick's chunk sites then run plain).  With ``tick_launches``
     (launches a kernel) the tick is also held in f32 within
     ``TOL_F32_LOGITS_REL`` on the parameters cast to f32, and its launches
-    must be those.  Each request generates ``new_tokens``.  Returns the
-    tasks, their bests, the results, the tuning's launch counts and the
-    checked tiles."""
+    must be those.  Each request generates ``new_tokens``.  With ``f32``
+    both runs serve the parameters cast to f32, the tick is held in f32
+    within ``TOL_F32_LOGITS_REL``, and each dispatched stream must equal the
+    plain one or differ first where the plain top-2 logits are within 2d of
+    max |logit|, d the largest difference of the two runs' logits over the
+    steps whose streams agree before them (phase 18's rule), itself within
+    ``TOL_F32_LOGITS_REL``.  Returns the tasks, their bests, the results,
+    the tuning's launch counts and the checked tiles."""
     import numpy as np
     import torch
 
@@ -2685,11 +2776,16 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     if norm_key not in {t.key for t in tasks}:
         fail(f"decode extraction has no {norm_key} task")
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
+    serve_cfg = cfg
+    if f32:
+        serve_cfg = dataclasses.replace(cfg, dtype="float32")
+        params = _tree_map(lambda t: t.float(), params)
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 97, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
     print(f"[{tag}] {SERVE_REQUESTS} requests, prompt lengths {lens.tolist()}, "
-          f"{new_tokens} new tokens each, greedy")
+          f"{new_tokens} new tokens each, greedy, {'f32' if f32 else 'bf16'} "
+          f"parameters, {cfg.n_layers} layers")
     ctx = path_context(db, tasks=tasks, backend="cuda")
     snap = {}
 
@@ -2701,18 +2797,20 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
             snap.update(snapshot_tick(sched))
 
     counts0 = read_counts()
-    sched, reqs, wall = serve_requests(cfg, params, ctx, prompts, on_tick, new_tokens)
+    sched, reqs, wall, (_, rows) = serve_requests(serve_cfg, params, ctx, prompts, on_tick,
+                                                  new_tokens, record=f32)
     serve_counts = {k: read_counts()[k] - counts0[k] for k in KERNELS}
     stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # the serving run's
     if not snap:
         fail("no decode-only tick was checked")
-    plain_sched, plain_reqs, plain_wall = serve_requests(cfg, params, None, prompts,
-                                                         new_tokens=new_tokens)
+    plain_sched, plain_reqs, plain_wall, (plain_gaps, plain_rows) = serve_requests(
+        serve_cfg, params, None, prompts, new_tokens=new_tokens, record=f32)
     # the check runs after both serving runs, so it perturbs neither their
     # times (its profiler trace included) nor the path's launch counts
     timing_ctx = path_context(db, tasks=tasks, backend="cuda")
-    f32 = moe or tick_launches is not None
-    params32 = _tree_map(lambda t: t.float(), params) if f32 else None
+    # a bf16 run's tick is also held in f32 on the parameters cast to f32
+    tick32 = not f32 and (moe or tick_launches is not None)
+    params32 = _tree_map(lambda t: t.float(), params) if tick32 else None
     check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key,
                              runs if moe else None, params32)
     del params32
@@ -2721,9 +2819,16 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     ttft = [r.ttft_s for r in reqs]
     plain_ttft = [r.ttft_s for r in plain_reqs]
     agree = total = 0
-    for r, pr in zip(reqs, plain_reqs):
+    differ = []
+    for i, (r, pr) in enumerate(zip(reqs, plain_reqs)):
         for a, b in zip(r.generated, pr.generated):
             agree, total = agree + (a == b), total + 1
+        first = next((j for j, (a, b) in enumerate(zip(r.generated, pr.generated))
+                      if a != b), None)
+        if f32 and first is not None:
+            differ.append(dict(request=i, step=first, top2_gap=plain_gaps[i][first]))
+    d, d_steps = logit_spread((plain_reqs, plain_rows), (reqs, rows)) if f32 else (None, 0)
+    del rows, plain_rows
     s = sched.stats
     res = dict(
         requests=len(reqs), completed=done, tokens=tokens, wall_s=wall,
@@ -2739,7 +2844,8 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
         prefill_chunks=s["prefill_chunks"],
         attention_decode_tuned=stats["attention_decode_tuned"],
         greedy_agreement=agree / max(total, 1), stats=stats, tick_check=check,
-        launches=serve_counts, batch_matmul_tune_variants=k2_tune,
+        launches=serve_counts, batch_matmul_tune_variants=k2_tune, f32=f32,
+        first_differences=differ, logit_spread=d, logit_spread_steps=d_steps,
     )
     print(f"[{tag}] completed {done}/{len(reqs)} requests, {tokens} tokens in "
           f"{wall:.2f} s ({s['decode_steps']} decode ticks, {s['mixed_ticks']} "
@@ -2794,9 +2900,14 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
           f"of 3): dispatched {check['dispatched_ms']:.2f} ms, plain "
           f"{check['plain_ms']:.2f} ms (before rmsnorm was dispatched: dispatched "
           f"{NO_NORM_TICK_MS} ms)")
-    print(f"[{tag}] greedy tokens agreeing with the plain run: {agree}/{total} "
-          f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
-          f"f32 kernels)")
+    if f32:
+        print(f"[{tag}] greedy tokens equal to the plain run: {agree}/{total}; first "
+              f"differences {differ}; the runs' logits differ by d = {d:.4e} of max "
+              f"|logit| over {d_steps} steps")
+    else:
+        print(f"[{tag}] greedy tokens agreeing with the plain run: {agree}/{total} "
+              f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
+              f"f32 kernels)")
     print(f"[{tag}] kernel launches while serving: {serve_counts}")
     for label, rs in (("dispatched", reqs), ("plain", plain_reqs)):
         served = sum(r.done and len(r.generated) == new_tokens for r in rs)
@@ -2842,6 +2953,19 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
             fail(f"decode-only tick f32 logits rel err {check['f32_max_rel_err']}, "
                  f"{flips} routing flips")
     elif f32:
+        print(f"[{tag}] decode-only tick, served in f32: max_rel_err "
+              f"{check['max_rel_err']:.4e} (tol {TOL_F32_LOGITS_REL:g})")
+        if not check["finite"] or not check["max_rel_err"] <= TOL_F32_LOGITS_REL:
+            fail(f"decode-only tick f32 logits rel err {check['max_rel_err']} > "
+                 f"{TOL_F32_LOGITS_REL}")
+        if not d <= TOL_F32_LOGITS_REL:
+            fail(f"{cfg.name}: the dispatched f32 logits differ from plain by {d} of "
+                 f"max |logit|, over {TOL_F32_LOGITS_REL}")
+        ties = [t for t in differ if t["top2_gap"] > 2 * d]
+        if ties:
+            fail(f"{cfg.name}: streams differ where the plain top-2 gap exceeds 2d = "
+                 f"{2 * d:.3e}: {ties}")
+    elif tick32:
         print(f"[{tag}] decode-only tick in f32: max_rel_err {check['f32_max_rel_err']:.4e} "
               f"(tol {TOL_F32_LOGITS_REL:g}); bf16 max_rel_err {check['max_rel_err']:.4e} "
               "(reported, not gated)")
@@ -2864,7 +2988,8 @@ def _tree_map(fn, tree):
 
 
 def dispatch_reasons(by_key) -> Counter:
-    return Counter({r: n for row in by_key.values() for r, n in row["reasons"].items()})
+    """Every key's and site's dispatch reasons, summed."""
+    return sum((Counter(row["reasons"]) for row in by_key.values()), Counter())
 
 
 def slot_recording(sched, prompts, new_tokens: int, long_prompt: int):
@@ -3137,8 +3262,8 @@ def routing_flips(a: list, b: list) -> list:
 
 def phase_moe_forward(cfg, db, gen_seed: int = 0):
     """Phase 11: olmoe-1b-7b's 11 forward tasks tuned and their tiles
-    checked, then the full-width 16-layer bf16 forward under the tuned
-    context (K2 48 times, K3 16 times, all fma) against the same forward
+    checked, then the full-width bf16 forward at ``cfg.n_layers`` under the
+    tuned context (K2 three times a layer, K3 once, all fma) against the same forward
     with no context, traced; then the numerical check in f32: each MoE
     layer dispatched against plain on the same input, and the whole
     forward with each layer's routing flips counted."""
@@ -3336,23 +3461,38 @@ def step_wall_ms(fn, n: int = 3) -> float:
     return sorted(ts)[len(ts) // 2] * 1e3
 
 
-def phase_train(cfg, db, gen, gen_seed: int = 0):
-    """Phase 13: smollm-135m's train step at batch 8, seq 128.  Its 10
-    forward tasks tuned and their tiles checked; one
-    step under the tuned context against the same step with no context on
-    f32 parameters (loss, every gradient leaf, the updated parameters); the
-    dispatched step's launches and hits, the forward's sites twice (remat
-    recomputes every layer) and the final norm and unembed once; bf16
-    steps timed, one dispatched step traced; K1 and K3 timed at the step's
-    shapes; then the launcher's ``main`` at full width for 20 steps with a
-    checkpoint every 10, and again from its step-10 checkpoint."""
+def phase_train(cfg, gen, db=None, gen_seed: int = 0, tag: str = "train",
+                n_tasks: int = TRAIN_TASKS, plain_keys=(), want=None,
+                scan_leaves=(), launcher: bool = False):
+    """Phases 13 (smollm-135m), 14 (mamba2-370m) and 27 (hymba-1.5b): a
+    train step at batch 8, seq 128.  With ``db``, the reference's
+    ``n_tasks`` tasks tuned (but those of ``plain_keys``, and those beyond
+    the schedule caps) and their tiles checked.  One step of the entry
+    point, ``make_train_step``, on f32 parameters with the tuned kernels
+    (under the tuned context, and K7 for the SSD scan: forward the kernel,
+    backward the plain version's autograd) against the plain step (no
+    context, the plain scan): the loss and the updated parameters, then
+    every gradient leaf of the same step (``scan_leaves``, those that reach
+    the loss only through the scan, named and non-zero).  The step's
+    launches a kernel are ``want``'s (``flash_attention_tc``: K3's on
+    ``tc``); its hits by key are ``want["hits"]``, or without them every
+    extracted site's key twice (remat recomputes every layer) but the final
+    norm's and the unembed's, outside the checkpointed layers, once;
+    ``want["reasons"]`` holds a key's or site's reasons exactly.  Then
+    ``SSM_TRAIN_STEPS`` bf16 steps on one batch under the tuned context,
+    each timed, whose loss must fall;
+    with ``db`` the plain step timed beside them, one step of each traced,
+    and phase 6 at the step's shapes (at every task's with ``launcher``,
+    else at the keys the step hit); with ``launcher`` the launcher's
+    ``main`` at full width for ``LAUNCHER_STEPS`` steps with a checkpoint
+    every ``LAUNCHER_CKPT_EVERY``, and again from that checkpoint."""
     import shutil
 
     import torch
 
     import repro_torch
     from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.launch import train as launcher
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import build_model
     from repro_torch.search.database import workload_key
@@ -3360,18 +3500,27 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
     from repro_torch.training.optimizer import OptConfig, adamw_init, schedule, tree_leaves
     from repro_torch.training.train_loop import make_train_step, value_and_grad
 
-    def extract():
-        tasks = repro_torch.extract_tasks(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-        keys = {t.key for t in tasks}
-        sfm = f"sfm/m={TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ}/n={TRAIN_SEQ}"
-        if len(tasks) != TRAIN_TASKS or sfm not in keys:
-            fail(f"training extraction gave {sorted(keys)}; want the reference's "
-                 f"{TRAIN_TASKS} tasks with {sfm}")
-        return tasks
+    want = dict(want or {})
+    L = cfg.n_layers
+    tasks, best, runs = [], {}, {}
+    tune_counts = dict.fromkeys(KERNELS, 0)
+    ctx = timing_ctx = None
+    if db is not None:
+        def extract():
+            tasks = repro_torch.extract_tasks(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+            keys = {t.key for t in tasks}
+            sfm = f"sfm/m={TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ}/n={TRAIN_SEQ}"
+            if len(tasks) != n_tasks or sfm not in keys:
+                fail(f"{cfg.name} training extraction gave {sorted(keys)}; want the "
+                     f"reference's {n_tasks} tasks with {sfm}")
+            return tasks
 
-    tasks, best = phase_tune(cfg, db, extract=extract, tag="train-tune")
-    tune_counts = read_counts()
-    runs = check_tiles(tasks, db)
+        tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
+                                 plain_keys=plain_keys)
+        tune_counts = read_counts()
+        runs = check_tiles(tasks, db)
+        ctx = path_context(db, tasks=tasks, backend="cuda")
+        timing_ctx = path_context(db, tasks=tasks, backend="cuda")
     model = build_model(cfg)
     opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=LAUNCHER_STEPS)
     lr1 = float(schedule(opt, 1))  # the first step's learning rate
@@ -3379,58 +3528,163 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
     params32 = _tree_map(lambda t: t.float(), params)
     pipe = SyntheticTokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=gen_seed)
     batch = _device_batch(pipe.batch_at(0))
-    ctx = path_context(db, tasks=tasks, backend="cuda")
 
-    # one dispatched step on f32 parameters, counted
+    def loss_on(backend):
+        return lambda p, b: T.loss_fn(cfg, p, b, ssd_backend=backend)
+
+    # one step of the entry point on f32 parameters: make_train_step under
+    # the tuned context (the scan on K7, model.loss's default) against the
+    # plain step (no context, the plain scan); the path's launches, hits
+    # and reasons are this step's
     step_d = make_train_step(model, opt, dispatch=ctx)
-    step_p = make_train_step(model, opt)
-    counts0, hits0 = read_counts(), dict(ctx.hits_by_key)
-    k1v0, k3v0 = read_variants(), read_variants("flash_attention")
-    new_d, _, m_d = step_d(params32, adamw_init(params32), batch)
+    step_p = make_train_step(SimpleNamespace(loss=loss_on("torch")), opt)
+    counts0 = read_counts()
+    variants0 = {k: read_variants(k) for k in VARIANT_KERNELS}
+    new_k, _, m_k = step_d(params32, adamw_init(params32), batch)
     torch.cuda.synchronize()
     step_counts = {k: n - counts0[k] for k, n in read_counts().items()}
-    k1v, k3v = variants_since(k1v0), variants_since(k3v0, "flash_attention")
-    step_hits = {k: n - hits0.get(k, 0) for k, n in ctx.hits_by_key.items()}
-    new_p, _, m_p = step_p(params32, adamw_init(params32), batch)
-    loss_d, loss_p = float(m_d["loss"]), float(m_p["loss"])
-    loss_rel = abs(loss_d - loss_p) / abs(loss_p)
-    worst, far, total = update_errors(new_d, new_p)
-    del new_d, new_p
-    # the same step's gradients, leaf by leaf
-    with ctx:
-        _, g_d = value_and_grad(model.loss, params32, batch)
-    _, g_p = value_and_grad(model.loss, params32, batch)
-    errs = grad_errors(g_d, g_p)
-    del g_d, g_p, params32
+    variants = {k: variants_since(variants0[k], k) for k in VARIANT_KERNELS}
+    by_key = ctx.stats_by_key() if ctx is not None else {}
+    step_hits = dict(ctx.hits_by_key) if ctx is not None else {}
+    new_t, _, m_t = step_p(params32, adamw_init(params32), batch)
+    loss_k, loss_t = float(m_k["loss"]), float(m_t["loss"])
+    loss_rel = abs(loss_k - loss_t) / abs(loss_t)
+    worst, far, total = update_errors(new_k, new_t)
+    del new_k, new_t
+    # the same step's gradients, leaf by leaf (after the counts are read)
+    with ctx if ctx is not None else nullcontext():
+        _, g_k = value_and_grad(loss_on("cuda"), params32, batch)
+    _, g_t = value_and_grad(loss_on("torch"), params32, batch)
+    errs = grad_errors(g_k, g_t)
+    scan = {name: (errs[f"layers/ssd/{name}"], float(g_k["layers"]["ssd"][name].abs().max()))
+            for name in scan_leaves}
+    del g_k, g_t, params32
     torch.cuda.empty_cache()
+    if db is not None and "hits" not in want:
+        # every site dispatched: the forward's sites twice (the forward,
+        # remat's recompute), the final norm and the unembed once
+        dense = {t.key: int(t.weight) for t in tasks if t.key.startswith("dense/")}
+        norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
+                                tokens=TRAIN_BATCH * TRAIN_SEQ)
+        unembed_key = workload_key("dense", k=cfg.d_model, m=TRAIN_BATCH * TRAIN_SEQ,
+                                   n=cfg.vocab)
+        attn_key = next(t.key for t in tasks if t.key.startswith("attention/"))
+        want["hits"] = {k: 2 * w - (k == unembed_key) for k, w in dense.items()}
+        want["hits"][norm_key] = 2 * (2 * L) + 1
+        want["hits"][attn_key] = 2 * L
+        want.setdefault("matmul", sum(want["hits"][k] for k in dense))
 
-    # bf16 steps, timed; one dispatched step traced
-    opt_state = adamw_init(params)
-    timing_ctx = path_context(db, tasks=tasks, backend="cuda")
-    step_t = make_train_step(model, opt, dispatch=timing_ctx)
-    step_t(params, opt_state, batch)  # warm both paths
-    step_p(params, opt_state, batch)
-    dispatched_ms = step_wall_ms(lambda: step_t(params, opt_state, batch))
-    plain_ms = step_wall_ms(lambda: step_p(params, opt_state, batch))
-    profiles = dict(dispatched=profile_device(lambda: step_t(params, opt_state, batch)),
-                    plain=profile_device(lambda: step_p(params, opt_state, batch)))
-    del opt_state
-    rows = phase_timings(tasks, runs, gen, cfg.vocab)
+    # bf16 steps on one batch under the tuned context, each timed
+    opt_b = OptConfig(lr=1e-3, warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
+    step_t = make_train_step(model, opt_b, dispatch=timing_ctx)
+    state, losses, walls = (params, adamw_init(params)), [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step_t(*state, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        state = (p, o)
+    del state, p, o
+    warm = sorted(walls[1:])
+    dispatched_ms, plain_ms, profiles, rows = warm[len(warm) // 2], None, {}, {}
+    if db is not None:
+        # the plain step timed beside them, one step of each traced
+        opt_state = adamw_init(params)
+        step_p = make_train_step(model, opt_b)
+        step_p(params, opt_state, batch)  # warm the plain path
+        plain_ms = step_wall_ms(lambda: step_p(params, opt_state, batch))
+        profiles = dict(dispatched=profile_device(lambda: step_t(params, opt_state, batch)),
+                        plain=profile_device(lambda: step_p(params, opt_state, batch)))
+        del opt_state
+        # phase 6 at the step's shapes (for time, only at the keys the step
+        # hit but on the smollm path)
+        rows = phase_timings(tasks if launcher else [t for t in tasks if step_hits.get(t.key)],
+                             runs, gen, cfg.vocab)
 
-    # the launcher at full width, then resumed from its step-10 checkpoint
+    res = dict(loss_dispatched=loss_k, loss_plain=loss_t, loss_rel=loss_rel,
+               grad_rel_err=errs, scan_leaves=scan, update_max_abs=worst,
+               update_far=far, update_elements=total, lr=lr1, launches=step_counts,
+               matmul_variants=variants["matmul"],
+               batch_matmul_variants=variants["batch_matmul"],
+               flash_attention_variants=variants["flash_attention"], hits=step_hits,
+               reasons={k: row["reasons"] for k, row in by_key.items()},
+               bf16_losses=losses, bf16_step_wall_ms=walls, dispatched_ms=dispatched_ms,
+               plain_ms=plain_ms, profiles=profiles, tasks=len(tasks), layers=L)
+    print(f"[{tag}] one step at batch {TRAIN_BATCH} seq {TRAIN_SEQ}, {L} layers, f32 "
+          f"parameters: loss tuned {loss_k:.6f} plain {loss_t:.6f} rel {loss_rel:.3e} (tol "
+          f"{TOL_TRAIN_LOSS_REL:g})")
+    print(f"[{tag}] gradient max err by leaf over the leaf's max |g| (tol "
+          f"{TOL_TRAIN_GRAD:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if scan:
+        print(f"[{tag}] the leaves that reach the loss only through the scan: "
+              + ", ".join(f"{k} err {e:.2e} max |g| {g:.3e}" for k, (e, g) in scan.items()))
+    print(f"[{tag}] updated parameters: max |tuned - plain| {worst:.3e} (tol 2·lr = "
+          f"{2 * lr1:.1e}); {far} of {total} elements differ by more than 1e-6")
+    print(f"[{tag}] launches in one tuned step: {step_counts}; by variant K1 "
+          f"{variants['matmul']}, K2 {variants['batch_matmul']}, K3 "
+          f"{variants['flash_attention']}")
+    for key, row in sorted(by_key.items()):
+        print(f"[{tag}]   {key}: hits {row['hits']} misses {row['misses']} fallbacks "
+              f"{row['fallbacks']} reasons {row['reasons']} (want "
+              f"{want.get('hits', {}).get(key, 0)} hits)")
+    print(f"[{tag}] {SSM_TRAIN_STEPS} bf16 steps on one batch: losses "
+          f"{[round(x, 4) for x in losses]}; wall ms {[round(w, 2) for w in walls]}"
+          + (f"; plain step wall ms {plain_ms:.2f} (median of 3)" if plain_ms else ""))
+    for label, prof in profiles.items():
+        if not prof:
+            print(f"[{tag}] {label}: the profiler saw no device event (not measured)")
+            continue
+        print(f"[{tag}] profile of one {label} bf16 step: {prof['events']} device events, "
+              f"busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms span, idle "
+              f"share {prof['idle_share']:.3f}; K1 {prof['matmul_ms']:.3f} ms, K3 "
+              f"{prof['flash_attention_ms']:.3f} ms, K7 {prof['ssd_ms']:.3f} ms, copies "
+              f"{prof['copy_ms']:.3f} ms traced")
+        for name, ms in prof["top_ms"].items():
+            print(f"[{tag}]   {ms:8.3f} ms  {name}")
+
+    bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN_GRAD}
+    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad:
+        fail(f"{cfg.name} tuned step: loss rel {loss_rel}, gradient leaves out of "
+             f"tolerance {bad}")
+    if not all(g > 0 for _, g in scan.values()):
+        fail(f"{cfg.name}: a scan leaf has no gradient: {scan}")
+    if not worst <= 2 * lr1:
+        fail(f"{cfg.name} tuned step: parameters {worst} from plain > 2·lr")
+    for k in KERNELS:
+        if k in want and step_counts[k] != want[k]:
+            fail(f"{cfg.name} tuned step launched {k} {step_counts[k]} times, want {want[k]}")
+    if "flash_attention_tc" in want and \
+            variants["flash_attention"]["tc"] != want["flash_attention_tc"]:
+        fail(f"{cfg.name} tuned step: K3 by variant {variants['flash_attention']}, want "
+             f"{want['flash_attention_tc']} tc")
+    if db is not None and step_hits != want["hits"]:
+        fail(f"{cfg.name} tuned step hits {step_hits}, want {want['hits']}")
+    for key, rs in want.get("reasons", {}).items():
+        if by_key.get(key, {}).get("reasons") != rs:
+            fail(f"{cfg.name} tuned step: {key} reasons {by_key.get(key, {}).get('reasons')}, "
+                 f"want {rs}")
+    if dispatch_reasons(by_key).get("lowering_failed"):
+        fail(f"{cfg.name} tuned step: lowering_failed misses {dispatch_reasons(by_key)}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{cfg.name} bf16 losses do not fall: {losses}")
+    if not launcher:
+        return tasks, best, res, tune_counts, step_counts, rows
+
+    # the launcher at full width, then resumed from its middle checkpoint
     ck_dir = ROOT / "build" / f"train_ckpt_{os.getpid()}"
     shutil.rmtree(ck_dir, ignore_errors=True)
     args = ["--steps", str(LAUNCHER_STEPS), "--ckpt-every", str(LAUNCHER_CKPT_EVERY),
             "--ckpt-dir", str(ck_dir), "--log-every", "5"]
     try:
         t0 = time.perf_counter()
-        full = launcher.main(args)
+        full = train_launcher.main(args)
         full_s = time.perf_counter() - t0
         saved = sorted(os.listdir(ck_dir))
-        # a run cut after step 10: the step-20 checkpoint was never written
+        # a run cut after its middle checkpoint: the last was never written
         shutil.rmtree(ck_dir / f"step_{LAUNCHER_STEPS}")
         (ck_dir / "LATEST").write_text(str(LAUNCHER_CKPT_EVERY))
-        resumed = launcher.main(args)
+        resumed = train_launcher.main(args)
         # the save/restore round trip of the resumed run's last state
         _, state, _ = ckpt.restore(str(ck_dir), step=LAUNCHER_STEPS, device="cuda")
         ckpt.save(str(ck_dir), LAUNCHER_STEPS + 1, state)
@@ -3444,62 +3698,16 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
     batches_same = all(pipe.batch_at(k)["tokens"].tobytes()
-                       == next(pipe.iter_from(k))["tokens"].tobytes() for k in (10, 15))
+                       == next(pipe.iter_from(k))["tokens"].tobytes()
+                       for k in range(LAUNCHER_CKPT_EVERY, LAUNCHER_STEPS))
     resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[LAUNCHER_CKPT_EVERY:]))
     head, tail = full[:5], full[-5:]
-
-    dense = {t.key: int(t.weight) for t in tasks if t.key.startswith("dense/")}
-    norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
-                            tokens=TRAIN_BATCH * TRAIN_SEQ)
-    unembed_key = workload_key("dense", k=cfg.d_model, m=TRAIN_BATCH * TRAIN_SEQ, n=cfg.vocab)
-    attn_key = next(t.key for t in tasks if t.key.startswith("attention/"))
-    # the forward's sites twice (the forward, remat's recompute), the final
-    # norm and the unembed, outside the checkpointed layers, once
-    want_hits = {k: 2 * w - (k == unembed_key) for k, w in dense.items()}
-    want_hits[norm_key] = 2 * (2 * cfg.n_layers) + 1
-    want_hits[attn_key] = 2 * cfg.n_layers
-    n_k1 = sum(want_hits[k] for k in dense)
-    print(f"[train] one step at batch {TRAIN_BATCH} seq {TRAIN_SEQ}, f32 parameters: "
-          f"loss dispatched {loss_d:.6f} plain {loss_p:.6f} rel {loss_rel:.3e} (tol "
-          f"{TOL_TRAIN_LOSS_REL:g})")
-    print(f"[train] gradient max err by leaf over the leaf's max |g| (tol "
-          f"{TOL_TRAIN_GRAD:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-    print(f"[train] updated parameters: max |dispatched - plain| {worst:.3e} (tol 2·lr = "
-          f"{2 * lr1:.1e}); {far} of {total} elements differ by more than 1e-6")
-    print(f"[train] launches in one dispatched step: {step_counts}; K1 by variant {k1v}, "
-          f"K3 by variant {k3v}")
-    for key, n in sorted(step_hits.items()):
-        print(f"[train]   {key}: {n} hits in one step (want {want_hits.get(key)})")
-    print(f"[train] bf16 step wall ms (median of 3): dispatched {dispatched_ms:.2f}, "
-          f"plain {plain_ms:.2f}")
-    for label, prof in profiles.items():
-        if not prof:
-            print(f"[train] {label}: the profiler saw no device event (not measured)")
-            continue
-        print(f"[train] profile of one {label} bf16 step: {prof['events']} device events, "
-              f"busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms span, idle "
-              f"share {prof['idle_share']:.3f}; K1 {prof['matmul_ms']:.3f} ms, K3 "
-              f"{prof['flash_attention_ms']:.3f} ms traced")
-        for name, ms in prof["top_ms"].items():
-            print(f"[train]   {ms:8.3f} ms  {name}")
-    print(f"[train] launcher: {LAUNCHER_STEPS} steps in {full_s:.1f} s, checkpoints "
+    print(f"[{tag}] launcher: {LAUNCHER_STEPS} steps in {full_s:.1f} s, checkpoints "
           f"{saved}; losses {[round(x, 4) for x in full]}")
-    print(f"[train] resumed from step {LAUNCHER_CKPT_EVERY}: losses "
+    print(f"[{tag}] resumed from step {LAUNCHER_CKPT_EVERY}: losses "
           f"{[round(x, 4) for x in resumed]}; max rel diff to the uninterrupted run "
           f"{resume_rel:.3e} (tol {TOL_RESUME_REL:g}); save/restore of {n_leaves} leaves "
           f"bitwise {round_trip}; resumed batches bitwise {batches_same}")
-    bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN_GRAD}
-    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad:
-        fail(f"{cfg.name} dispatched step: loss rel {loss_rel}, gradient leaves out of "
-             f"tolerance {bad}")
-    if not worst <= 2 * lr1:
-        fail(f"{cfg.name} dispatched step: parameters {worst} from plain > 2·lr")
-    if step_counts["matmul"] != n_k1 or step_counts["flash_attention"] != 2 * cfg.n_layers \
-            or k3v.get("tc") != 2 * cfg.n_layers:
-        fail(f"{cfg.name} dispatched step launched K1 {step_counts['matmul']} times (want "
-             f"{n_k1}) and K3 {k3v} (want {2 * cfg.n_layers} tc)")
-    if step_hits != want_hits:
-        fail(f"{cfg.name} dispatched step hits {step_hits}, want {want_hits}")
     if not all(math.isfinite(x) for x in full) or not sum(tail) < sum(head):
         fail(f"{cfg.name} launcher losses do not fall: {full}")
     if len(resumed) != LAUNCHER_STEPS - LAUNCHER_CKPT_EVERY or not resume_rel <= TOL_RESUME_REL:
@@ -3507,96 +3715,9 @@ def phase_train(cfg, db, gen, gen_seed: int = 0):
     if not (round_trip and batches_same):
         fail(f"{cfg.name}: checkpoint round trip bitwise {round_trip}, resumed batches "
              f"bitwise {batches_same}")
-    res = dict(loss_dispatched=loss_d, loss_plain=loss_p, loss_rel=loss_rel,
-               grad_rel_err=errs, update_max_abs=worst, update_far=far,
-               update_elements=total, lr=lr1, launches=step_counts,
-               matmul_variants=k1v, flash_attention_variants=k3v, hits=step_hits,
-               dispatched_ms=dispatched_ms, plain_ms=plain_ms, profiles=profiles,
-               launcher_losses=full, resumed_losses=resumed, resume_max_rel=resume_rel,
-               launcher_s=full_s, checkpoint_round_trip=round_trip, tasks=len(tasks))
+    res.update(launcher_losses=full, resumed_losses=resumed, resume_max_rel=resume_rel,
+               launcher_s=full_s, checkpoint_round_trip=round_trip)
     return tasks, best, res, tune_counts, step_counts, rows
-
-
-def phase_ssm_train(cfg, gen_seed: int = 0):
-    """Phase 14: mamba2-370m's train step at batch 8, seq 128.  One step's
-    loss and gradients with the scan on K7 (forward the kernel, backward the
-    plain scan's autograd) against the plain scan, on f32 parameters; the
-    six leaves that reach the loss only through the scan named; K7's
-    launches in one step, the forward's twice (remat); then a few bf16
-    steps on one batch, whose loss must fall."""
-    import torch
-
-    from repro_torch.data.pipeline import SyntheticTokenPipeline
-    from repro_torch.models import transformer as T
-    from repro_torch.models.registry import build_model
-    from repro_torch.training.optimizer import OptConfig, adamw_init, adamw_update, schedule
-    from repro_torch.training.train_loop import make_train_step, value_and_grad
-
-    model = build_model(cfg)
-    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
-    lr1 = float(schedule(opt, 1))
-    params = T.init_params(cfg, seed=gen_seed, device="cuda")
-    params32 = _tree_map(lambda t: t.float(), params)
-    batch = _device_batch(SyntheticTokenPipeline(cfg, TRAIN_SEQ, TRAIN_BATCH,
-                                                 seed=gen_seed).batch_at(0))
-
-    def loss_on(backend):
-        return lambda p, b: T.loss_fn(cfg, p, b, ssd_backend=backend)
-
-    n0 = read_counts()["ssd"]
-    loss_k, g_k = value_and_grad(loss_on("cuda"), params32, batch)
-    torch.cuda.synchronize()
-    k7 = read_counts()["ssd"] - n0
-    loss_t, g_t = value_and_grad(loss_on("torch"), params32, batch)
-    loss_rel = abs(float(loss_k) - float(loss_t)) / abs(float(loss_t))
-    errs = grad_errors(g_k, g_t)
-    scan = {name: (errs[f"layers/ssd/{name}"], float(g_k["layers"]["ssd"][name].abs().max()))
-            for name in SSD_SCAN_LEAVES}
-    upd_k, _ = adamw_update(opt, g_k, adamw_init(params32), params32)
-    upd_t, _ = adamw_update(opt, g_t, adamw_init(params32), params32)
-    worst, far, total = update_errors(upd_k, upd_t)
-    del g_k, g_t, upd_k, upd_t, params32
-    torch.cuda.empty_cache()
-
-    # bf16 steps on one batch (K7 with its repaired gradient)
-    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=1,
-                                            total_steps=SSM_TRAIN_STEPS))
-    state, losses, walls = (params, adamw_init(params)), [], []
-    for _ in range(SSM_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p, o, m = step(*state, batch)
-        losses.append(float(m["loss"]))
-        walls.append((time.perf_counter() - t0) * 1e3)
-        state = (p, o)
-    del state, p, o
-    print(f"[ssm-train] one step at batch {TRAIN_BATCH} seq {TRAIN_SEQ}, f32 parameters: "
-          f"loss K7 {float(loss_k):.6f} plain scan {float(loss_t):.6f} rel "
-          f"{loss_rel:.3e} (tol {TOL_TRAIN_LOSS_REL:g}); K7 launched {k7} times")
-    print(f"[ssm-train] gradient max err by leaf over the leaf's max |g| (tol "
-          f"{TOL_TRAIN_GRAD:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-    print("[ssm-train] the leaves that reach the loss only through the scan: "
-          + ", ".join(f"{k} err {e:.2e} max |g| {g:.3e}" for k, (e, g) in scan.items()))
-    print(f"[ssm-train] updated parameters: max |K7 - plain| {worst:.3e} (tol 2·lr = "
-          f"{2 * lr1:.1e}); {far} of {total} elements differ by more than 1e-6")
-    print(f"[ssm-train] {SSM_TRAIN_STEPS} bf16 steps on one batch: losses "
-          f"{[round(x, 4) for x in losses]}; wall ms {[round(w, 2) for w in walls]}")
-    bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN_GRAD}
-    if not loss_rel <= TOL_TRAIN_LOSS_REL or bad:
-        fail(f"{cfg.name} K7 step: loss rel {loss_rel}, gradient leaves out of "
-             f"tolerance {bad}")
-    if not all(g > 0 for _, g in scan.values()):
-        fail(f"{cfg.name}: a scan leaf has no gradient: {scan}")
-    if not worst <= 2 * lr1:
-        fail(f"{cfg.name} K7 step: parameters {worst} from plain > 2·lr")
-    if k7 != 2 * cfg.n_layers:
-        fail(f"{cfg.name} step launched K7 {k7} times, want {2 * cfg.n_layers}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"{cfg.name} bf16 losses do not fall: {losses}")
-    return dict(loss_k7=float(loss_k), loss_plain=float(loss_t), loss_rel=loss_rel,
-                grad_rel_err=errs, scan_leaves=scan, update_max_abs=worst,
-                update_far=far, update_elements=total, lr=lr1, k7_launches=k7,
-                bf16_losses=losses, bf16_step_wall_ms=walls)
 
 
 # ---------------------------------------------------------------------------
@@ -3627,7 +3748,7 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
                         seq: int = SEQ, plain_keys=(), runner_spec="cached+local",
                         tol: float = TOL_F32_LOGITS_REL):
     """Phase 9 (mamba2-370m), 15 (qwen2-vl-2b), 16 (whisper-medium), 20
-    (gemma2-2b) or 23 (hymba-1.5b), the forward: the reference's
+    (gemma2-2b), 23 (hymba-1.5b) or 25 (stablelm-3b), the forward: the reference's
     ``n_tasks`` tasks (batch 1, ``seq`` tokens or embeddings; whisper's 1500
     frames) tuned and their tiles checked; the full-width bf16 forward under
     the tuned context against the plain forward (the SSD scan's plain
@@ -3847,6 +3968,107 @@ def phase_hymba(cfg, gen, gen_seed: int = 0):
         gen, "hymba-1.5b long prefill", (1, HYMBA_LONG_PROMPT, cfg.ssm_heads, P, N),
         f32=True, state=True)
     return fwd, serve, rows
+
+
+def phase_stablelm(cfg, gen, gen_seed: int = 0):
+    """Phases 25-26, stablelm-3b at full width and ``cfg.n_layers`` (32
+    heads of 80 over 32 kv heads; no window): the forward (phase 25: the
+    reference's 9 tasks tuned but the norm and the unembed, left plain; K3
+    once a layer, all fma at D 80, its attention key hit once a layer; K1
+    seven a layer; the dispatch reasons those of a periodic dense model,
+    the plain keys' ``unknown_key`` misses alone; f32
+    within ``TOL_F32_LOGITS_REL``) and paged serving in f32 (phase 26: 8
+    requests of 16 new tokens, the streams held by phase 18's rule, the
+    decode-only tick's K1 seven a layer and the m4 unembed, all splitk, and
+    K5 once a layer at D 80, G 1); then phase 6 at the keys the two paths
+    served.  Returns (forward result, serving result, timing rows)."""
+    import torch
+
+    from repro_torch.models.transformer import layer_windows, window_period
+    from repro_torch.search.database import Database
+
+    L = cfg.n_layers
+    if window_period(layer_windows(cfg)) is None:
+        fail(f"{cfg.name} at {L} layers has no window period")
+    attn_key = (f"attention/b={BATCH}/causal=1/d={cfg.head_dim}/h={cfg.n_heads}/"
+                f"kvh={cfg.n_kv_heads}/s={SEQ}/softcap=0.0/window=0")
+    db = Database()
+    reset_counts()  # the stablelm forward path starts here
+    tasks, best, fwd, tune_counts, _, runs = phase_model_forward(
+        cfg, db, "stablelm-forward", STABLELM_FORWARD_TASKS, dict(
+            # q, k, v, o and the MLP's three of every layer; K3 at every
+            # layer's attention, on fma; the norm and the unembed plain
+            matmul=7 * L, batch_matmul=0, flash_attention=L, flash_attention_fma=L,
+            rmsnorm=0, attention={attn_key: L}, attention_fused=0),
+        plain_keys=plain_norm(cfg, BATCH * SEQ) + (STABLELM_UNEMBED,))
+    # the keys left plain are missed at each site (unknown_key: no task),
+    # the norm's 2·L + 1 and the unembed's; nothing falls back
+    want_reasons = {"unknown_key": 2 * L + 2}
+    print(f"[stablelm-forward] the unembed {STABLELM_UNEMBED} left plain; dispatch "
+          f"reasons {fwd['reasons']} (want {want_reasons})")
+    if fwd["reasons"] != want_reasons:
+        fail(f"{cfg.name} forward: dispatch reasons {fwd['reasons']}, want {want_reasons}")
+    fwd.update(tune_launches=tune_counts, best=best)
+    clock_s = time.perf_counter()
+    serve_db = Database()
+    torch.cuda.empty_cache()
+    reset_counts()  # the stablelm serving path starts here
+    serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_serve(
+        cfg, serve_db, tag="stablelm-serve", new_tokens=STABLELM_NEW_TOKENS, f32=True,
+        plain_keys=plain_norm(cfg, SERVE_SLOTS * SERVE_CHUNK),
+        # q, k, v, o and the MLP's three of every layer, and the decode
+        # unembed; K5 at every layer
+        tick_launches=dict(matmul=7 * L + 1, decode_flash_attention=L))
+    serve.update(tune_launches=serve_tune_counts, best=serve_best,
+                 seconds=time.perf_counter() - clock_s)
+    torch.cuda.empty_cache()
+    # phase 6 at the keys the two paths served (K1 at d 2560, m256, the
+    # m128 chunk and m4; K3 fma and K5 at D 80)
+    hits = path_hits()
+    rows = phase_timings([t for t in tasks if hits[t.key]], runs, gen, cfg.vocab)
+    rows.update(phase_timings([t for t in serve_tasks if hits[t.key]], serve_runs,
+                              gen, cfg.vocab))
+    return fwd, serve, rows
+
+
+def phase_hymba_train(cfg, gen):
+    """Phase 27, hymba-1.5b's train step at ``cfg.n_layers`` (over 4: no
+    window period) through ``phase_train``: the reference's tasks tuned but
+    the norm (the unembed has no schedule); one f32 step under the tuned
+    context against the plain step: K1 seven a layer and K2 at both chunked
+    contractions, each in the forward and in remat's recompute, K7 in both,
+    K3 never, ``traced_window`` at every layer's attention in both; then
+    bf16 steps whose loss must fall.  Returns (result, the tuning's
+    launches, the f32 step's, timing rows)."""
+    from repro_torch.models.transformer import layer_windows, window_period
+    from repro_torch.search.database import Database, workload_key
+
+    L, m = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+    if window_period(layer_windows(cfg)) is not None:
+        fail(f"{cfg.name} at {L} layers has a window period: the reference would "
+             "serve its attention through K3")
+    G, KVH, hd = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, cfg.head_dim
+    d, f = cfg.d_model, cfg.d_ff
+    # every site twice, the forward's and remat's recompute: a layer's q and
+    # o, k and v, the MLP's wi and wg, then its wo (K1), and the chunked
+    # attention's two contractions (K2)
+    hits = {workload_key("dense", k=d, m=m, n=d): 4 * L,
+            workload_key("dense", k=d, m=m, n=KVH * hd): 4 * L,
+            workload_key("dense", k=d, m=m, n=f): 4 * L,
+            workload_key("dense", k=f, m=m, n=d): 2 * L,
+            **{workload_key("batch_matmul", b=TRAIN_BATCH * KVH, m=G * TRAIN_SEQ,
+                            n=n, k=k): 2 * L
+               for n, k in ((TRAIN_SEQ, hd), (hd, TRAIN_SEQ))}}
+    print(f"[hymba-train] {L} layers, windows {[int(w) for w in layer_windows(cfg)]} (no "
+          "period: the reference traces them)")
+    _, best, res, tune_counts, step_counts, rows = phase_train(
+        cfg, gen, Database(), tag="hymba-train", n_tasks=HYMBA_TRAIN_TASKS,
+        plain_keys=plain_norm(cfg, m), scan_leaves=SSD_SCAN_LEAVES,
+        want=dict(matmul=2 * 7 * L, batch_matmul=2 * 2 * L, ssd=2 * L,
+                  flash_attention=0, hits=hits,
+                  reasons={"site:attention": {"traced_window": 2 * L}}))
+    res.update(tune_launches=tune_counts, best=best)
+    return res, tune_counts, step_counts, rows
 
 
 def phase_whisper_decode(cfg, db, gen_seed: int = 0):
@@ -4265,11 +4487,12 @@ def phase_fleet(cfg, local_db, local_tune_s: float, gen_seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_recording(sched, prompts, new_tokens: int):
-    """Serve ``prompts`` on ``sched`` to the end, recording for every token
-    generated the logits row it was taken from (kept on the device) and that
-    row's top-2 gap over its max |logit|.  Returns (requests, gaps and rows:
-    a list per request, wall s)."""
+def serve_recording(sched, prompts, new_tokens: int, on_tick=None, record: bool = True):
+    """Serve ``prompts`` on ``sched`` to the end, ``on_tick(sched)`` before
+    every tick, recording (with ``record``) for every token generated the
+    logits row it was taken from (kept on the device) and that row's top-2
+    gap over its max |logit|.  Returns (requests, gaps and rows: a list per
+    request, wall s)."""
     serve_step = sched.model.serve_step
     tick = {}
 
@@ -4283,22 +4506,26 @@ def serve_recording(sched, prompts, new_tokens: int):
         tick["slots"] = {r.rid: s for s, r in {**sched.prefilling, **sched.active}.items()}
         return logits, cache
 
-    sched.model.serve_step = recording
+    if record:
+        sched.model.serve_step = recording
     reqs = [sched.submit(p, max_new_tokens=new_tokens) for p in prompts]
     gaps = [[] for _ in reqs]
     rows = [[] for _ in reqs]
     t0 = time.perf_counter()
     try:
         while sched.pending():
+            if on_tick is not None:
+                on_tick(sched)
             before = [len(r.generated) for r in reqs]
             sched.step()
             for i, (r, n) in enumerate(zip(reqs, before)):
-                if len(r.generated) > n:
+                if record and len(r.generated) > n:
                     lane = tick["slots"][r.rid]
                     gaps[i].append(tick["gaps"][lane])
                     rows[i].append(tick["rows"][lane].clone())
     finally:
-        del sched.model.serve_step
+        if record:
+            del sched.model.serve_step
     return reqs, gaps, rows, time.perf_counter() - t0
 
 
@@ -4969,9 +5196,9 @@ FLEX_TIMES = {}
 
 
 def start_flex():
-    """``flex_process`` in its own process, started beside phase 8 so that
-    its compiles (over a minute for the four calls) overlap phase 8's
-    work; stopped at exit if still running."""
+    """``flex_process`` in its own process, started before phase 7 so that
+    its compiles (over a minute for the four calls) overlap phases 7 and
+    8; stopped at exit if still running."""
     import atexit
 
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--flex"],
@@ -5042,7 +5269,11 @@ def phase_operators() -> dict:
     from repro_torch.search.evolutionary import SearchConfig
 
     runs = [(n, REDUCED_KWARGS[n]) for n in PAPER_OPERATORS] + [("sfm", dict(m=256, n=256))]
-    search = SearchConfig(max_trials=8, init_random=4, population=8,
+    # one round of 4 candidates, not two: a dep or cbr candidate whose one
+    # call ran 37-56 s took most of phase 8 in five of eight runs (1-6 s
+    # otherwise), and each operator's first round reached a finite best
+    # (on an H100; PERF.md §6)
+    search = SearchConfig(max_trials=4, init_random=4, population=8,
                           measure_per_round=4)
     rows = {}
     for name, kw in runs:
@@ -5139,6 +5370,10 @@ def main(argv=None) -> int:
     fwd, fwd_counts = phase_forward(cfg, tasks, db)
     clock("phase 5")
 
+    # the process that compiles the flex_attention calls beside phases 7
+    # and 8 (its compiles outlast phase 8 alone) and times them once the
+    # card is idle, collected before phase 6 times anything
+    flex_run = start_flex()
     serve_db = Database()
     reset_counts()  # the serving path starts here
     serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_serve(
@@ -5147,11 +5382,8 @@ def main(argv=None) -> int:
     clock("phase 7")
 
     # phase 22, the examples' twins, runs beside phase 8 (each in its own
-    # process), and is collected before phase 6 times anything; so is the
-    # process that compiles the flex_attention calls beside phase 8 and
-    # times them once the card is idle
+    # process), and is collected before phase 6 times anything
     examples_run = start_examples()
-    flex_run = start_flex()
     reset_counts()  # the operator path starts here
     operators = phase_operators()
     op_counts = read_counts()
@@ -5222,12 +5454,18 @@ def main(argv=None) -> int:
     train_cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     train_db = Database()
     reset_counts()  # the smollm training path starts here
-    _, train_best, train, train_tune_counts, train_counts, train_rows = \
-        phase_train(train_cfg, train_db, gen)
+    _, train_best, train, train_tune_counts, train_counts, train_rows = phase_train(
+        train_cfg, gen, train_db, launcher=True,
+        # K3 at every layer, on tc, and its recompute; K1 at every dense site
+        # twice but the unembed's (phase_train)
+        want=dict(flash_attention=2 * TRAIN_LAYERS, flash_attention_tc=2 * TRAIN_LAYERS))
     clock("phase 13")
     torch.cuda.empty_cache()
     reset_counts()  # the mamba2 training path starts here
-    ssm_train = phase_ssm_train(ssm_cfg)
+    _, _, ssm_train, _, ssm_train_step_counts, _ = phase_train(
+        ssm_cfg, gen, tag="ssm-train", scan_leaves=SSD_SCAN_LEAVES,
+        # the scan through K7 at every layer and its recompute
+        want=dict(ssd=2 * ssm_cfg.n_layers))
     ssm_train_counts = read_counts()
     clock("phase 14")
 
@@ -5354,6 +5592,19 @@ def main(argv=None) -> int:
     rows.update(hy_rows)
     clock("phases 23-24 and phase 6 (hymba)")
 
+    torch.cuda.empty_cache()
+    sl_cfg = dataclasses.replace(get_config(STABLELM_ARCH), n_layers=STABLELM_LAYERS)
+    sl, sl_serve, sl_rows = phase_stablelm(sl_cfg, gen)
+    rows.update(sl_rows)
+    clock("phases 25-26 and phase 6 (stablelm)")
+
+    torch.cuda.empty_cache()
+    hyt_cfg = dataclasses.replace(get_config(HYMBA_ARCH), n_layers=HYMBA_TRAIN_LAYERS)
+    reset_counts()  # the hymba training path starts here
+    hyt, hyt_tune_counts, hyt_counts, hyt_rows = phase_hymba_train(hyt_cfg, gen)
+    rows.update(hyt_rows)
+    clock("phase 27 and phase 6 (hymba's train step)")
+
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
         "serving": {k: serve_tune_counts[k] + serve["launches"][k] for k in KERNELS},
@@ -5386,6 +5637,11 @@ def main(argv=None) -> int:
         "hymba_forward": {k: hy["tune_launches"][k] + hy["launches"][k] for k in KERNELS},
         "hymba_serving": {k: hy_serve["tune_launches"][k] + hy_serve["launches"][k]
                           for k in KERNELS},
+        "stablelm_forward": {k: sl["tune_launches"][k] + sl["launches"][k] for k in KERNELS},
+        "stablelm_serving": {k: sl_serve["tune_launches"][k] + sl_serve["launches"][k]
+                             for k in KERNELS},
+        # tuning and the f32 step, as smollm's
+        "hymba_train": {k: hyt_tune_counts[k] + hyt_counts[k] for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -5426,7 +5682,7 @@ def main(argv=None) -> int:
             olmoe_forward_launches=moe_fwd_counts[k],
             olmoe_tick_launches=moe_serve["tick_check"]["launches"][k],
             smollm_train_step_launches=train_counts[k],
-            mamba2_train_step_launches=ssm_train["k7_launches"] if k == "ssd" else 0,
+            mamba2_train_step_launches=ssm_train["launches"][k],
             qwen2vl_forward_launches=vl_fwd_counts[k],
             qwen2vl_tick_launches=vl_serve["tick_check"]["launches"][k],
             whisper_forward_launches=wh_fwd_counts[k],
@@ -5439,6 +5695,9 @@ def main(argv=None) -> int:
             gemma2_tick_launches=gm_serve["tick_check"]["launches"][k],
             hymba_forward_launches=hy["launches"][k],
             hymba_tick_launches=hy_serve["tick_check"]["launches"][k],
+            stablelm_forward_launches=sl["launches"][k],
+            stablelm_tick_launches=sl_serve["tick_check"]["launches"][k],
+            hymba_train_step_launches=hyt["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -5473,6 +5732,7 @@ def main(argv=None) -> int:
                            gemma2_tune_best=gm_best, gemma2_serve=gm_serve,
                            gemma2_serve_tune_best=gm_serve_best, examples=examples,
                            hymba_forward=hy, hymba_serve=hy_serve,
+                           stablelm_forward=sl, stablelm_serve=sl_serve, hymba_train=hyt,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

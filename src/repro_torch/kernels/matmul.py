@@ -19,6 +19,10 @@ products share three kernels, each with a batch axis (K1 is batch 1), and
 * ``fma`` otherwise: grid (N/bn, M/bm, B), the threads of
   :func:`micro_tile` and ``4·(bm·bk + bk·bn)`` bytes of shared memory.
 
+The card caps a grid's y and z at 65,535 blocks.  A K2 launch therefore
+covers at most :func:`batches_per_launch` batches, and the wrapper runs a
+larger batch as consecutive launches over slices of it.
+
 The note at the top of the source says what bounds each variant on the
 card and what its design does about it.
 
@@ -141,12 +145,22 @@ def _reject_grid(grid) -> None:
         raise ScheduleRejected("grid", f"grid {grid} exceeds the card's limits")
 
 
+def batches_per_launch(var: str, batch: int, tiles_m: int) -> int:
+    """The batches of ``batch`` one launch of variant ``var`` covers,
+    ``tiles_m`` = M / bm: the batch axis is grid y with the M tiles
+    (``splitk``) or grid z (``tc``, ``fma``), each capped at 65,535."""
+    if var == "splitk":
+        return max(1, min(batch, _GRID_YZ_MAX // tiles_m))
+    return min(batch, _GRID_YZ_MAX)
+
+
 def launch_config(
     batch: int, M: int, N: int, K: int, blocks: Tuple[int, int, int]
 ) -> dict:
     """The :func:`variant`, grid, threads, dynamic shared memory, stages,
     splits, warp tile and micro tile of a K1 (``batch`` 1) or K2 launch
-    with ``blocks``; the same keys for every variant.
+    with ``blocks``; the same keys for every variant.  The grid is that of
+    one launch, over :func:`batches_per_launch` batches.
 
     Raises ``ScheduleRejected`` for a tile that does not divide the
     problem or that the chosen kernel cannot run (shared memory, threads,
@@ -158,6 +172,7 @@ def launch_config(
             "divide", f"blocks {tuple(blocks)} must divide {(M, N, K)}"
         )
     var = variant(M, blocks)
+    batch = batches_per_launch(var, batch, M // bm)
     cfg = {"variant": var, "blocks": (bm, bn, bk), "stages": 1, "splits": 1,
            "warp_tile": None, "micro_tile": None}
     if var == "splitk":
@@ -304,7 +319,8 @@ def batch_matmul(
     """y[b] = x[b] @ w[b]; x: (B, M, K), w: (B, K, N), any strides.
 
     The per-batch tile and its variant are :func:`matmul`'s, with the batch
-    on the variant's batch axis (:func:`launch_config`).
+    on the variant's batch axis (:func:`launch_config`); a batch over
+    :func:`batches_per_launch` runs as one launch a slice of that many.
     """
     B, M, K = x.shape
     B2, K2, N = w.shape
@@ -319,12 +335,16 @@ def batch_matmul(
         raise RuntimeError(f"batch_matmul: no kernel for device {x.device}")
     _check_cuda("batch_matmul", x, w)
     cfg = launch_config(B, M, N, K, blocks)
-    sxb, swb = (x.stride(0), w.stride(0)) if B > 1 else (0, 0)
+    per = batches_per_launch(cfg["variant"], B, M // cfg["blocks"][0])
     y = torch.empty((B, M, N), dtype=x.dtype, device=x.device)
-    _launch("batch_matmul", cfg, x, w, None, y, (B, M, N, K),
-            (sxb, *x.stride()[1:], swb, *w.stride()[1:]), _ACT["none"], 0.0)
-    batch_matmul.launches += 1
-    batch_matmul.launches_by_variant[cfg["variant"]] += 1
+    for b0 in range(0, B, per):
+        nb = min(per, B - b0)
+        sxb, swb = (x.stride(0), w.stride(0)) if nb > 1 else (0, 0)
+        _launch("batch_matmul", cfg, x[b0:b0 + nb], w[b0:b0 + nb], None,
+                y[b0:b0 + nb], (nb, M, N, K),
+                (sxb, *x.stride()[1:], swb, *w.stride()[1:]), _ACT["none"], 0.0)
+        batch_matmul.launches += 1
+        batch_matmul.launches_by_variant[cfg["variant"]] += 1
     batch_matmul.last_launch = cfg
     return y
 

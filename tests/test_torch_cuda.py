@@ -864,6 +864,98 @@ def test_cuda_decode_attention_at_head_dim_128_group_1(block_kv):
         lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
 
 
+# stablelm-3b's attention: 32 heads of 80 over 32 kv heads (G 1), causal.
+# D 80 is no tc head dim, so every tile is fma, kv tiles of 8 keys too
+@pytest.mark.parametrize("bq,bkv", [(32, 32), (16, 64), (64, 64), (8, 256), (128, 8)])
+def test_cuda_flash_attention_fma_at_head_dim_80(bq, bkv):
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, 80 + bq + bkv, 32, 32, 256, D=80)
+    _k3_against_plain(q, k, v, bq, bkv, "fma", causal=True)
+    assert _replays_the_same_bits(
+        lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv))
+
+
+@pytest.mark.parametrize("block_kv", [8, 16, 64, 128])
+def test_cuda_decode_attention_at_head_dim_80_group_1(block_kv):
+    # stablelm-3b's decode tick: 4 slots, 32 kv heads of one query head, D 80
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(80 + block_kv)
+    B, KVH, G, T, D = 4, 32, 1, 256, 80
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    k = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    v = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    bias = _bias([T, 1, 77, 200], T, dev)
+    got = fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert fa.decode_flash_attention.last_launch == fa.decode_launch_config(
+        B, KVH, G, T, D, block_kv, repro_torch.kernels.sm_count(dev))
+    assert float((got - tref.decode_attention(q, k, v, bias)).abs().max()) < 1e-4
+    assert _replays_the_same_bits(
+        lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
+
+
+# hymba-1.5b's train step at batch 8, seq 128: its chunked attention's
+# value product (k128 n64) and score product (k64 n128) over 8 x 5 kv heads
+# of 5 query heads' 128 positions (b40 m640), each operand contiguous and
+# transposed (the score product reads k transposed)
+@pytest.mark.parametrize("K,N", [(128, 64), (64, 128)])
+@pytest.mark.parametrize("layout", ["c", "t"])
+def test_cuda_batch_matmul_gradient_at_hymbas_train_contractions(K, N, layout):
+    """K2 through dispatch's reference-gradient Function, as the train step
+    runs it: one launch forward (tc at (64, 16, 8)), none backward, the
+    output within TOL_MATMUL of the plain product's, and both operands'
+    gradients those of ``torch.matmul``'s autograd on the same operands
+    (its backward is that autograd: 1e-6 of each gradient's max |g|)."""
+    from repro_torch.integration.dispatch import _with_reference_grad
+
+    dev = _cuda()
+    x, w = _k2_operands(dev, 40 + K + N, 40, 640, K, N, layout)
+    g = torch.randn(40, 640, N, generator=torch.Generator(device=dev).manual_seed(K),
+                    device=dev)
+    blocks = (64, 16, 8)
+    grads = []
+    for fn in (_with_reference_grad(lambda a, b: mm.batch_matmul(a, b, block_sizes=blocks),
+                                    torch.matmul), torch.matmul):
+        a, b = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        n = mm.batch_matmul.launches
+        out = fn(a, b)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert mm.batch_matmul.launches == n + (fn is not torch.matmul)
+        grads.append((out.detach(), a.grad, b.grad))
+    assert mm.batch_matmul.last_launch["variant"] == "tc"
+    (got, ga, gb), (want, wa, wb) = grads
+    assert float((got - want).abs().max()) < TOL_MATMUL
+    for a, b in ((ga, wa), (gb, wb)):
+        assert a.shape == b.shape and float(b.abs().max()) > 0
+        assert _rel(a, b) <= 1e-6
+
+
+# A batch over the grid's 65,535 blocks runs as several launches, each over
+# a slice of the batch: hymba-1.5b's train step extracts a product of 65536
+# batches (m1 k1 n25, splitk), then a tc and an fma batch just over the cap
+@pytest.mark.parametrize("B,M,K,N,blocks,variant,launches", [
+    (65536, 1, 1, 25, (1, 25, 1), "splitk", 2),
+    (65536 + 7, 16, 8, 8, (16, 8, 8), "tc", 2),
+    (2 * 65535 + 1, 4, 8, 8, (4, 8, 8), "splitk", 3),
+    (65537, 24, 8, 8, (24, 8, 8), "fma", 2),
+])
+@pytest.mark.parametrize("layout", ["c", "t"])
+def test_cuda_batch_matmul_over_the_grid_cap(B, M, K, N, blocks, variant, launches, layout):
+    dev = _cuda()
+    x, w = _k2_operands(dev, B % 97, B, M, K, N, layout)
+    n = mm.batch_matmul.launches_by_variant[variant]
+    got = mm.batch_matmul(x, w, block_sizes=blocks)
+    again = mm.batch_matmul(x, w, block_sizes=blocks)
+    torch.cuda.synchronize()
+    assert mm.batch_matmul.launches_by_variant[variant] == n + 2 * launches
+    assert mm.batch_matmul.last_launch == mm.launch_config(B, M, N, K, blocks)
+    want = tref.batch_matmul(x, w)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < TOL_MATMUL
+    assert torch.equal(got, again)  # the same bits every run
+
+
 def test_cuda_moe_layer_dispatched_against_plain():
     """One olmoe-smoke MoE layer, f32, its two expert-product tasks tuned on
     the card: under DispatchContext K2 runs its three products and the

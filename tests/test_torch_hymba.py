@@ -328,3 +328,190 @@ def test_forward_unembed_search_draws_no_tile():
     assert all(err.startswith(("rejected (", "invalid trace")) for err in errors)
     assert any(err.startswith("rejected (grid)") and "(256, 3, 64)" in err
                for err in errors)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_train_step_product_of_65536_batches_is_tuned(seed):
+    """The train step at batch 8, seq 128 extracts a batched product of
+    65536 batches (m1 k1 n25, a tuning target of the SSD mixer).  One K2
+    launch covers at most 65,535 batches (the card's grid y), so the
+    wrapper runs it as two; the search's first round, for every seed the
+    card run uses, reaches a tile the lowering accepts: bn 25, the only
+    one under the grid-steps cap."""
+    import repro_torch
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.search.evolutionary import SearchConfig
+
+    key = "batch_matmul/b=65536/k=1/m=1/n=25"
+    task = TuneTask(key=key, func=tget("batch_matmul", b=65536, m=1, n=25, k=1))
+    search = SearchConfig(max_trials=32, init_random=8, population=16,
+                          measure_per_round=8, rollout_factor=2, seed=seed)
+    config = repro_torch.TuneConfig(search=search, runner_spec="cached+local",
+                                    backend="cuda", device="cpu", warm_start=False)
+    db = Database()
+    sched = repro_torch.TaskScheduler([task], database=db, config=config)
+    assert sched.tune(total_rounds=1)[key] < float("inf")
+    blocks = tuple(db.best(key).meta["pallas_blocks_snapped"])
+    assert blocks == (1, 25, 1)
+    cfg = mm.launch_config(65536, 1, 25, 1, blocks)
+    assert cfg["variant"] == "splitk" and cfg["grid"] == (1, 65535, 1)
+    assert mm.batches_per_launch("splitk", 65536, 1) == 65535
+    errors = [err for s in sched.searches for _, err in s.errors]
+    assert all(err.startswith("rejected (grid)") for err in errors)
+
+
+# ---------------------------------------------------------------------------
+# the train step: remat through the hybrid layer, K2's gradient
+# ---------------------------------------------------------------------------
+
+# the loss within 1e-5 of itself; each gradient leaf within 5e-4 of its max
+# |g|.  The smoke hybrid is ill-conditioned in float32: one-ulp noise in its
+# parameters alone moves the logits by 1.7e-5-3.7e-5 of max |logit| at
+# this batch, so the two packages' sums in other orders put the forward
+# 7e-5 apart and the gradients up to 1.8e-4 of a leaf's max |g| (dt_bias)
+TOL_LOSS = 1e-5
+TOL_GRAD = 5e-4
+TRAIN_B = 2
+
+
+def _loss_batch(vocab, seed=5):
+    """Tokens (2, 33) from a numpy seed.  Seeds 5 and 7 give finite
+    gradients in both packages; 1, 3 and 6 do not, in both alike
+    (``test_overflowing_ssd_decay_gives_the_references_nan_gradients``)."""
+    return np.random.default_rng(seed).integers(0, vocab, (TRAIN_B, SEQ + 1)).astype(np.int32)
+
+
+def _stored_contractions(jc, tc):
+    """The two chunked contractions of the train step's forward (batch 2,
+    seq 32), each with the same stored trace (its JSON) in both packages'
+    databases: the first the port's space generates that its validator
+    accepts."""
+    from repro_torch.core.modules import SpaceGenerator, default_modules
+    from repro_torch.core.validator import validate_trace
+
+    kw = dict(batch=TRAIN_B, seq=SEQ, min_task_elems=1, dispatchable_only=True)
+    specs = [t for t in TE.extract_task_specs(tc, **kw) if t.op == "batch_matmul"]
+    assert _fields(specs) == _fields([t for t in JE.extract_task_specs(jc, mesh=None, **kw)
+                                      if t.op == "batch_matmul"])
+    jdb, db, jtasks, tasks = JDatabase(), Database(), [], []
+    for t in specs:
+        func = tget(t.op, **t.kwargs)
+        gen = SpaceGenerator(default_modules())
+        tr = next(tr for tr in (gen.generate(func, seed=s).trace for s in range(32))
+                  if validate_trace(func, tr).ok)
+        jdb.put(JRecord(t.key, tr.to_json(), 1e-5))
+        db.put(TuningRecord(t.key, tr.to_json(), 1e-5))
+        jtasks.append(type("T", (), dict(key=t.key, func=jget(t.op, **t.kwargs))))
+        tasks.append(TuneTask(key=t.key, func=func))
+    return JDispatch(jdb, tasks=jtasks), DispatchContext(db, tasks=tasks), specs
+
+
+def _close_grads(jg, tg, tol):
+    from repro_torch.training.optimizer import tree_leaves
+
+    jl, tl = jax.tree_util.tree_leaves(jg), tree_leaves(tg)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        a, b = np.asarray(a, np.float32), b.detach().float().numpy()
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= tol * max(np.abs(a).max(), 1e-30)
+
+
+@pytest.mark.parametrize("dispatch", [False, True])
+def test_loss_and_every_gradient_match_the_reference(hymba, dispatch):
+    """hymba's ``loss_fn`` (per-layer remat through the hybrid layer) and
+    every gradient leaf at depth 6, against the reference's
+    ``jax.value_and_grad`` of its loss; with ``dispatch`` both run under a
+    DispatchContext holding the chunked attention's two contractions (K2
+    on the card, the plain version here), whose gradient is the plain
+    product's.  The six leaves that reach the loss only through the SSD
+    scan get a non-zero gradient."""
+    from repro_torch.training.train_loop import value_and_grad
+
+    jc, tc, jp, tp = hymba
+    toks = _loss_batch(jc.vocab)
+    jctx, ctx, specs = _stored_contractions(jc, tc) if dispatch else (None, None, [])
+    with jctx if dispatch else _null():
+        jl, jg = jax.value_and_grad(
+            lambda p: JT.loss_fn(jc, p, {"tokens": jnp.asarray(toks)}))(jp)
+    with ctx if dispatch else _null():
+        tl, tg = value_and_grad(lambda p, b: TT.loss_fn(tc, p, b), tp,
+                                {"tokens": torch.from_numpy(toks)})
+    assert abs(float(tl) - float(jl)) <= TOL_LOSS * abs(float(jl))
+    _close_grads(jg, tg, TOL_GRAD)
+    for name in ("wx", "wB", "wC", "wdt", "A_log", "dt_bias"):
+        assert float(tg["layers"]["ssd"][name].abs().max()) > 0
+    if dispatch:
+        # each contraction once a layer in the forward and once in remat's
+        # recompute; the reference's scan traces its body once
+        assert ctx.hits_by_key == {t.key: 2 * DEPTH for t in specs}
+        assert set(jctx.hits_by_key) == {t.key for t in specs}
+
+
+def _null():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def test_remat_recompute_keeps_the_traced_window_as_the_reference(hymba):
+    """The (site, reason) pairs of the remat forward and its recompute,
+    ``traced_window`` among them, are the reference's under
+    ``jax.value_and_grad``.  Backward runs after leaving the ``with`` block,
+    as autograd's device thread sees it: the recompute re-enters the
+    context with the layer's :class:`~repro_torch.models.layers.TracedWindow`,
+    so every layer's attention notes ``traced_window`` twice, each
+    contraction hits twice, and the gradients are those of a backward run
+    inside the block."""
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    jc, tc, jp, tp = hymba
+    toks = _loss_batch(jc.vocab, seed=7)
+    jctx, ctx, specs = _stored_contractions(jc, tc)
+    with jctx:
+        jax.value_and_grad(lambda p: JT.loss_fn(jc, p, {"tokens": jnp.asarray(toks)}))(jp)
+    batch = {"tokens": torch.from_numpy(toks)}
+    with ctx:
+        want_loss, want = value_and_grad(lambda p, b: TT.loss_fn(tc, p, b), tp, batch)
+    assert _reasons(ctx) == _reasons(jctx)
+    assert ("attention", "traced_window") in _reasons(ctx)
+    assert ctx.stats_by_key()["site:attention"]["reasons"] == {"traced_window": 2 * DEPTH}
+    _, ctx, _ = _stored_contractions(jc, tc)
+    live = tree_map(lambda p: p.detach().requires_grad_(True), tp)
+    with ctx:
+        loss = TT.loss_fn(tc, live, batch)
+    fwd = ctx.stats_by_key()["site:attention"]["reasons"]
+    assert fwd == {"traced_window": DEPTH}
+    loss.backward()
+    assert ctx.stats_by_key()["site:attention"]["reasons"] == {"traced_window": 2 * DEPTH}
+    assert ctx.hits_by_key == {t.key: 2 * DEPTH for t in specs}
+    assert ctx.stats["attention_fused"] == 0
+    assert torch.equal(loss.detach(), want_loss)
+    for g, w in zip(tree_leaves(tree_map(lambda p: p.grad, live)), tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_overflowing_ssd_decay_gives_the_references_nan_gradients(hymba):
+    """A reference behaviour the port reproduces: the plain chunked scan
+    masks the decay above the diagonal after its exp
+    (``torch.where(tri, exp(diff), 0)``, ``kernels/ref.py:ssd_chunk_pass``,
+    as ``jnp.where`` in the reference's), so where a chunk's summed decays
+    overflow exp there, the masked branch's gradient is 0 x inf.  At these
+    tokens both packages' losses are finite and their gradients NaN at the
+    same elements."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import value_and_grad
+
+    jc, tc, jp, tp = hymba
+    toks = _loss_batch(jc.vocab, seed=1)
+    jl, jg = jax.value_and_grad(
+        lambda p: JT.loss_fn(jc, p, {"tokens": jnp.asarray(toks)}))(jp)
+    tl, tg = value_and_grad(lambda p, b: TT.loss_fn(tc, p, b), tp,
+                            {"tokens": torch.from_numpy(toks)})
+    assert np.isfinite(float(jl)) and abs(float(tl) - float(jl)) <= TOL_LOSS * abs(float(jl))
+    want = jax.tree_util.tree_leaves(jg)
+    got = [g for _, g in ckpt._flatten_with_paths(tg)]
+    assert sum(int(np.isnan(np.asarray(a)).sum()) for a in want) > 0
+    for a, b in zip(want, got):
+        assert np.array_equal(np.isnan(np.asarray(a)), torch.isnan(b).numpy())

@@ -127,6 +127,7 @@ SERVING_PATHS = [
     ("whisper-medium", CS.WHISPER_LAYERS, dict()),
     ("mamba2-370m", CS.SSM_LAYERS, dict()),
     ("hymba-1.5b", CS.HYMBA_LAYERS, dict(max_seq=CS.HYMBA_MAX_SEQ)),
+    ("stablelm-3b", CS.STABLELM_LAYERS, dict(PAGED, dispatchable_only=True)),
 ]
 
 

@@ -147,10 +147,10 @@ def test_batch_matmul_launch_config_is_the_fma_kernels(batch, M, N, K, blocks):
 
 
 @pytest.mark.parametrize("batch,M,N,K,blocks,reason", [
-    (70000, 1, 8, 8, (1, 8, 8), "grid"),  # splitk: grid y = B * M / bm > 65535
-    (9000, 8, 8, 8, (1, 8, 8), "grid"),  # splitk: 72,000 row tiles
-    (65536, 32, 8, 8, (32, 8, 8), "grid"),  # tc: grid z = B > 65535
-    (65536, 24, 8, 8, (24, 8, 8), "grid"),  # fma: grid z = B > 65535
+    (2, 4, 8, 70000, (4, 8, 1), "grid"),  # splitk: grid z = K / bk > 65535
+    (2, 16 * 65536, 8, 8, (16, 8, 8), "grid"),  # tc: grid y = M / bm > 65535
+    (2, 70000, 8, 8, (1, 8, 8), "grid"),  # fma: grid y = M / bm > 65535
+    (70000, 70000, 8, 8, (1, 8, 8), "grid"),  # fma: one batch's rows already too many
     (3, 768, 64, 256, (96, 64, 40), "divide"),
 ])
 def test_batch_matmul_launch_config_rejects_by_reason(batch, M, N, K, blocks, reason):
@@ -162,6 +162,24 @@ def test_batch_matmul_launch_config_rejects_by_reason(batch, M, N, K, blocks, re
 def test_batch_matmul_splitk_grid_fits_at_the_cap():
     cfg = mm.launch_config(65535, 1, 8, 8, (1, 8, 8))
     assert cfg["grid"] == (1, 65535, 1) and cfg["variant"] == "splitk"
+
+
+# A batch over the card's 65,535 blocks of grid y (splitk, with the M
+# tiles) or z (tc, fma) runs as several launches, each over at most
+# batches_per_launch batches: hymba-1.5b's train step extracts a product
+# of 65536 batches (m1 n25 k1), which the reference tunes
+@pytest.mark.parametrize("batch,M,N,K,blocks,per,grid", [
+    (70000, 1, 8, 8, (1, 8, 8), 65535, (1, 65535, 1)),  # splitk
+    (9000, 8, 8, 8, (1, 8, 8), 8191, (1, 65528, 1)),  # splitk: 8 row tiles a batch
+    (65536, 32, 8, 8, (32, 8, 8), 65535, (1, 1, 65535)),  # tc
+    (65536, 24, 8, 8, (24, 8, 8), 65535, (1, 1, 65535)),  # fma
+    (65536, 1, 25, 1, (1, 25, 1), 65535, (1, 65535, 1)),  # hymba's train step
+])
+def test_batch_matmul_splits_a_batch_over_the_grid_cap(batch, M, N, K, blocks, per, grid):
+    cfg = mm.launch_config(batch, M, N, K, blocks)
+    assert cfg["grid"] == grid
+    assert mm.batches_per_launch(cfg["variant"], batch, M // blocks[0]) == per
+    assert cfg == mm.launch_config(per, M, N, K, blocks)
 
 
 def test_cpu_matmul_counts_no_variant():
