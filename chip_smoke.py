@@ -27,8 +27,9 @@ Phases, in order; a failing phase makes the run exit non-zero:
    window, softcap, full, at S 256 and 96) and its fma variant, at
    olmoe's (1, 16, 256, 128) on fma, at whisper-medium's encoder shape
    (1, 16, 1500, 64) not causal, where every tile is fma, at qwen2-vl-2b's
-   (1, 12, 256, 128) kvh 2 causal and at stablelm-3b's (1, 32, 256, 80)
-   kvh 32 causal, fma at D 80, each run twice for the same bits, with
+   (1, 12, 256, 128) kvh 2 causal, at stablelm-3b's (1, 32, 256, 80)
+   kvh 32 causal, fma at D 80, and at qwen1.5-110b's (1, 64, 256, 128)
+   kvh 8 causal, fma at D 128, G 8, each run twice for the same bits, with
    the bound);
 3b. the decode kernels (K5, and K6 against K5 on the gathered view)
    against their plain versions on the card, in float32, at the serving
@@ -37,7 +38,10 @@ Phases, in order; a failing phase makes the run exit non-zero:
    slot, the window), and K5 at olmoe's decode tick (b4, 16 kv heads of
    one query head, D 128), over whisper-medium's 1500-frame cross-attention
    cache (b4, kvh 16, G 1, D 64), at qwen2-vl-2b's tick (b4, kvh 2, G
-   6, D 128) and at stablelm-3b's (b4, kvh 32, G 1, D 80), each run twice
+   6, D 128), at stablelm-3b's (b4, kvh 32, G 1, D 80) and at
+   qwen1.5-110b's (b4, kvh 8, G 8, D 128: tiles 16 to 128, at 64 and 128
+   a split part of one tile; tile 256 refused for shared memory before any
+   launch), each run twice
    for the same bits, the last tile of each timed beside SDPA and the
    bound; each replayed twice from one
    CUDA graph for the
@@ -297,17 +301,37 @@ Phases, in order; a failing phase makes the run exit non-zero:
    ``traced_window`` at every layer's attention in both, the loss, the
    gradients (the six scan leaves named) and the updates as in phase 13;
    then 4 bf16 steps on one batch, whose loss must fall; phase 6 at the
-   step's keys.
+   step's keys;
+28. the qwen1.5-110b forward at full width (64 heads of 128 over 8 kv
+   heads, a bias on q, k and v, d_ff 49152, vocab 152064) and
+   ``QWEN15_LAYERS`` = 6 of its 80 layers (the parameters in bf16 and f32
+   fill most of the card): the reference's 10 tasks (batch 1, seq 256)
+   tuned but the norm (``plain_norm``) and the MLP's two products and the
+   unembed (``schedulable``), which run plain; the bf16 forward dispatched
+   against plain, timed and traced, then in f32 within
+   ``TOL_F32_LOGITS_REL``: K1 four a layer (q, k, v and o), K3 once a
+   layer, all fma at D 128, G 8, its key hit once a layer, K2 never, the
+   dispatch reasons the ``unknown_key`` misses of the 5·L + 2 plain sites
+   alone; the phase's peak of allocated device memory;
+29. the qwen1.5-110b serving path, phase 7's paged tier at the same
+   depth: the 16 tasks of a paged tick tuned but the chunk norm and the
+   chunk's MLP (no schedule), 8 requests of 16 new tokens served on f32
+   parameters, dispatched and plain, each dispatched stream equal to the
+   plain one or differing first at a near tie (phase 18's rule); one
+   decode-only tick held within ``TOL_F32_LOGITS_REL`` (K1 43 all splitk,
+   the m4 unembed over the 152064-wide table among them, K5 6 at D 128,
+   G 8); the phase's peak memory; then phase 6 at qwen1.5's shapes.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the twenty-three paths (forward: phases 4-5; serving: phase 7;
+each of the twenty-five paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
 whisper forward and decoding: phase 16; the fleet: phase 17; the router:
 phase 18; the mesh: phase 19; gemma2 forward: phase 20; gemma2 serving:
 phase 21; hymba forward: phase 23; hymba serving: phase 24; stablelm
-forward: phase 25; stablelm serving: phase 26; hymba training: phase 27)
+forward: phase 25; stablelm serving: phase 26; hymba training: phase 27;
+qwen1.5 forward: phase 28; qwen1.5 serving: phase 29)
 and read just
 after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
@@ -388,7 +412,8 @@ BATCH = 1
 # 28 % slower, these paths run 2 to 4 layers, so that every path fits the
 # run's time limit on a slow host (PERF.md §6); every gate is derived from
 # the depth; gemma2-2b runs 4 of its 26 (``GEMMA_LAYERS``), hymba-1.5b 6 of
-# its 32 (``HYMBA_LAYERS``), stablelm-3b all 32 (``STABLELM_LAYERS``), the
+# its 32 (``HYMBA_LAYERS``), stablelm-3b all 32 (``STABLELM_LAYERS``),
+# qwen1.5-110b 6 of its 80 (``QWEN15_LAYERS``: the card's memory), the
 # other paths every layer
 WHISPER_LAYERS = 2
 MOE_LAYERS = 2
@@ -636,7 +661,21 @@ STABLELM_ARCH = "stablelm-3b"
 STABLELM_LAYERS = 32
 STABLELM_FORWARD_TASKS = 9
 STABLELM_UNEMBED = "dense/k=2560/m=256/n=50304"
-STABLELM_NEW_TOKENS = 16
+# phases 28-29: qwen1.5-110b at full width (d_model 8192, 64 heads of 128
+# over 8 kv heads, d_ff 49152, vocab 152064, a bias on q, k and v) and 6 of
+# its 80 layers: no window, so any depth is periodic and the reference
+# serves its attention through K3, on fma (D 128 is no tc head dim), and K5
+# at D 128, G 8.  A layer holds 1.36e9 parameters and the tied embedding
+# 1.25e9: at 6 layers 18.8 GB in bf16 and 37.6 GB in f32, both held while
+# the forward's f32 check casts them (the phase's peak was 56.7-57.7 GB
+# allocated on an H100; 7 layers would take 65 GB, 8 layers 73).  The forward's MLP (256·49152·8192
+# = 1.03e11 multiply-adds), its unembed (3.19e11) and the serving chunk's
+# MLP at m128 (5.15e10) exceed the caps' product 2^35 and run plain
+# (``schedulable``), as the norms do but the tick's (``plain_norm``)
+QWEN15_ARCH = "qwen1.5-110b"
+QWEN15_LAYERS = 6
+QWEN15_FORWARD_TASKS = 10
+QWEN15_SERVE_TASKS = 16
 # phase 22: the three examples/ twins, each a process on the card
 EXAMPLE_RUNS = (
     ("quickstart_torch.py", ["--smoke"]),
@@ -991,13 +1030,15 @@ def phase_kernels(gen) -> dict:
            median_ms(lambda: sdpa(q, k, v, True)))
     # whisper-medium's encoder attention, (1, 16, 1500, 64) non-causal: no
     # divisor of 1500 is a multiple of 8, so every tile K3 takes there is
-    # fma; qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, fma at D 128; and
+    # fma; qwen2-vl-2b's (1, 12, 256, 128) kvh 2 causal, fma at D 128;
     # stablelm-3b's (1, 32, 256, 80) kvh 32 causal, fma at D 80 (no tc head
-    # dim), with its bound
+    # dim); and qwen1.5-110b's (1, 64, 256, 128) kvh 8 causal, fma at D 128,
+    # G 8 (70,144, 76,128 and 148,480 bytes of shared memory); with the bound
     for (h, kvh, s, d, causal), tiles in (
         ((16, 16, ENC_FRAMES, 64, False), ((60, 50), (125, 125))),
         ((12, 2, SEQ, 128, True), ((32, 32), (64, 16))),
         ((32, 32, SEQ, 80, True), ((32, 32), (16, 64))),
+        ((64, 8, SEQ, 128, True), ((32, 32), (8, 64), (64, 64))),
     ):
         q = randn(BATCH, h, s, d)
         k, v = randn(BATCH, kvh, s, d), randn(BATCH, kvh, s, d)
@@ -1180,6 +1221,7 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
     with every slot full."""
     import torch
 
+    from repro_torch.kernels import ScheduleRejected
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1242,12 +1284,15 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
                    ref.decode_attention(q128, k128, v128, bias))
     # whisper-medium's cross-attention over the 1500 encoder frames (16 kv
     # heads of one query head, D 64; a tile above 375 rows overflows shared
-    # memory), qwen2-vl-2b's tick (2 kv heads of 6 query heads, D 128) and
-    # stablelm-3b's (32 kv heads of one query head, D 80); each shape's
-    # last tile timed beside SDPA and the bound
+    # memory), qwen2-vl-2b's tick (2 kv heads of 6 query heads, D 128),
+    # stablelm-3b's (32 kv heads of one query head, D 80) and qwen1.5-110b's
+    # (8 kv heads of 8 query heads, D 128: 32 (slot, kv head) pairs want 5
+    # splits on 132 SMs, and at tiles 64 and 128 a split is part of one
+    # tile); each shape's last tile timed beside SDPA and the bound
     for (kvh, g, T, d), tiles in (((16, 1, ENC_FRAMES, 64), (50, 125, 300, 375)),
                                   ((2, 6, SERVE_MAX_SEQ, 128), (16, 64, 128)),
-                                  ((32, 1, SERVE_MAX_SEQ, 80), (16, 64, 128))):
+                                  ((32, 1, SERVE_MAX_SEQ, 80), (16, 64, 128)),
+                                  ((8, 8, SERVE_MAX_SEQ, 128), (16, 32, 64, 128))):
         qx = randn(B, kvh, g, d)
         kx, vx = randn(B, kvh, T, d), randn(B, kvh, T, d)
         for bkv in tiles:
@@ -1271,6 +1316,19 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
         print(f"[time] decode_flash_attention ({B},{kvh},{g},{T},{d}) block_kv {bkv}: "
               f"device {k_ms:.4f} ms, sdpa device {l_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
+    # at qwen1.5-110b's G 8, D 128 a kv tile of 256 needs 279,648 bytes of
+    # shared memory: refused before any launch
+    before = fa.decode_flash_attention.launches
+    try:
+        fa.decode_flash_attention(qx, kx, vx, bias, block_kv=T)
+    except ScheduleRejected as e:
+        print(f"[decode] decode_flash_attention ({B},{kvh},{g},{T},{d}) block_kv {T}: "
+              f"rejected ({e.reason}): {e}")
+        if e.reason != "shared_memory" or fa.decode_flash_attention.launches != before:
+            fail(f"decode_flash_attention block_kv {T} at G {g}, D {d}: rejected for "
+                 f"{e.reason}, launches {fa.decode_flash_attention.launches - before}")
+    else:
+        fail(f"decode_flash_attention block_kv {T} at G {g}, D {d} was not refused")
     # K6: pages scattered over a pool, sentinel entries, ragged lengths
     P = SERVE_MAX_SEQ // SERVE_PAGE
     n_pages = B * P + 3
@@ -1784,6 +1842,13 @@ TUNE_SEARCH = dict(max_trials=32, init_random=8, population=16, measure_per_roun
                    rollout_factor=2)
 
 
+# the timing inputs of the tasks the last ``phase_tune`` timed through a
+# local runner, by key, for ``check_tiles`` to replay the best records on
+# (it empties the dict): drawing them again from numpy took tens of seconds
+# at qwen1.5-110b's width (the decode unembed's table is 1.25e9 draws)
+TUNED_INPUTS = {}
+
+
 def plain_norm(cfg, tokens: int) -> tuple:
     """The key of ``cfg``'s norm over ``tokens`` rows, left plain
     (``phase_tune``'s ``plain_keys``)."""
@@ -1802,6 +1867,7 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
     tuned."""
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
+    from repro_torch.search.measure.local import LocalRunner
 
     t0 = time.perf_counter()
     if extract is None:
@@ -1841,6 +1907,7 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
         groups = [([t for t in tasks if t not in slow], runner_spec),
                   (slow, f"{runner_spec}://timeout_s={STRUCTURAL_TIMEOUT_S}")]
     best, searches = {}, []
+    TUNED_INPUTS.clear()
     for group, spec in groups:
         if not group:
             continue
@@ -1877,6 +1944,9 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
             searches += retry.searches
             print(f"[{tag}] search seed {seed}: {retry.rounds_run} rounds in "
                   f"{time.perf_counter() - t0:.1f} s")
+        local = getattr(sched.runner, "inner", None)
+        if isinstance(local, LocalRunner):
+            TUNED_INPUTS.update((t.key, local.inputs(t.func)) for t in group)
     for key, lat in best.items():
         if not math.isfinite(lat):
             fail(f"task {key} has no finite best latency")
@@ -1962,7 +2032,7 @@ def check_tiles(tasks, db) -> dict:
             snapped = tuple(meta["pallas_blocks_snapped"])
             sampled = meta.get("pallas_blocks_sampled")
         _, lowered = apply_trace(t.func, rec.trace(), backend="cuda")
-        ins = device_inputs(t.func, torch.device("cuda"))
+        ins = TUNED_INPUTS.pop(t.key, None) or device_inputs(t.func, torch.device("cuda"))
         outs = lowered.fn(ins)
         torch.cuda.synchronize()
         kern = meta["pallas_kernel"]
@@ -2003,6 +2073,7 @@ def check_tiles(tasks, db) -> dict:
         elif kern == "batch_matmul":
             tuned_k2_against_plain(t, ins, snapped, next(iter(outs.values())))
         runs[t.key] = (kern, snapped, shapes)
+    TUNED_INPUTS.clear()
     return runs
 
 
@@ -2703,7 +2774,8 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                 tick_launches=None, new_tokens: int = SERVE_NEW_TOKENS,
                 f32: bool = False):
     """Phase 7 (smollm-135m), 12 (olmoe-1b-7b), 15 (qwen2-vl-2b), 21
-    (gemma2-2b) or 26 (stablelm-3b): the model's decode tasks tuned, its tuned tiles checked, 8
+    (gemma2-2b), 26 (stablelm-3b) or 29 (qwen1.5-110b): the model's decode
+    tasks tuned, its tuned tiles checked, 8
     requests served on the paged arena under the tuned context and with no
     context, then one decode-only tick compared, timed and traced.  The
     tasks are those of a decode step and a 32-wide paged serving tick: the
@@ -3748,7 +3820,8 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
                         seq: int = SEQ, plain_keys=(), runner_spec="cached+local",
                         tol: float = TOL_F32_LOGITS_REL):
     """Phase 9 (mamba2-370m), 15 (qwen2-vl-2b), 16 (whisper-medium), 20
-    (gemma2-2b), 23 (hymba-1.5b) or 25 (stablelm-3b), the forward: the reference's
+    (gemma2-2b), 23 (hymba-1.5b), 25 (stablelm-3b) or 28 (qwen1.5-110b), the
+    forward: the reference's
     ``n_tasks`` tasks (batch 1, ``seq`` tokens or embeddings; whisper's 1500
     frames) tuned and their tiles checked; the full-width bf16 forward under
     the tuned context against the plain forward (the SSD scan's plain
@@ -3970,18 +4043,24 @@ def phase_hymba(cfg, gen, gen_seed: int = 0):
     return fwd, serve, rows
 
 
-def phase_stablelm(cfg, gen, gen_seed: int = 0):
-    """Phases 25-26, stablelm-3b at full width and ``cfg.n_layers`` (32
-    heads of 80 over 32 kv heads; no window): the forward (phase 25: the
-    reference's 9 tasks tuned but the norm and the unembed, left plain; K3
-    once a layer, all fma at D 80, its attention key hit once a layer; K1
-    seven a layer; the dispatch reasons those of a periodic dense model,
-    the plain keys' ``unknown_key`` misses alone; f32
-    within ``TOL_F32_LOGITS_REL``) and paged serving in f32 (phase 26: 8
-    requests of 16 new tokens, the streams held by phase 18's rule, the
-    decode-only tick's K1 seven a layer and the m4 unembed, all splitk, and
-    K5 once a layer at D 80, G 1); then phase 6 at the keys the two paths
-    served.  Returns (forward result, serving result, timing rows)."""
+def phase_dense(cfg, gen, tag: str, n_tasks: int, forward_k1: int, unknown_key: int,
+                plain_keys=(), serve_tasks: int = 0, gen_seed: int = 0):
+    """Phases 25-26 (stablelm-3b, 32 heads of 80 over 32 kv heads) and
+    28-29 (qwen1.5-110b, 64 heads of 128 over 8 kv heads, q/k/v biases): a
+    dense model with no window at full width and ``cfg.n_layers``.  The
+    forward: the reference's ``n_tasks`` tasks tuned but the norm and
+    ``plain_keys``, left plain, and the products no schedule reaches (K1
+    ``forward_k1`` launches; K3 once a layer, all fma: D 80 and 128 are no
+    tc head dim; K2 never; the attention key hit once a layer; the
+    dispatch reasons ``unknown_key`` misses at the ``unknown_key`` sites
+    whose key has no record, and nothing else; f32 within
+    ``TOL_F32_LOGITS_REL``).  Paged serving in f32: the tasks of a paged
+    tick (all ``serve_tasks`` of them, else the dispatchable ones) tuned
+    but the chunk norm, 8 requests of 16 new tokens, the streams held by
+    phase 18's rule, the decode-only tick's K1 seven a layer and the m4
+    unembed, all splitk, and K5 once a layer.  Each of the two prints its
+    peak of allocated device memory; then phase 6 at the keys the two
+    paths served.  Returns (forward result, serving result, timing rows)."""
     import torch
 
     from repro_torch.models.transformer import layer_windows, window_period
@@ -3993,37 +4072,41 @@ def phase_stablelm(cfg, gen, gen_seed: int = 0):
     attn_key = (f"attention/b={BATCH}/causal=1/d={cfg.head_dim}/h={cfg.n_heads}/"
                 f"kvh={cfg.n_kv_heads}/s={SEQ}/softcap=0.0/window=0")
     db = Database()
-    reset_counts()  # the stablelm forward path starts here
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the model's forward path starts here
     tasks, best, fwd, tune_counts, _, runs = phase_model_forward(
-        cfg, db, "stablelm-forward", STABLELM_FORWARD_TASKS, dict(
-            # q, k, v, o and the MLP's three of every layer; K3 at every
-            # layer's attention, on fma; the norm and the unembed plain
-            matmul=7 * L, batch_matmul=0, flash_attention=L, flash_attention_fma=L,
+        cfg, db, f"{tag}-forward", n_tasks, dict(
+            matmul=forward_k1, batch_matmul=0, flash_attention=L, flash_attention_fma=L,
             rmsnorm=0, attention={attn_key: L}, attention_fused=0),
-        plain_keys=plain_norm(cfg, BATCH * SEQ) + (STABLELM_UNEMBED,))
-    # the keys left plain are missed at each site (unknown_key: no task),
-    # the norm's 2·L + 1 and the unembed's; nothing falls back
-    want_reasons = {"unknown_key": 2 * L + 2}
-    print(f"[stablelm-forward] the unembed {STABLELM_UNEMBED} left plain; dispatch "
-          f"reasons {fwd['reasons']} (want {want_reasons})")
+        plain_keys=plain_norm(cfg, BATCH * SEQ) + tuple(plain_keys))
+    fwd_peak = torch.cuda.max_memory_allocated()
+    want_reasons = {"unknown_key": unknown_key}
+    print(f"[{tag}-forward] left plain: {list(plain_keys)} and the norm; dispatch "
+          f"reasons {fwd['reasons']} (want {want_reasons}); peak device memory "
+          f"allocated {fwd_peak / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
     if fwd["reasons"] != want_reasons:
         fail(f"{cfg.name} forward: dispatch reasons {fwd['reasons']}, want {want_reasons}")
-    fwd.update(tune_launches=tune_counts, best=best)
+    fwd.update(tune_launches=tune_counts, best=best, peak_bytes=fwd_peak)
     clock_s = time.perf_counter()
     serve_db = Database()
     torch.cuda.empty_cache()
-    reset_counts()  # the stablelm serving path starts here
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the model's serving path starts here
     serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_serve(
-        cfg, serve_db, tag="stablelm-serve", new_tokens=STABLELM_NEW_TOKENS, f32=True,
+        cfg, serve_db, tag=f"{tag}-serve", serve_tasks=serve_tasks, f32=True,
         plain_keys=plain_norm(cfg, SERVE_SLOTS * SERVE_CHUNK),
         # q, k, v, o and the MLP's three of every layer, and the decode
         # unembed; K5 at every layer
         tick_launches=dict(matmul=7 * L + 1, decode_flash_attention=L))
-    serve.update(tune_launches=serve_tune_counts, best=serve_best,
+    serve_peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}-serve] peak device memory allocated {serve_peak / 2**30:.2f} GiB")
+    serve.update(tune_launches=serve_tune_counts, best=serve_best, peak_bytes=serve_peak,
                  seconds=time.perf_counter() - clock_s)
     torch.cuda.empty_cache()
-    # phase 6 at the keys the two paths served (K1 at d 2560, m256, the
-    # m128 chunk and m4; K3 fma and K5 at D 80)
+    # phase 6 at the keys the two paths served (K1 at m256, the m128 chunk
+    # and m4; K3 fma and K5)
     hits = path_hits()
     rows = phase_timings([t for t in tasks if hits[t.key]], runs, gen, cfg.vocab)
     rows.update(phase_timings([t for t in serve_tasks if hits[t.key]], serve_runs,
@@ -5594,7 +5677,12 @@ def main(argv=None) -> int:
 
     torch.cuda.empty_cache()
     sl_cfg = dataclasses.replace(get_config(STABLELM_ARCH), n_layers=STABLELM_LAYERS)
-    sl, sl_serve, sl_rows = phase_stablelm(sl_cfg, gen)
+    L = sl_cfg.n_layers
+    sl, sl_serve, sl_rows = phase_dense(
+        # q, k, v, o and the MLP's three of every layer; the unembed plain;
+        # unknown_key at the norm's 2·L + 1 sites and the unembed's
+        sl_cfg, gen, "stablelm", STABLELM_FORWARD_TASKS, forward_k1=7 * L,
+        unknown_key=2 * L + 2, plain_keys=(STABLELM_UNEMBED,))
     rows.update(sl_rows)
     clock("phases 25-26 and phase 6 (stablelm)")
 
@@ -5604,6 +5692,20 @@ def main(argv=None) -> int:
     hyt, hyt_tune_counts, hyt_counts, hyt_rows = phase_hymba_train(hyt_cfg, gen)
     rows.update(hyt_rows)
     clock("phase 27 and phase 6 (hymba's train step)")
+
+    torch.cuda.empty_cache()
+    qw_cfg = dataclasses.replace(get_config(QWEN15_ARCH), n_layers=QWEN15_LAYERS)
+    L = qw_cfg.n_layers
+    qw, qw_serve, qw_rows = phase_dense(
+        # q, k, v and o of every layer (q, k and v with the bias epilogue);
+        # the MLP and the unembed have no schedule (``schedulable``):
+        # unknown_key at the norm's 2·L + 1 sites, the MLP's 3·L and the
+        # unembed's; every task of a paged tick tuned (the contractions
+        # the decode attention replaces are tuning targets)
+        qw_cfg, gen, "qwen15", QWEN15_FORWARD_TASKS, forward_k1=4 * L,
+        unknown_key=5 * L + 2, serve_tasks=QWEN15_SERVE_TASKS)
+    rows.update(qw_rows)
+    clock("phases 28-29 and phase 6 (qwen1.5)")
 
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
@@ -5642,6 +5744,9 @@ def main(argv=None) -> int:
                              for k in KERNELS},
         # tuning and the f32 step, as smollm's
         "hymba_train": {k: hyt_tune_counts[k] + hyt_counts[k] for k in KERNELS},
+        "qwen15_forward": {k: qw["tune_launches"][k] + qw["launches"][k] for k in KERNELS},
+        "qwen15_serving": {k: qw_serve["tune_launches"][k] + qw_serve["launches"][k]
+                           for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
     print(f"[launches] by path (tuning + run): {paths}")
@@ -5698,6 +5803,8 @@ def main(argv=None) -> int:
             stablelm_forward_launches=sl["launches"][k],
             stablelm_tick_launches=sl_serve["tick_check"]["launches"][k],
             hymba_train_step_launches=hyt["launches"][k],
+            qwen15_forward_launches=qw["launches"][k],
+            qwen15_tick_launches=qw_serve["tick_check"]["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -5733,6 +5840,7 @@ def main(argv=None) -> int:
                            gemma2_serve_tune_best=gm_serve_best, examples=examples,
                            hymba_forward=hy, hymba_serve=hy_serve,
                            stablelm_forward=sl, stablelm_serve=sl_serve, hymba_train=hyt,
+                           qwen15_forward=qw, qwen15_serve=qw_serve,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

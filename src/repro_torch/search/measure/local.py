@@ -233,7 +233,9 @@ class LocalRunner(Runner):
         self.n_measured = 0
         self.n_failed = 0
 
-    def _inputs(self, func: PrimFunc):
+    def inputs(self, func: PrimFunc) -> Dict[str, torch.Tensor]:
+        """The workload's timing inputs on this runner's device, drawn
+        (``device_inputs``) once a runner."""
         key = func.name + str(tuple(b.shape for b in func.inputs))
         if key not in self._inputs_cache:
             self._inputs_cache[key] = device_inputs(func, self.device)
@@ -253,7 +255,7 @@ class LocalRunner(Runner):
             t0 = time.perf_counter()
             res = time_artifact(
                 br.artifact,
-                self._inputs(mi.func),
+                self.inputs(mi.func),
                 self.repeats,
                 self.warmup,
                 self.timeout_s,
@@ -288,7 +290,7 @@ class LocalRunner(Runner):
         from ...backends.gpu_backend import plain
 
         fn = plain(func)
-        ins = self._inputs(func)
+        ins = self.inputs(func)
         with timing_lock(self.device):
             fn(ins)
             times = time_call(lambda: fn(ins), self.device,

@@ -72,7 +72,7 @@ class LocalRunner:
         if self.check:
             (br,) = self.inner.builder.build([mi])
             if br.ok:
-                ins = self.inner._inputs(func)
+                ins = self.inner.inputs(func)
                 self._check_correct(func, br.artifact(ins), ins)
         (res,) = self.inner.run([mi])
         return MeasureResult(res.latency_s, res.error or "")

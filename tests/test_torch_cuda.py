@@ -894,6 +894,75 @@ def test_cuda_decode_attention_at_head_dim_80_group_1(block_kv):
         lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
 
 
+# qwen1.5-110b's attention: 64 heads of 128 over 8 kv heads (G 8), causal.
+# D 128 is no tc head dim, so every tile is fma; (64, 64) takes 148,480
+# bytes of shared memory, (128, 8) a kv tile of 8 keys
+@pytest.mark.parametrize("bq,bkv", [(32, 32), (8, 64), (64, 64), (16, 128), (128, 8)])
+def test_cuda_flash_attention_fma_at_qwen15s_head_dim_128_group_8(bq, bkv):
+    dev = _cuda()
+    q, k, v = _k3_operands(dev, 110 + bq + bkv, 64, 8, 256, D=128)
+    _k3_against_plain(q, k, v, bq, bkv, "fma", causal=True)
+    assert _replays_the_same_bits(
+        lambda: fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv))
+
+
+@pytest.mark.parametrize("block_kv", [16, 32, 64, 128])
+def test_cuda_decode_attention_at_qwen15s_head_dim_128_group_8(block_kv):
+    # qwen1.5-110b's decode tick: 4 slots, 8 kv heads of 8 query heads, D
+    # 128; 32 (slot, kv head) pairs want 5 splits on 132 SMs, and at tiles
+    # 64 and 128 a split is part of one tile
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(110 + block_kv)
+    B, KVH, G, T, D = 4, 8, 8, 256, 128
+    q = torch.randn(B, KVH, G, D, generator=g, device=dev)
+    k = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    v = torch.randn(B, KVH, T, D, generator=g, device=dev)
+    bias = _bias([T, 1, 77, 200], T, dev)
+    got = fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv)
+    torch.cuda.synchronize()
+    plan = fa.decode_launch_config(B, KVH, G, T, D, block_kv,
+                                   repro_torch.kernels.sm_count(dev))
+    assert fa.decode_flash_attention.last_launch == plan
+    assert float((got - tref.decode_attention(q, k, v, bias)).abs().max()) < 1e-4
+    assert _replays_the_same_bits(
+        lambda: fa.decode_flash_attention(q, k, v, bias, block_kv=block_kv))
+
+
+def _tol_matmul_at(K):
+    """``TOL_MATMUL`` carried past K 2048: with N(0, 1) inputs |y| grows as
+    sqrt(K) and the sum's rounding as sqrt(K)·2^-24·|y|, so the bound keeps
+    its margin at 2e-3·K/2048 (8e-3 at K 8192, 4.8e-2 at 49152); a wrong
+    tile or split moves y by O(|y|), about 100 or more."""
+    return TOL_MATMUL * max(1, K / 2048)
+
+
+# qwen1.5-110b's decode products on K1's split-K variant: the MLP's wi and
+# wg (k8192 n49152) and wo (k49152 n8192), and the tied unembed over the
+# (152064, 8192) table read transposed
+@pytest.mark.parametrize("M,K,N,blocks,w_layout", [
+    (4, 8192, 49152, (4, 256, 128), "n"),
+    (4, 49152, 8192, (4, 128, 512), "n"),
+    (4, 8192, 152064, (4, 594, 64), "k"),
+])
+def test_cuda_matmul_splitk_at_qwen15s_decode_shapes(M, K, N, blocks, w_layout):
+    dev = _cuda()
+    x, w, bias = _k1_operands(dev, 110, M, K, N, w_layout)
+    n = mm.matmul.launches_by_variant["splitk"]
+    got = mm.matmul(x, w, bias, epilogue="bias", block_sizes=blocks)
+    again = mm.matmul(x, w, bias, epilogue="bias", block_sizes=blocks)
+    torch.cuda.synchronize()
+    assert mm.matmul.launches_by_variant["splitk"] == n + 2
+    cfg = mm.matmul.last_launch
+    assert cfg == mm.launch_config(1, M, N, K, blocks) and cfg["variant"] == "splitk"
+    assert cfg["splits"] == K // blocks[2]
+    want = tref.matmul(x, w, bias, epilogue="bias")
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < _tol_matmul_at(K)
+    assert torch.equal(got, again)  # the same bits every run
+    assert _replays_the_same_bits(
+        lambda: mm.matmul(x, w, bias, epilogue="bias", block_sizes=blocks))
+
+
 # hymba-1.5b's train step at batch 8, seq 128: its chunked attention's
 # value product (k128 n64) and score product (k64 n128) over 8 x 5 kv heads
 # of 5 query heads' 128 positions (b40 m640), each operand contiguous and

@@ -128,6 +128,7 @@ SERVING_PATHS = [
     ("mamba2-370m", CS.SSM_LAYERS, dict()),
     ("hymba-1.5b", CS.HYMBA_LAYERS, dict(max_seq=CS.HYMBA_MAX_SEQ)),
     ("stablelm-3b", CS.STABLELM_LAYERS, dict(PAGED, dispatchable_only=True)),
+    ("qwen1.5-110b", CS.QWEN15_LAYERS, PAGED),
 ]
 
 
