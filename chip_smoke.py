@@ -71,6 +71,15 @@ Phases, in order; a failing phase makes the run exit non-zero:
    process of its own compiles beside phases 7 and 8 and, once phases 8 and 22
    are over, holds against the plain version and times on the same
    inputs; SDPA's time without the softcap is printed beside it, as such);
+3f. the kernels at arctic-480b's shapes, each against its plain version on
+   the same inputs and timed by CUDA-graph replay beside its library call
+   and its bound: K1 tc at the forward's m256 products (k7168 n7168, the
+   dense residual MLP's k7168 n4864 and k4864 n7168, k7168 n1024) and
+   splitk at the tick's m4 k7168 n7168 and the unembed over the
+   32000-wide table; K2 splitk at the tick's b128 m4 expert products
+   beside ``torch.bmm``; K3 at (1, 56, 256, 128) kvh 8 causal, G 7, at
+   every tile (fma, or refused for shared memory before any launch); K5 at
+   b4 kvh 8 G 7 t256 D 128 at every kv tile, twice for the same bits;
 4. the forward path, part one: extract every task the reference extracts
    from smollm-135m (batch 1, seq 256: dense, batch_matmul, rmsnorm, sfm
    and attention, non-dispatchable sites included) and tune them on the
@@ -131,7 +140,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    traced, against the same forward with no context.  Top-k routing is discontinuous, so the numbers are held in
    f32, on the parameters cast to f32: each MoE layer dispatched against
    plain on the same input (routing runs plain in both) within
-   ``TOL_MOE_REL``, and the whole forward within ``TOL_LOGITS_REL`` when no
+   ``tol_moe_rel``, and the whole forward within ``TOL_LOGITS_REL`` when no
    token's routing differs between the two runs, with the flips of every
    layer printed;
 12. the olmoe-1b-7b serving path: extract its 16 decode tasks (4 slots,
@@ -276,8 +285,8 @@ Phases, in order; a failing phase makes the run exit non-zero:
    every prefill; one decode-only tick replayed, compared, timed and
    traced; then phase 6 at hymba's shapes (K7 at N 16 on the forward and
    on the long prefill with its state);
-25. the stablelm-3b forward at full width and its whole depth,
-   ``STABLELM_LAYERS`` = 32 (32 heads of 80 over 32 kv heads, no window):
+25. the stablelm-3b forward at full width and half its depth,
+   ``STABLELM_LAYERS`` = 16 of 32 (32 heads of 80 over 32 kv heads, no window):
    the reference's 9 tasks (batch 1, seq 256) tuned but the norm
    (``plain_norm``) and the unembed (``STABLELM_UNEMBED``), which run
    plain; the bf16 forward dispatched against plain, timed and traced,
@@ -289,7 +298,7 @@ Phases, in order; a failing phase makes the run exit non-zero:
    requests of 16 new tokens served on f32 parameters, dispatched and
    plain, each dispatched stream equal to the plain one or differing
    first at a near tie (phase 18's rule); one decode-only tick held within
-   ``TOL_F32_LOGITS_REL`` (K1 225 all splitk, K5 32 at D 80, G 1); then
+   ``TOL_F32_LOGITS_REL`` (K1 113 all splitk, K5 16 at D 80, G 1); then
    phase 6 at stablelm's shapes;
 27. hymba-1.5b's train step at batch 8, seq 128 and ``HYMBA_TRAIN_LAYERS``
    = 8 (over 4: no window period) through ``phase_train``: the reference's
@@ -320,10 +329,41 @@ Phases, in order; a failing phase makes the run exit non-zero:
    plain one or differing first at a near tie (phase 18's rule); one
    decode-only tick held within ``TOL_F32_LOGITS_REL`` (K1 43 all splitk,
    the m4 unembed over the 152064-wide table among them, K5 6 at D 128,
-   G 8); the phase's peak memory; then phase 6 at qwen1.5's shapes.
+   G 8); the phase's peak memory; then phase 6 at qwen1.5's shapes;
+   phases 28-29 leave the chunked attention's contractions, its softmax
+   and the tick's four contractions untuned (tuning targets no dispatched
+   site reaches);
+30. the arctic-480b forward at full width (56 heads of 128 over 8 kv heads,
+   128 experts top-2 of d_ff 4864 beside a dense residual MLP, vocab 32000)
+   and ``ARCTIC_LAYERS`` = 2 of its 35 layers: the reference's 14 tasks
+   (batch 1, seq 256) tuned but the norm, the router's product, the
+   chunked attention's contractions and the softmaxes (``plain_norm``,
+   ``ARCTIC_TUNING_ONLY``) and the two expert products (C 8) and the
+   unembed, which no schedule reaches (``schedulable``, held key by key);
+   the bf16 forward dispatched against plain, timed and traced, its error
+   and routing flips by layer reported (K1 seven a layer, K3 once a layer,
+   all fma at D 128, G 7, K2 never, the dispatch reasons the
+   ``unknown_key`` misses of the 5·L + 2 plain sites alone); then
+   ``ARCTIC_F32_LAYERS`` = 1 layer drawn anew and cast to f32 leaf by leaf
+   (``cast_f32_``), dispatched against plain within ``TOL_F32_LOGITS_REL``
+   where no token's routing differs; the peak of allocated device memory
+   of the tuning, the bf16 forward and the f32 check, each leaving
+   ``MIN_FREE_BYTES`` of the card free;
+31. the arctic-480b serving path, phase 7's paged tier at
+   ``ARCTIC_SERVE_LAYERS`` = 1 layer in f32: the 20 tasks of a paged tick
+   tuned but the norms and ``ARCTIC_SERVE_TUNING_ONLY``, the two b128 m4
+   expert products found by cold searches ``COLD_WIDE`` candidates wide;
+   8 requests of 16 new tokens served dispatched and plain, the streams by
+   phase 18's rule, every model call (a chunk's included) launching K2
+   three times a layer; one decode-only tick within ``TOL_F32_LOGITS_REL``
+   where no routing differs (K1 8 all splitk, the m4 unembed over the
+   32000-wide table among them, K2 3 at b128 m4, K5 1 at G 7), each MoE
+   layer of the tick dispatched against plain on the same f32 input
+   within ``tol_moe_rel`` (7168·2^-24); the peaks as in phase 30; then
+   phase 6 at arctic's shapes.
 
 Every kernel wrapper counts its launches; the counts are zeroed just before
-each of the twenty-five paths (forward: phases 4-5; serving: phase 7;
+each of the twenty-seven paths (forward: phases 4-5; serving: phase 7;
 operators: phase 8; mamba2 forward: phase 9; mamba2 serving: phase 10;
 olmoe forward: phase 11; olmoe serving: phase 12; smollm training: phase
 13; mamba2 training: phase 14; qwen2-vl forward and serving: phase 15;
@@ -331,7 +371,8 @@ whisper forward and decoding: phase 16; the fleet: phase 17; the router:
 phase 18; the mesh: phase 19; gemma2 forward: phase 20; gemma2 serving:
 phase 21; hymba forward: phase 23; hymba serving: phase 24; stablelm
 forward: phase 25; stablelm serving: phase 26; hymba training: phase 27;
-qwen1.5 forward: phase 28; qwen1.5 serving: phase 29)
+qwen1.5 forward: phase 28; qwen1.5 serving: phase 29; arctic forward:
+phase 30; arctic serving: phase 31)
 and read just
 after it.  A path's launches, and the ``launches``
 of the kernels line, count every process of the run: the parent's counters,
@@ -412,9 +453,10 @@ BATCH = 1
 # 28 % slower, these paths run 2 to 4 layers, so that every path fits the
 # run's time limit on a slow host (PERF.md §6); every gate is derived from
 # the depth; gemma2-2b runs 4 of its 26 (``GEMMA_LAYERS``), hymba-1.5b 6 of
-# its 32 (``HYMBA_LAYERS``), stablelm-3b all 32 (``STABLELM_LAYERS``),
-# qwen1.5-110b 6 of its 80 (``QWEN15_LAYERS``: the card's memory), the
-# other paths every layer
+# its 32 (``HYMBA_LAYERS``), stablelm-3b 16 of its 32 (``STABLELM_LAYERS``),
+# qwen1.5-110b 6 of its 80 (``QWEN15_LAYERS``: the card's memory),
+# arctic-480b 2 of its 35 (``ARCTIC_LAYERS``: the card's memory), the other
+# paths every layer
 WHISPER_LAYERS = 2
 MOE_LAYERS = 2
 TRAIN_LAYERS = 2
@@ -465,11 +507,6 @@ SSM_DECODE_TASKS = 7
 MOE_ARCH = "olmoe-1b-7b"
 MOE_FORWARD_TASKS = 11
 MOE_DECODE_TASKS = 16
-# one MoE layer dispatched against plain on the same f32 input, relative to
-# the output's largest magnitude: K·2^-24 at K = 2048, the bound on the
-# relative rounding error of one f32 dot product of 2048 terms (the expert
-# products reduce over d_model 2048, then d_ff 1024), summed in another order
-TOL_MOE_REL = 2048 * 2.0**-24
 
 # the training paths (phases 13 and 14): the launcher's defaults, batch 8,
 # seq 128, lr 3e-4; smollm-135m's 10 training tasks tuned.  The dispatched step (f32 kernels, f32 parameters) against
@@ -644,8 +681,10 @@ HYMBA_PLAIN_UNEMBED = "dense/k=1600/m=256/n=32001"
 HYMBA_TRAIN_LAYERS = 8
 HYMBA_TRAIN_TASKS = 20
 # phases 25-26: stablelm-3b at full width (d_model 2560, 32 heads of 80
-# over 32 kv heads, d_ff 6912, vocab 50304) and its whole depth of 32
-# layers: no window, so any depth is periodic and the reference serves its
+# over 32 kv heads, d_ff 6912, vocab 50304) and 16 of its 32 layers (all
+# 32 until arctic-480b's phases 30-31 came, whose time they pay for with
+# the tuning inputs drawn on the card; PERF.md §6): no window, so any
+# depth is periodic and the reference serves its
 # attention through K3, on fma (D 80 is no tc head dim), and K5 at D 80,
 # G 1.  The forward's norm is left plain, as gemma2's and hymba's are
 # (plain_norm); the serving chunk's too, the tick's is tuned.  The forward
@@ -658,7 +697,7 @@ HYMBA_TRAIN_TASKS = 20
 # tuned path would have two modes.  FIXED_TILES times K1 at the valid tile
 # (256, 128, 4)
 STABLELM_ARCH = "stablelm-3b"
-STABLELM_LAYERS = 32
+STABLELM_LAYERS = 16
 STABLELM_FORWARD_TASKS = 9
 STABLELM_UNEMBED = "dense/k=2560/m=256/n=50304"
 # phases 28-29: qwen1.5-110b at full width (d_model 8192, 64 heads of 128
@@ -676,6 +715,62 @@ QWEN15_ARCH = "qwen1.5-110b"
 QWEN15_LAYERS = 6
 QWEN15_FORWARD_TASKS = 10
 QWEN15_SERVE_TASKS = 16
+# the chunked attention's contractions and its softmax (the forward) and
+# the four contractions of a paged tick's chunk and decode step: tuning
+# targets no dispatched site reaches (K3 and K5 replace them), left
+# untuned for the run's time
+QWEN15_TUNING_ONLY = (
+    "batch_matmul/b=8/k=128/m=2048/n=256", "batch_matmul/b=8/k=256/m=2048/n=128",
+    "sfm/m=16384/n=256",
+)
+QWEN15_SERVE_TUNING_ONLY = (
+    "batch_matmul/b=32/k=128/m=256/n=256", "batch_matmul/b=32/k=256/m=256/n=128",
+    "batch_matmul/b=32/k=128/m=8/n=256", "batch_matmul/b=32/k=256/m=8/n=128",
+)
+# phases 30-31: arctic-480b at full width (d_model 7168, 56 heads of 128
+# over 8 kv heads, G 7; 128 experts top-2 of d_ff 4864 beside a dense
+# residual MLP of d_ff 4864; vocab 32000).  A layer holds 1.361e10
+# parameters, 27.2 GB in bf16 and 54.4 GB in f32, 3 x 8.93 GB of them the
+# experts; the tied embedding 0.46 GB.  The bf16 forward runs 2 of its 35
+# layers (54.9 GB), its f32 check 1 layer drawn anew (54.4 GB, cast leaf by
+# leaf: ``cast_f32_``), and paged serving in f32 1 layer: K2's expert
+# products at the tick's b128 m4 read the f32 experts in place, where a
+# bf16 served model's would be copied to f32 a call (17.85 GB each).  At
+# seq 256 an expert takes C = max(int(2·2·256/128), 4) = 8 tokens: the
+# forward's expert products (128·8·7168·4864 = 3.57e10 multiply-adds) and
+# unembed (5.87e10) exceed the caps' product 2^35 and run plain
+# (``schedulable``); a tick's C is 4 (1.785e10), so K2 serves them there.
+# The router's product, the chunked attention's two contractions and the
+# softmaxes are tuning targets no dispatched site reaches, left untuned
+# with the norms
+ARCTIC_ARCH = "arctic-480b"
+ARCTIC_LAYERS = 2
+ARCTIC_F32_LAYERS = 1
+ARCTIC_SERVE_LAYERS = 1
+ARCTIC_FORWARD_TASKS = 14
+ARCTIC_SERVE_TASKS = 20
+ARCTIC_TUNING_ONLY = (
+    "dense/k=7168/m=256/n=128",  # the router, a plain einsum in both packages
+    "batch_matmul/b=8/k=128/m=1792/n=256", "batch_matmul/b=8/k=256/m=1792/n=128",
+    "sfm/m=14336/n=256", "sfm/m=256/n=128",
+)
+ARCTIC_SERVE_TUNING_ONLY = (
+    "dense/k=7168/m=4/n=128", "dense/k=7168/m=128/n=128",
+    "batch_matmul/b=32/k=128/m=224/n=256", "batch_matmul/b=32/k=256/m=224/n=128",
+    "batch_matmul/b=32/k=128/m=7/n=256", "batch_matmul/b=32/k=256/m=7/n=128",
+)
+# the batch of 128 experts takes 7 of the grid cap's 18 bits, so of the
+# valid tiles the space draws for a b128 m4 expert product about one in
+# 200 fits both caps: the first round's 8 candidates of each fit none
+# (tests/test_torch_arctic.py), and searches of 8 candidates a round drew
+# none for one of the two in 22 reseeds (on the CPU, a runner that lowers
+# and times nothing); a further search of a task left with no tile
+# measures this many fresh samples a round, each rejected before any
+# launch but those the card runs
+COLD_WIDE = 128
+# every part of the arctic, qwen1.5 and stablelm paths leaves this much of
+# the card's memory free at its peak
+MIN_FREE_BYTES = 15e9
 # phase 22: the three examples/ twins, each a process on the card
 EXAMPLE_RUNS = (
     ("quickstart_torch.py", ["--smoke"]),
@@ -1373,6 +1468,186 @@ def phase_decode_kernels(gen, errs: dict) -> dict:
     return dict(block_kv_device_ms=tiles, sdpa_device_ms=sdpa_ms)
 
 
+def phase_arctic_kernels(gen, errs: dict) -> dict:
+    """Phase 3f: the kernels at arctic-480b's shapes (``ARCTIC_ARCH``), each
+    held against its plain version on the same inputs and timed by CUDA-graph
+    replay beside its library call and its bound: K1 at the forward's m256
+    products (q and o k7168 n7168, the dense residual MLP's k7168 n4864 and
+    k4864 n7168, k and v n1024) on tc and at the tick's m4 products (k7168
+    n7168, and the unembed over the 32000-wide table read k-contiguous) on
+    splitk; K2 at the tick's expert products (b128 m4: wi and wg k7168
+    n4864, wo k4864 n7168; 17.85 GB of f32 operand each) on splitk beside
+    ``torch.bmm``; K3 at (1, 56, 256, 128) kvh 8 causal, G 7, at every tile
+    the search can draw, each fma or refused for shared memory before any
+    launch, beside SDPA with ``enable_gqa``; K5 at b4 kvh 8 G 7 t256 D 128 at
+    every kv tile, full and ragged, each run twice for the same bits (tile
+    256 refused for shared memory), beside SDPA.  Returns the rows by label:
+    device ms, library device ms, bound ms (by) and its 67 TFLOP/s twin,
+    max_abs_err."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ScheduleRejected
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref, sm_count
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cfg = get_config(ARCTIC_ARCH)
+    rows = {}
+
+    def row(kernel, label, got, want, tol, k_ms, lib_ms, b_ms, b_by, b67=None, **extra):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        rows[label] = dict(kernel=kernel, device_ms=k_ms, library_device_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b67,
+                           max_abs_err=err, **extra)
+        b67_s = "" if b67 is None else f" [{b67:.4f} at 67 TFLOP/s]"
+        print(f"[arctic-kernels] {kernel} {label}: max_abs_err {err:.3e} (tol {tol:g}); "
+              f"device {k_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}){b67_s}")
+        if not math.isfinite(err) or err > tol:
+            fail(f"{kernel} {label}: max_abs_err {err} > {tol}")
+
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    for M, K, N, blocks, var, layout in (
+        (M_FWD, D, D, (128, 64, 8), "tc", "n"),
+        (M_FWD, D, F_, (128, 64, 8), "tc", "n"),
+        (M_FWD, F_, D, (128, 64, 8), "tc", "n"),
+        (M_FWD, D, 1024, (128, 32, 8), "tc", "n"),
+        (SERVE_SLOTS, D, D, (4, 256, 128), "splitk", "n"),
+        (SERVE_SLOTS, D, V, (4, 256, 64), "splitk", "k"),
+    ):
+        x = randn(M, K)
+        w = randn(N, K).t() if layout == "k" else randn(K, N)
+        got = mm.matmul(x, w, block_sizes=blocks)
+        plan = mm.matmul.last_launch
+        if plan != mm.launch_config(1, M, N, K, blocks) or plan["variant"] != var:
+            fail(f"matmul {blocks} on {(M, N, K)} launched {plan}, want {var}")
+        b_ms, b_by, b67 = mm_bound(M, N, K)
+        row("matmul", f"m{M} k{K} n{N} w {layout}-contiguous {var} {blocks}", got,
+            ref.matmul(x, w), TOL_MATMUL,
+            graph_ms(lambda: mm.matmul(x, w, block_sizes=blocks)),
+            graph_ms(lambda: torch.matmul(x, w)), b_ms, b_by, b67, blocks=list(blocks),
+            variant=var)
+        del x, w
+    for K, N, blocks in ((D, F_, (4, 608, 32)), (F_, D, (4, 896, 32))):
+        B = cfg.moe_experts
+        a, b = randn(B, SERVE_SLOTS, K), randn(B, K, N)
+        got = mm.batch_matmul(a, b, block_sizes=blocks)
+        again = mm.batch_matmul(a, b, block_sizes=blocks)
+        plan = mm.batch_matmul.last_launch
+        torch.cuda.synchronize()
+        if plan != mm.launch_config(B, SERVE_SLOTS, N, K, blocks) or \
+                plan["variant"] != "splitk" or not torch.equal(got, again):
+            fail(f"batch_matmul {blocks} at b{B} m4 k{K} n{N}: launched {plan}, or two "
+                 "runs differ")
+        b_ms, b_by, b67 = mm_bound(SERVE_SLOTS, N, K, B)
+        row("batch_matmul", f"b{B} m{SERVE_SLOTS} k{K} n{N} splitk {blocks} (splits "
+            f"{plan['splits']}), twice the same bits", got, ref.batch_matmul(a, b),
+            TOL_MATMUL, graph_ms(lambda: mm.batch_matmul(a, b, block_sizes=blocks)),
+            graph_ms(lambda: torch.bmm(a, b)), b_ms, b_by, b67, blocks=list(blocks),
+            variant="splitk")
+        del a, b, got, again
+        torch.cuda.empty_cache()
+    # K3 at every tile: fma (D 128 is no tc head dim) or refused for shared
+    # memory before any launch
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = randn(BATCH, h, SEQ, hd)
+    k, v = randn(BATCH, kvh, SEQ, hd), randn(BATCH, kvh, SEQ, hd)
+    want = ref.flash_attention(q, k, v)
+    divisors = [t for t in range(1, SEQ + 1) if SEQ % t == 0]
+    tiles, refused, sms = {}, [], sm_count("cuda")
+    for bq in divisors:
+        for bkv in divisors:
+            before = fa.flash_attention.launches
+            try:
+                plan = fa.launch_config(BATCH, h, kvh, SEQ, hd, bq, bkv, sms)
+            except ScheduleRejected as e:
+                try:
+                    fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+                except ScheduleRejected as e2:
+                    if e.reason != "shared_memory" or e2.reason != e.reason or \
+                            fa.flash_attention.launches != before:
+                        fail(f"flash_attention ({bq}, {bkv}) at G 7: refused for "
+                             f"{e2.reason}, launches {fa.flash_attention.launches - before}")
+                    refused.append((bq, bkv))
+                    continue
+                fail(f"flash_attention ({bq}, {bkv}) at G 7 was not refused")
+            got = fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            if plan["variant"] != "fma" or fa.flash_attention.last_launch != plan or \
+                    not math.isfinite(err) or err > TOL_ATTN:
+                fail(f"flash_attention ({bq}, {bkv}) at G 7: launched "
+                     f"{fa.flash_attention.last_launch}, max_abs_err {err}")
+            tiles[(bq, bkv)] = (graph_ms(lambda: fa.flash_attention(
+                q, k, v, block_q=bq, block_kv=bkv)), err)
+    best = min(tiles, key=lambda t: tiles[t][0])
+    bq, bkv = best
+    b_ms, b_by, b67 = attention_bound(BATCH, h, kvh, SEQ, hd)
+    print(f"[arctic-kernels] flash_attention (1,{h},{SEQ},{hd}) kvh {kvh} causal: "
+          f"{len(tiles)} tiles fma, {min(t[0] for t in tiles.values()):.4f}-"
+          f"{max(t[0] for t in tiles.values()):.4f} ms; {len(refused)} refused for "
+          f"shared memory before any launch: {refused}")
+    row("flash_attention", f"(1,{h},{SEQ},{hd}) kvh {kvh} causal fma {best}, the "
+        f"fastest of {len(tiles)} tiles", fa.flash_attention(q, k, v, block_q=bq,
+                                                             block_kv=bkv), want,
+        TOL_ATTN, tiles[best][0], graph_ms(lambda: sdpa(q, k, v, True)), b_ms, b_by, b67,
+        blocks=list(best), variant="fma",
+        tile_device_ms={f"{a},{b}": t[0] for (a, b), t in tiles.items()},
+        refused=[list(t) for t in refused])
+    del q, k, v, want
+    # K5 at the tick: 4 slots, 8 kv heads of 7 query heads
+    g, T = h // kvh, SERVE_MAX_SEQ
+    qx = randn(SERVE_SLOTS, kvh, g, hd)
+    kx, vx = randn(SERVE_SLOTS, kvh, T, hd), randn(SERVE_SLOTS, kvh, T, hd)
+    full = decode_bias([T] * SERVE_SLOTS, T)
+    ragged = decode_bias([T, 1, 77, T - 5], T)
+    k5 = {}
+    for bkv in divisors:
+        before = fa.decode_flash_attention.launches
+        try:
+            got = fa.decode_flash_attention(qx, kx, vx, full, block_kv=bkv)
+        except ScheduleRejected as e:
+            if e.reason != "shared_memory" or fa.decode_flash_attention.launches != before:
+                fail(f"decode_flash_attention block_kv {bkv} at G 7: refused for "
+                     f"{e.reason}")
+            print(f"[arctic-kernels] decode_flash_attention block_kv {bkv} at G 7: "
+                  f"refused ({e.reason}) before any launch")
+            continue
+        plan = fa.decode_flash_attention.last_launch
+        for label, bias in (("full", full), ("ragged", ragged)):
+            got = fa.decode_flash_attention(qx, kx, vx, bias, block_kv=bkv)
+            again = fa.decode_flash_attention(qx, kx, vx, bias, block_kv=bkv)
+            torch.cuda.synchronize()
+            err = float((got - ref.decode_attention(qx, kx, vx, bias)).abs().max())
+            errs["decode_flash_attention"] = max(errs.get("decode_flash_attention", 0.0),
+                                                 err)
+            if not torch.equal(got, again) or not math.isfinite(err) or err > TOL_ATTN:
+                fail(f"decode_flash_attention block_kv {bkv} at G 7 {label}: "
+                     f"max_abs_err {err}, or two runs differ")
+        k5[bkv] = graph_ms(lambda: fa.decode_flash_attention(qx, kx, vx, full,
+                                                             block_kv=bkv))
+        print(f"[arctic-kernels] decode_flash_attention ({SERVE_SLOTS},{kvh},{g},{T},{hd}) "
+              f"block_kv {bkv}: {plan['splits']} splits of {plan['rows_per_split']} rows, "
+              f"device {k5[bkv]:.4f} ms; full and ragged within {TOL_ATTN:g}, twice the "
+              "same bits")
+    bkv = min(k5, key=k5.get)
+    b_ms, b_by = bound(*decode_work(SERVE_SLOTS, kvh, g, T, hd))
+    row("decode_flash_attention", f"b{SERVE_SLOTS} kvh{kvh} G{g} t{T} D{hd} ({bkv},), the "
+        f"fastest of {len(k5)} tiles", fa.decode_flash_attention(qx, kx, vx, full,
+                                                                 block_kv=bkv),
+        ref.decode_attention(qx, kx, vx, full), TOL_ATTN, k5[bkv],
+        graph_ms(lambda: sdpa_decode(qx, kx, vx, full)), b_ms, b_by, blocks=[bkv],
+        tile_device_ms={str(t): ms for t, ms in k5.items()})
+    return rows
+
+
 def phase_gemma_kernels(errs: dict) -> dict:
     """Phase 3e: K3 and K5 at gemma2-2b's shapes against their plain
     versions in float32, each run twice for the same bits (K5 also replayed
@@ -1858,13 +2133,16 @@ def plain_norm(cfg, tokens: int) -> tuple:
 
 
 def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
-               plain_keys=()):
+               plain_keys=(), cold_width: int = 0, unschedulable=None):
     """Extract (the forward's tasks unless ``extract`` is given) and tune the
     schedulable tasks through ``runner_spec`` (a spec or a built runner,
     which the caller closes) on the card, but those whose keys are in
     ``plain_keys`` (each must be extracted), which are printed and left
     plain as the unschedulable ones are; returns (tasks, best), the tasks
-    tuned."""
+    tuned.  With ``cold_width``, each further search of a task left with
+    no tile measures that many candidates a round (``COLD_WIDE``).  With
+    ``unschedulable``, the keys that no schedule reaches must be exactly
+    those."""
     import repro_torch
     from repro_torch.search.evolutionary import SearchConfig
     from repro_torch.search.measure.local import LocalRunner
@@ -1883,6 +2161,9 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
     for t in tasks:
         print(f"[{tag}]   {t.key} weight {t.weight:g}")
     none = [t for t in tasks if not schedulable(t)]
+    if unschedulable is not None and {t.key for t in none} != set(unschedulable):
+        fail(f"[{tag}] keys with no schedule {sorted(t.key for t in none)}, want "
+             f"{sorted(unschedulable)}")
     if none:
         # no search can find what the two caps leave out: these sites keep
         # the plain product under dispatch, as the reference's would
@@ -1927,7 +2208,10 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
         # untuned tile has 1536·64) can go stale before one candidate runs;
         # it gets further searches with fresh seeds, each as long as the
         # scheduler grants a cold task, and each ended once every cold task
-        # has a tile the card runs
+        # has a tile the card runs.  They measure through the group's
+        # runner, whose timing inputs are drawn once (a runner of their own
+        # would hold a second copy: 35.7 GB more for arctic-480b's two
+        # b128 expert products)
         for seed in range(1, COLD_SEARCHES + 1):
             cold = [t for t in group if not math.isfinite(best[t.key])]
             if not cold:
@@ -1935,8 +2219,12 @@ def phase_tune(cfg, db, extract=None, tag="tune", runner_spec="cached+local",
             print(f"[{tag}] no tile the card runs yet for {[t.key for t in cold]}: "
                   f"search seed {seed}")
             t0 = time.perf_counter()
+            wide = dict(population=cold_width, init_random=cold_width,
+                        measure_per_round=cold_width, generations=0, rollout_factor=1,
+                        max_trials=cold_width * (config.patience + 1)) if cold_width else {}
             retry = repro_torch.TaskScheduler(cold, database=db, config=dataclasses.replace(
-                config, search=dataclasses.replace(search, seed=seed)))
+                config, runner_spec=sched.runner,
+                search=dataclasses.replace(search, seed=seed, **wide)))
             for _ in range(config.patience + 1):
                 best.update(retry.tune(total_rounds=len(cold)))
                 if all(math.isfinite(best[t.key]) for t in cold):
@@ -2683,7 +2971,7 @@ def snapshot_tick(sched) -> dict:
 
 
 def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
-                     norm_key: str, runs=None, params32=None) -> dict:
+                     norm_key: str, runs=None, params32=None, moe_inputs=None) -> dict:
     """Run a snapshotted decode-only tick (a paged ``serve_step`` tick, or
     with no ``valid`` in ``snap`` a slot arena's ``decode_step``) on copies
     of its arena, under ``ctx`` and with no context, and compare the
@@ -2693,7 +2981,10 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     once each way with the profiler (with ``runs``, the tuned tiles, K2's
     kernels told from K1's by their grids).  With ``params32`` the logits
     are also compared on those f32 parameters and an f32 copy of the arena,
-    with each MoE layer's routing flips (none for a dense model)."""
+    with each MoE layer's routing flips (none for a dense model).  With
+    ``moe_inputs`` (a list) the tick itself is an MoE model's: its routing
+    flips are counted and each MoE layer's input in the dispatched run is
+    appended there."""
     import torch
 
     toks, valid = snap["toks"], snap.get("valid")
@@ -2729,7 +3020,9 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     k2_variants0 = read_variants("batch_matmul")
     reasons0 = Counter(r for row in ctx.stats_by_key().values()
                        for r, n in row["reasons"].items() for _ in range(n))
-    tuned = run(ctx, copy())
+    routes_t, routes_p = [], []
+    with moe_routes(routes_t, moe_inputs) if moe_inputs is not None else nullcontext():
+        tuned = run(ctx, copy())
     torch.cuda.synchronize()
     hits = ctx.hits_by_key.get(attn_key, 0) - hits0
     tick_keys = [k for k, n in ctx.hits_by_key.items() if n > hits_before.get(k, 0)]
@@ -2739,11 +3032,14 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
     k2_variants = variants_since(k2_variants0, "batch_matmul")
     reasons = Counter(r for row in ctx.stats_by_key().values()
                       for r, n in row["reasons"].items() for _ in range(n))
-    plain = run(None, copy())
+    with moe_routes(routes_p) if moe_inputs is not None else nullcontext():
+        plain = run(None, copy())
     live = valid.bool()
     d, p = tuned[live].float(), plain[live].float()
     rel = float((d - p).abs().max() / p.abs().max())
     moe = {}
+    if moe_inputs is not None:
+        moe["flips_by_layer"] = routing_flips(routes_t, routes_p)
     if params32 is not None:
         # top-k routing is discontinuous: the MoE tick is held in f32, with
         # the routing flips of each layer counted (phase 11 says why)
@@ -2772,9 +3068,10 @@ def decode_only_tick(sched, snap, ctx, timing_ctx, attn_key: str,
 def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                 decode_tasks: int = 0, serve_tasks: int = 0, plain_keys=(),
                 tick_launches=None, new_tokens: int = SERVE_NEW_TOKENS,
-                f32: bool = False):
+                f32: bool = False, cold_width: int = 0, unschedulable=None):
     """Phase 7 (smollm-135m), 12 (olmoe-1b-7b), 15 (qwen2-vl-2b), 21
-    (gemma2-2b), 26 (stablelm-3b) or 29 (qwen1.5-110b): the model's decode
+    (gemma2-2b), 26 (stablelm-3b), 29 (qwen1.5-110b) or 31 (arctic-480b):
+    the model's decode
     tasks tuned, its tuned tiles checked, 8
     requests served on the paged arena under the tuned context and with no
     context, then one decode-only tick compared, timed and traced.  The
@@ -2792,8 +3089,16 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     plain one or differ first where the plain top-2 logits are within 2d of
     max |logit|, d the largest difference of the two runs' logits over the
     steps whose streams agree before them (phase 18's rule), itself within
-    ``TOL_F32_LOGITS_REL``.  Returns the tasks, their bests, the results,
-    the tuning's launch counts and the checked tiles."""
+    ``TOL_F32_LOGITS_REL``; an MoE model served so (arctic-480b) is held
+    there only where no token's routing differs in the tick, every model
+    call of the serving run (a prompt chunk's included) must launch K2
+    three times a layer, and each MoE layer of the tick is dispatched
+    against plain on the same f32 input within ``tol_moe_rel``.  The
+    tuning's cold searches are ``cold_width`` wide and, with
+    ``unschedulable``, exactly those keys have no schedule (``phase_tune``); the
+    result's ``peak_bytes`` holds the device memory allocated at the peak
+    of the tuning and of the serving.  Returns the tasks, their bests, the
+    results, the tuning's launch counts and the checked tiles."""
     import numpy as np
     import torch
 
@@ -2813,9 +3118,9 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                      f"the reference's {decode_tasks}")
             return tasks
         # olmoe: all 16 tasks the reference extracts (its three
-        # non-dispatchable contractions are tuning targets), gemma2 all 16;
-        # smollm: the 13 dispatchable ones
-        want = MOE_DECODE_TASKS if moe else serve_tasks
+        # non-dispatchable contractions are tuning targets), gemma2 all 16,
+        # arctic all 20; smollm: the 13 dispatchable ones
+        want = serve_tasks or (MOE_DECODE_TASKS if moe else 0)
         tasks = repro_torch.extract_decode_tasks(
             cfg, batch=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, paged=True,
             chunk=SERVE_CHUNK, page_size=SERVE_PAGE, dispatchable_only=not want,
@@ -2825,33 +3130,40 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
                  f"reference's {want}")
         return tasks
 
+    torch.cuda.reset_peak_memory_stats()
     tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
-                             plain_keys=plain_keys)
+                             plain_keys=plain_keys, cold_width=cold_width,
+                             unschedulable=unschedulable)
     tune_counts = read_counts()
     k2_tune = read_variants("batch_matmul")
     print(f"[{tag}-tune] batch_matmul launches by variant while tuning: {k2_tune}")
     # the decode contraction (smollm M = 3, gemma2 M = 2) tunes on K2's
     # split-K variant, gemma2's chunk contraction (M = 64) on another, and
     # olmoe's expert products also at m32: without a task of M >= 16 every
-    # launch is splitk
-    wide = any(parse_workload_key(t.key)[1]["m"] >= SPLITK_MAX_M for t in tasks
-               if t.key.startswith("batch_matmul/") and t.key in best)
+    # launch is splitk; none where no contraction is tuned (qwen1.5's are
+    # tuning targets left plain)
+    k2_keys = [t.key for t in tasks if t.key.startswith("batch_matmul/") and t.key in best]
+    wide = any(parse_workload_key(k)[1]["m"] >= SPLITK_MAX_M for k in k2_keys)
     others = tune_counts["batch_matmul"] - k2_tune["splitk"]
-    if not moe and (k2_tune["splitk"] <= 0 or bool(others) != wide):
+    if not moe and ((k2_tune["splitk"] > 0) != bool(k2_keys) or bool(others) != wide):
         fail(f"serving tuning launched K2 {tune_counts['batch_matmul']} times, by "
-             f"variant {k2_tune}; want splitk, and another variant only for a task "
-             f"of M >= {SPLITK_MAX_M}")
+             f"variant {k2_tune}; want splitk where a contraction is tuned, and "
+             f"another variant only for a task of M >= {SPLITK_MAX_M}")
     runs = check_tiles(tasks, db)
+    peaks = dict(tuning=release_memory())
     attn_key = next(t.key for t in tasks if t.key.startswith("attention_decode"))
     norm_key = workload_key("rmsnorm", d=cfg.d_model, eps=cfg.norm_eps,
                             tokens=SERVE_SLOTS)
-    if norm_key not in {t.key for t in tasks}:
+    # two norms a layer, four with gemma2's post-norms, and the final one;
+    # none where the tick's norm is left plain
+    norms = 0 if norm_key in plain_keys else (4 if cfg.post_norms else 2) * cfg.n_layers + 1
+    if norms and norm_key not in {t.key for t in tasks}:
         fail(f"decode extraction has no {norm_key} task")
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
     serve_cfg = cfg
     if f32:
         serve_cfg = dataclasses.replace(cfg, dtype="float32")
-        params = _tree_map(lambda t: t.float(), params)
+        params = cast_f32_(params)
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 97, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in lens]
@@ -2860,8 +3172,16 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
           f"parameters, {cfg.n_layers} layers")
     ctx = path_context(db, tasks=tasks, backend="cuda")
     snap = {}
+    # at each tick's start: K2's launches, prefill chunks and decode steps
+    # so far, then at the run's end, so each tick's share is a difference
+    ticks = []
+
+    def tick_state(sched):
+        s = sched.stats
+        return read_counts()["batch_matmul"], s["prefill_chunks"], s["decode_steps"]
 
     def on_tick(sched):
+        ticks.append(tick_state(sched))
         # the first tick that will decode only (nothing prefilling, and no
         # admission can start a prompt) is kept for the check below
         idle_admit = not sched.queue or not sched.pool.free
@@ -2872,6 +3192,10 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     sched, reqs, wall, (_, rows) = serve_requests(serve_cfg, params, ctx, prompts, on_tick,
                                                   new_tokens, record=f32)
     serve_counts = {k: read_counts()[k] - counts0[k] for k in KERNELS}
+    ticks.append(tick_state(sched))
+    # (K2 launches, chunks, decode steps) of every tick that ran the model
+    tick_work = [tuple(b - a for a, b in zip(t0, t1)) for t0, t1 in zip(ticks, ticks[1:])]
+    tick_work = [t for t in tick_work if t[1] or t[2]]
     stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # the serving run's
     if not snap:
         fail("no decode-only tick was checked")
@@ -2883,9 +3207,15 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     # a bf16 run's tick is also held in f32 on the parameters cast to f32
     tick32 = not f32 and (moe or tick_launches is not None)
     params32 = _tree_map(lambda t: t.float(), params) if tick32 else None
+    moe_inputs = [] if moe and f32 else None
     check = decode_only_tick(sched, snap, ctx, timing_ctx, attn_key, norm_key,
-                             runs if moe else None, params32)
+                             runs if moe else None, params32, moe_inputs)
     del params32
+    if moe_inputs is not None:
+        check["moe_layer_max_rel_err"] = moe_layer_errors(
+            cfg, sched.params, moe_inputs, path_context(db, tasks=tasks, backend="cuda"))
+        del moe_inputs
+    peaks["serving"] = release_memory()
     done = sum(r.done for r in reqs)
     tokens = sum(len(r.generated) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
@@ -2918,6 +3248,7 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
         greedy_agreement=agree / max(total, 1), stats=stats, tick_check=check,
         launches=serve_counts, batch_matmul_tune_variants=k2_tune, f32=f32,
         first_differences=differ, logit_spread=d, logit_spread_steps=d_steps,
+        peak_bytes=peaks,
     )
     print(f"[{tag}] completed {done}/{len(reqs)} requests, {tokens} tokens in "
           f"{wall:.2f} s ({s['decode_steps']} decode ticks, {s['mixed_ticks']} "
@@ -2981,6 +3312,18 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
               f"({res['greedy_agreement']:.3f}; reported, not gated: bf16 plain vs "
               f"f32 kernels)")
     print(f"[{tag}] kernel launches while serving: {serve_counts}")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{tag}] peak device memory allocated: "
+          + ", ".join(f"{part} {n / 2**30:.2f} GiB" for part, n in peaks.items())
+          + f" of {total_mem / 2**30:.2f}")
+    if moe and f32:
+        chunk_k2 = [k2 for k2, chunks, _ in tick_work if chunks]
+        print(f"[{tag}] K2 launches while serving: {serve_counts['batch_matmul']} over "
+              f"{len(tick_work)} model calls, {sum(chunk_k2)} of them in the "
+              f"{len(chunk_k2)} calls with prompt chunks")
+        if not chunk_k2 or any(k2 != 3 * cfg.n_layers for k2, _, _ in tick_work):
+            fail(f"serving: K2 launches by model call {[t[0] for t in tick_work]}; want "
+                 f"{3 * cfg.n_layers} in each, the chunks' included")
     for label, rs in (("dispatched", reqs), ("plain", plain_reqs)):
         served = sum(r.done and len(r.generated) == new_tokens for r in rs)
         if served != len(rs):
@@ -3006,8 +3349,6 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
     if check["attention_decode_hits"] != cfg.n_layers or k5_tick != cfg.n_layers:
         fail(f"decode-only tick: {check['attention_decode_hits']} attention_decode "
              f"hits, {k5_tick} K5 launches; want {cfg.n_layers}")
-    # two norms a layer, four with gemma2's post-norms, and the final one
-    norms = (4 if cfg.post_norms else 2) * cfg.n_layers + 1
     if check["rmsnorm_hits"] != norms:
         fail(f"decode-only tick: {check['rmsnorm_hits']} {norm_key} hits; want {norms}")
     for k, n in (tick_launches or {}).items():
@@ -3015,7 +3356,7 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
             fail(f"decode-only tick: {check['launches'][k]} {k} launches; want {n}")
     if check["new_reasons"].get("lowering_failed") or check["new_reasons"].get("not_in_slice"):
         fail(f"decode-only tick reasons {check['new_reasons']}")
-    if moe:
+    if moe and not f32:
         flips = sum(check["flips_by_layer"])
         print(f"[{tag}] decode-only tick in f32: max_rel_err "
               f"{check['f32_max_rel_err']:.4e} (tol {TOL_LOGITS_REL:g} when no token's "
@@ -3025,11 +3366,22 @@ def phase_serve(cfg, db, gen_seed: int = 0, tag: str = "serve",
             fail(f"decode-only tick f32 logits rel err {check['f32_max_rel_err']}, "
                  f"{flips} routing flips")
     elif f32:
+        flips = sum(check.get("flips_by_layer", ()))
         print(f"[{tag}] decode-only tick, served in f32: max_rel_err "
-              f"{check['max_rel_err']:.4e} (tol {TOL_F32_LOGITS_REL:g})")
-        if not check["finite"] or not check["max_rel_err"] <= TOL_F32_LOGITS_REL:
+              f"{check['max_rel_err']:.4e} (tol {TOL_F32_LOGITS_REL:g}"
+              + (f" where no routing differs); routing flips by layer "
+                 f"{check['flips_by_layer']}" if moe else ")"))
+        if not check["finite"] or (not flips and not check["max_rel_err"] <= TOL_F32_LOGITS_REL):
             fail(f"decode-only tick f32 logits rel err {check['max_rel_err']} > "
                  f"{TOL_F32_LOGITS_REL}")
+        if moe:
+            layer_rel = check["moe_layer_max_rel_err"]
+            print(f"[{tag}] each MoE layer of the tick dispatched against plain on the "
+                  f"same f32 input: max_rel_err by layer {[f'{r:.2e}' for r in layer_rel]} "
+                  f"(tol {tol_moe_rel(cfg):.3e})")
+            if len(layer_rel) != cfg.n_layers or not all(
+                    math.isfinite(r) and r <= tol_moe_rel(cfg) for r in layer_rel):
+                fail(f"{cfg.name} MoE layers of the tick against plain: {layer_rel}")
         if not d <= TOL_F32_LOGITS_REL:
             fail(f"{cfg.name}: the dispatched f32 logits differ from plain by {d} of "
                  f"max |logit|, over {TOL_F32_LOGITS_REL}")
@@ -3332,6 +3684,43 @@ def routing_flips(a: list, b: list) -> list:
             for x, y in zip(a, b)]
 
 
+def tol_moe_rel(cfg) -> float:
+    """One MoE layer dispatched against plain on the same f32 input,
+    relative to the output's largest magnitude: K·2^-24 at the widest K of
+    its expert products (max(d_model, d_ff)), the bound on the relative
+    rounding error of one f32 dot product of K terms, summed in another
+    order: 2048·2^-24 for olmoe-1b-7b (d_model 2048, d_ff 1024), 7168·2^-24
+    = 4.27e-4 for arctic-480b (d_model 7168, d_ff 4864)."""
+    return max(cfg.d_model, cfg.d_ff) * 2.0**-24
+
+
+def moe_layer_errors(cfg, params32, inputs: list, ctx) -> list:
+    """Each MoE layer of the f32 ``params32`` on its recorded input
+    (``inputs[i]``, layer i's) under ``ctx`` against the same layer plain:
+    its max_rel_err.  Routing runs plain in both, so on the same input it is
+    the same by construction; the dispatched layer must launch K2 three
+    times (wi, wg and wo)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    rel = []
+    for i, h2 in enumerate(inputs):
+        p = T._layer(params32["layers"], i)["moe"]
+        args = (cfg.moe_top_k, cfg.moe_capacity_factor)
+        want = L.moe(p, h2, *args, act=cfg.act)
+        n = read_counts()["batch_matmul"]
+        with ctx:
+            got = L.moe(p, h2, *args, act=cfg.act)
+        torch.cuda.synchronize()
+        if read_counts()["batch_matmul"] - n != 3:
+            fail(f"{cfg.name} layer {i}: the dispatched MoE launched K2 "
+                 f"{read_counts()['batch_matmul'] - n} times, want 3")
+        rel.append(float((got - want).abs().max() / want.abs().max()))
+    return rel
+
+
 def phase_moe_forward(cfg, db, gen_seed: int = 0):
     """Phase 11: olmoe-1b-7b's 11 forward tasks tuned and their tiles
     checked, then the full-width bf16 forward at ``cfg.n_layers`` under the
@@ -3396,7 +3785,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
         # the numerical check, in f32 (the f32 parameters take 27.6 GB; the
         # bf16 ones go first).  Routing runs plain in both runs of a layer,
         # so on the same input it is the same by construction
-        params32 = _tree_map(lambda t: t.float(), params)
+        params32 = cast_f32_(params)
         del params
         torch.cuda.empty_cache()
         routes_t, routes_p, inputs = [], [], []
@@ -3406,20 +3795,8 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
         with moe_routes(routes_p):
             plain32 = T.forward(cfg, params32, toks)
         flips = routing_flips(routes_t, routes_p)
-        layer_rel = []
-        layer_ctx = path_context(db, tasks=tasks, backend="cuda")
-        for i, h2 in enumerate(inputs):
-            p = T._layer(params32["layers"], i)["moe"]
-            args = (cfg.moe_top_k, cfg.moe_capacity_factor)
-            want = L.moe(p, h2, *args, act=cfg.act)
-            n = read_counts()["batch_matmul"]
-            with layer_ctx:
-                got = L.moe(p, h2, *args, act=cfg.act)
-            torch.cuda.synchronize()
-            if read_counts()["batch_matmul"] - n != 3:
-                fail(f"{cfg.name} layer {i}: the dispatched MoE launched K2 "
-                     f"{read_counts()['batch_matmul'] - n} times, want 3")
-            layer_rel.append(float((got - want).abs().max() / want.abs().max()))
+        layer_rel = moe_layer_errors(cfg, params32, inputs,
+                                     path_context(db, tasks=tasks, backend="cuda"))
         del params32, inputs
         torch.cuda.empty_cache()
     diff = (tuned32 - plain32).abs()
@@ -3436,7 +3813,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
           f"{cfg.moe_experts}): {flips}")
     print(f"[moe-forward] each MoE layer dispatched against plain on the same f32 "
           f"input: max_rel_err by layer {[f'{r:.2e}' for r in layer_rel]} (tol "
-          f"{TOL_MOE_REL:.3e})")
+          f"{tol_moe_rel(cfg):.3e})")
     print(f"[moe-forward] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms "
           f"(median of 3, batch {BATCH} seq {SEQ}, {cfg.n_layers} layers)")
     for key, row in by_key.items():
@@ -3469,7 +3846,7 @@ def phase_moe_forward(cfg, db, gen_seed: int = 0):
              f"traced, want {n_moe}")
     if reasons.get("lowering_failed"):
         fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
-    if len(layer_rel) != cfg.n_layers or not all(math.isfinite(r) and r <= TOL_MOE_REL
+    if len(layer_rel) != cfg.n_layers or not all(math.isfinite(r) and r <= tol_moe_rel(cfg)
                                                  for r in layer_rel):
         fail(f"{cfg.name} MoE layers dispatched against plain: {layer_rel}")
     if not sum(flips) and not rel <= TOL_LOGITS_REL:
@@ -3818,26 +4195,36 @@ def model_inputs(cfg, batch: int, seed: int, seq: int = SEQ) -> dict:
 
 def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: int = 0,
                         seq: int = SEQ, plain_keys=(), runner_spec="cached+local",
-                        tol: float = TOL_F32_LOGITS_REL):
+                        tol: float = TOL_F32_LOGITS_REL, f32_layers: int = 0,
+                        unschedulable=None):
     """Phase 9 (mamba2-370m), 15 (qwen2-vl-2b), 16 (whisper-medium), 20
-    (gemma2-2b), 23 (hymba-1.5b), 25 (stablelm-3b) or 28 (qwen1.5-110b), the
-    forward: the reference's
+    (gemma2-2b), 23 (hymba-1.5b), 25 (stablelm-3b), 28 (qwen1.5-110b) or 30
+    (arctic-480b), the forward: the reference's
     ``n_tasks`` tasks (batch 1, ``seq`` tokens or embeddings; whisper's 1500
     frames) tuned and their tiles checked; the full-width bf16 forward under
     the tuned context against the plain forward (the SSD scan's plain
     version too), timed and traced; then both on the parameters cast to
-    f32, held within ``tol``.  ``want`` holds the dispatched forward's
+    f32, held within ``tol``.  With ``f32_layers`` the f32 check runs on a
+    model of that depth, drawn anew once the bf16 one is released.  An MoE
+    model's routing flips between the two runs are counted by layer in
+    both dtypes, and its f32 logits are held only where no token's routing
+    differs (phase 11's rule).  ``want`` holds the dispatched forward's
     launches of each kernel it names (K1 ``matmul``, K2 ``batch_matmul``,
     K3 ``flash_attention``, K7 ``ssd``), K3's ``fma`` launches at least,
     the rmsnorm hits, the attention hits by key, and optionally
     ``hits`` (key: hits) and ``reasons`` (key or ``site:...``: its reasons
     exactly) and ``attention_fused`` (the backend's fused attention's
     count); the tasks of ``plain_keys`` are left plain, the others tuned
-    through ``runner_spec`` (``phase_tune``)."""
+    through ``runner_spec`` (``phase_tune``; with ``unschedulable``, exactly
+    those keys have no schedule).  The result's ``peak_bytes``
+    holds the device memory allocated at the peak of the tuning, the bf16
+    forward and the f32 check."""
     import torch
 
     import repro_torch
     from repro_torch.models import transformer as T
+
+    moe = bool(cfg.moe_experts)
 
     def extract():
         tasks = repro_torch.extract_tasks(cfg, batch=BATCH, seq=seq)
@@ -3846,10 +4233,14 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
                  f"reference's {n_tasks}")
         return tasks
 
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats()
     tasks, best = phase_tune(cfg, db, extract=extract, tag=f"{tag}-tune",
-                             runner_spec=runner_spec, plain_keys=plain_keys)
+                             runner_spec=runner_spec, plain_keys=plain_keys,
+                             unschedulable=unschedulable)
     tune_counts = read_counts()
     runs = check_tiles(tasks, db)
+    peaks["tuning"] = release_memory()
     params = T.init_params(cfg, seed=gen_seed, device="cuda")
     ins = model_inputs(cfg, BATCH, gen_seed + 1, seq)
 
@@ -3859,13 +4250,14 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
     def plain_fwd(c, p):
         return T.forward(c, p, **ins, ssd_backend="torch")
 
+    routes = {k: [] for k in ("bf16", "bf16_plain", "f32", "f32_plain")}
     with torch.no_grad():
         plain_fwd(cfg, params)  # warm the plain path
         plain, plain_ms = timed_ms(lambda: plain_fwd(cfg, params))
         ctx = path_context(db, tasks=tasks, backend="cuda")
         counts0 = read_counts()
         k1v0, k2v0, k3v0 = (read_variants(k) for k in VARIANT_KERNELS)
-        with ctx:
+        with ctx, moe_routes(routes["bf16"]):
             tuned = fwd(cfg, params)
         torch.cuda.synchronize()
         fwd_counts = {k: n - counts0[k] for k, n in read_counts().items()}
@@ -3873,6 +4265,9 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
         k2v = variants_since(k2v0, "batch_matmul")
         k3v = variants_since(k3v0, "flash_attention")
         stats, by_key = dict(ctx.stats), ctx.stats_by_key()  # this one forward
+        if moe:
+            with moe_routes(routes["bf16_plain"]):
+                plain_fwd(cfg, params)
         with ctx:
             _, tuned_ms = timed_ms(lambda: fwd(cfg, params))
         timing_ctx = path_context(db, tasks=tasks, backend="cuda")
@@ -3889,36 +4284,56 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
         finite = bool(torch.isfinite(tuned.float()).all())
         shape = tuple(tuned.shape)
         del tuned
+        peaks["bf16"] = release_memory()
         # the numerical check in f32: the config's dtype too, which the
         # embeddings and frames are cast to
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params32 = _tree_map(lambda t: t.float(), params)
+        if f32_layers and f32_layers != cfg.n_layers:
+            del params
+            release_memory()
+            cfg32 = dataclasses.replace(cfg32, n_layers=f32_layers)
+            params = T.init_params(cfg32, seed=gen_seed, device="cuda")
+        params32 = cast_f32_(params)
         del params
         torch.cuda.empty_cache()
-        with path_context(db, tasks=tasks, backend="cuda"):
+        with path_context(db, tasks=tasks, backend="cuda"), moe_routes(routes["f32"]):
             tuned32 = fwd(cfg32, params32)
-        plain32 = plain_fwd(cfg32, params32)
+        with moe_routes(routes["f32_plain"]):
+            plain32 = plain_fwd(cfg32, params32)
         del params32
-        torch.cuda.empty_cache()
+        peaks["f32"] = release_memory()
     max_abs = float((tuned32 - plain32).abs().max())
     rel = max_abs / float(plain32.abs().max())
     # the yardstick of the bf16 line: how far bf16 rounding alone moves the
-    # plain forward from the same forward in f32
-    bf16_floor = float((plain.float() - plain32).abs().max() / plain32.abs().max())
+    # plain forward from the same forward in f32 (at one depth)
+    bf16_floor = None
+    if cfg32.n_layers == cfg.n_layers:
+        bf16_floor = float((plain.float() - plain32).abs().max() / plain32.abs().max())
     del tuned32, plain32, plain
+    flips = {k: routing_flips(routes[k], routes[f"{k}_plain"]) for k in ("bf16", "f32")}
     reasons = dispatch_reasons(by_key)
     norm_hits = sum(row["hits"] for key, row in by_key.items()
                     if key.startswith("rmsnorm/"))
     attn_hits = {key: row["hits"] for key, row in by_key.items()
                  if key.startswith("attention/")}
+    floor = "" if bf16_floor is None else (
+        f"; the plain bf16 forward is {bf16_floor:.4e} from the plain f32 one")
     print(f"[{tag}] logits {shape}: f32 max_abs_err {max_abs:.4e} max_rel_err "
-          f"{rel:.4e} (tol {tol:g}); bf16 max_rel_err {bf16_rel:.4e} against the "
-          f"plain bf16 forward (reported, not gated; the plain bf16 forward is "
-          f"{bf16_floor:.4e} from the plain f32 one)")
+          f"{rel:.4e} (tol {tol:g}{' where no routing differs' if moe else ''}) at "
+          f"{cfg32.n_layers} layers; bf16 max_rel_err {bf16_rel:.4e} against the plain "
+          f"bf16 forward at {cfg.n_layers} (reported, not gated{floor})")
+    if moe:
+        print(f"[{tag}] routing flips by layer between the dispatched and the plain "
+              f"forward ({BATCH * seq} tokens, top-{cfg.moe_top_k} of {cfg.moe_experts}): "
+              f"bf16 {flips['bf16']} (reported, not gated), f32 {flips['f32']}")
     print(f"[{tag}] plain {plain_ms:.2f} ms, dispatched {tuned_ms:.2f} ms (median of "
           f"3, batch {BATCH} seq {seq}, {cfg.n_layers} layers"
           + (f" and {cfg.enc_layers} encoder layers over {cfg.enc_frames} frames)"
              if cfg.enc_layers else ")"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{tag}] peak device memory allocated: "
+          + ", ".join(f"{part} {n / 2**30:.2f} GiB" for part, n in peaks.items())
+          + f" of {total / 2**30:.2f}")
     for key, row in by_key.items():
         print(f"[{tag}]   {key}: hits {row['hits']} misses {row['misses']} "
               f"fallbacks {row['fallbacks']} reasons {row['reasons']}")
@@ -3940,8 +4355,9 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
           f"{stats['attention_fused']}")
     if not finite or shape != (BATCH, seq, cfg.vocab):
         fail(f"{cfg.name} dispatched logits not finite or of shape {shape}")
-    if not rel <= tol:
-        fail(f"{cfg.name} f32 logits rel err {rel} > {tol}")
+    if not math.isfinite(rel) or (not sum(flips["f32"]) and not rel <= tol):
+        fail(f"{cfg.name} f32 logits rel err {rel} > {tol}"
+             + (" with no routing flip" if moe else ""))
     for k in ("matmul", "batch_matmul", "flash_attention", "ssd"):
         if k in want and fwd_counts[k] != want[k]:
             fail(f"{cfg.name} forward launched {k} {fwd_counts[k]} times, want {want[k]}")
@@ -3965,13 +4381,47 @@ def phase_model_forward(cfg, db, tag: str, n_tasks: int, want: dict, gen_seed: i
     if reasons.get("lowering_failed"):
         fail(f"{cfg.name} forward: {reasons['lowering_failed']} lowering_failed misses")
     res = dict(max_abs_err=max_abs, max_rel_err=rel, bf16_max_rel_err=bf16_rel,
-               plain_bf16_vs_f32_rel=bf16_floor,
+               plain_bf16_vs_f32_rel=bf16_floor, f32_layers=cfg32.n_layers,
                plain_ms=plain_ms, dispatched_ms=tuned_ms, stats=stats,
                reasons=dict(reasons), profiles=profiles, launches=fwd_counts,
                matmul_variants=k1v, batch_matmul_variants=k2v,
                flash_attention_variants=k3v, rmsnorm_hits=norm_hits,
-               attention_hits=attn_hits, tasks=len(tasks))
+               attention_hits=attn_hits, tasks=len(tasks), peak_bytes=peaks)
+    if moe:
+        res["routing_flips"] = flips
     return tasks, best, res, tune_counts, fwd_counts, runs
+
+
+def release_memory() -> int:
+    """The device memory allocated at its peak since the last call (or the
+    last ``reset_peak_memory_stats``), after which what is no longer
+    referenced is released (a tuning's inputs, held by runners in
+    reference cycles) and the peak reset."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def cast_f32_(tree):
+    """Cast every leaf of a parameter tree to f32 in place, leaf by leaf:
+    each bf16 leaf is released once its f32 copy replaces it, so the peak
+    is the f32 tree and one leaf's bf16 copy, not both trees (81.6 GB for
+    one arctic-480b layer, over the card's 79.2 GiB).  Returns the tree,
+    whose values are those of a cast of the whole tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            cast_f32_(v)
+        else:
+            tree[k] = v.float()
+        del v
+    return tree
 
 
 def phase_hymba(cfg, gen, gen_seed: int = 0):
@@ -4044,23 +4494,34 @@ def phase_hymba(cfg, gen, gen_seed: int = 0):
 
 
 def phase_dense(cfg, gen, tag: str, n_tasks: int, forward_k1: int, unknown_key: int,
-                plain_keys=(), serve_tasks: int = 0, gen_seed: int = 0):
-    """Phases 25-26 (stablelm-3b, 32 heads of 80 over 32 kv heads) and
-    28-29 (qwen1.5-110b, 64 heads of 128 over 8 kv heads, q/k/v biases): a
-    dense model with no window at full width and ``cfg.n_layers``.  The
+                plain_keys=(), serve_tasks: int = 0, gen_seed: int = 0,
+                f32_layers: int = 0, serve_layers: int = 0, serve_plain_keys=(),
+                cold_width: int = 0, unschedulable=None, serve_unschedulable=None):
+    """Phases 25-26 (stablelm-3b, 32 heads of 80 over 32 kv heads), 28-29
+    (qwen1.5-110b, 64 heads of 128 over 8 kv heads, q/k/v biases) and 30-31
+    (arctic-480b, 56 heads of 128 over 8 kv heads, 128 experts top-2 beside
+    a dense residual MLP): a model with no window at full width and
+    ``cfg.n_layers``.  The
     forward: the reference's ``n_tasks`` tasks tuned but the norm and
-    ``plain_keys``, left plain, and the products no schedule reaches (K1
+    ``plain_keys``, left plain, and the products no schedule reaches
+    (``unschedulable`` where given, key by key; K1
     ``forward_k1`` launches; K3 once a layer, all fma: D 80 and 128 are no
     tc head dim; K2 never; the attention key hit once a layer; the
     dispatch reasons ``unknown_key`` misses at the ``unknown_key`` sites
     whose key has no record, and nothing else; f32 within
-    ``TOL_F32_LOGITS_REL``).  Paged serving in f32: the tasks of a paged
-    tick (all ``serve_tasks`` of them, else the dispatchable ones) tuned
-    but the chunk norm, 8 requests of 16 new tokens, the streams held by
-    phase 18's rule, the decode-only tick's K1 seven a layer and the m4
-    unembed, all splitk, and K5 once a layer.  Each of the two prints its
-    peak of allocated device memory; then phase 6 at the keys the two
-    paths served.  Returns (forward result, serving result, timing rows)."""
+    ``TOL_F32_LOGITS_REL``, at ``f32_layers`` where given, and for an MoE
+    model where no token's routing differs).  Paged serving in f32 at
+    ``serve_layers`` (else the same depth): the tasks of a paged tick (all
+    ``serve_tasks`` of them, else the dispatchable ones) tuned but the
+    chunk norm and ``serve_plain_keys`` (``serve_unschedulable`` the keys
+    with no schedule), 8 requests of 16 new tokens, the
+    streams held by phase 18's rule, the decode-only tick's K1 seven a
+    layer and the m4 unembed, all splitk, K5 once a layer, and an MoE
+    model's K2 three times a layer.  Each part (the tunings, the bf16
+    forward, the f32 check, the serving) prints its peak of allocated
+    device memory, which must leave ``MIN_FREE_BYTES`` of the card free;
+    then phase 6 at the keys the two paths served.  Returns (forward
+    result, serving result, timing rows)."""
     import torch
 
     from repro_torch.models.transformer import layer_windows, window_period
@@ -4071,42 +4532,53 @@ def phase_dense(cfg, gen, tag: str, n_tasks: int, forward_k1: int, unknown_key: 
         fail(f"{cfg.name} at {L} layers has no window period")
     attn_key = (f"attention/b={BATCH}/causal=1/d={cfg.head_dim}/h={cfg.n_heads}/"
                 f"kvh={cfg.n_kv_heads}/s={SEQ}/softcap=0.0/window=0")
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def held(part: str, peaks: dict) -> None:
+        for name, n in peaks.items():
+            if total - n < MIN_FREE_BYTES:
+                fail(f"{cfg.name} {part} {name}: {n / 1e9:.2f} GB allocated at the peak "
+                     f"leaves {(total - n) / 1e9:.2f} GB of the card free, under "
+                     f"{MIN_FREE_BYTES / 1e9:g}")
+
     db = Database()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    release_memory()
     reset_counts()  # the model's forward path starts here
     tasks, best, fwd, tune_counts, _, runs = phase_model_forward(
         cfg, db, f"{tag}-forward", n_tasks, dict(
             matmul=forward_k1, batch_matmul=0, flash_attention=L, flash_attention_fma=L,
             rmsnorm=0, attention={attn_key: L}, attention_fused=0),
-        plain_keys=plain_norm(cfg, BATCH * SEQ) + tuple(plain_keys))
-    fwd_peak = torch.cuda.max_memory_allocated()
+        plain_keys=plain_norm(cfg, BATCH * SEQ) + tuple(plain_keys), f32_layers=f32_layers,
+        unschedulable=unschedulable)
     want_reasons = {"unknown_key": unknown_key}
     print(f"[{tag}-forward] left plain: {list(plain_keys)} and the norm; dispatch "
-          f"reasons {fwd['reasons']} (want {want_reasons}); peak device memory "
-          f"allocated {fwd_peak / 2**30:.2f} GiB of "
-          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
+          f"reasons {fwd['reasons']} (want {want_reasons})")
     if fwd["reasons"] != want_reasons:
         fail(f"{cfg.name} forward: dispatch reasons {fwd['reasons']}, want {want_reasons}")
-    fwd.update(tune_launches=tune_counts, best=best, peak_bytes=fwd_peak)
+    held("forward", fwd["peak_bytes"])
+    fwd.update(tune_launches=tune_counts, best=best)
     clock_s = time.perf_counter()
+    serve_cfg = dataclasses.replace(cfg, n_layers=serve_layers) if serve_layers else cfg
+    Ls = serve_cfg.n_layers
     serve_db = Database()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    release_memory()
     reset_counts()  # the model's serving path starts here
     serve_tasks, serve_best, serve, serve_tune_counts, serve_runs = phase_serve(
-        cfg, serve_db, tag=f"{tag}-serve", serve_tasks=serve_tasks, f32=True,
-        plain_keys=plain_norm(cfg, SERVE_SLOTS * SERVE_CHUNK),
+        serve_cfg, serve_db, tag=f"{tag}-serve", serve_tasks=serve_tasks, f32=True,
+        plain_keys=plain_norm(cfg, SERVE_SLOTS * SERVE_CHUNK) + tuple(serve_plain_keys),
+        cold_width=cold_width, unschedulable=serve_unschedulable,
         # q, k, v, o and the MLP's three of every layer, and the decode
-        # unembed; K5 at every layer
-        tick_launches=dict(matmul=7 * L + 1, decode_flash_attention=L))
-    serve_peak = torch.cuda.max_memory_allocated()
-    print(f"[{tag}-serve] peak device memory allocated {serve_peak / 2**30:.2f} GiB")
-    serve.update(tune_launches=serve_tune_counts, best=serve_best, peak_bytes=serve_peak,
+        # unembed; K5 at every layer; an MoE layer's three expert products
+        tick_launches=dict(matmul=7 * Ls + 1, decode_flash_attention=Ls,
+                           **({"batch_matmul": 3 * Ls} if cfg.moe_experts else {})))
+    held("serving", serve["peak_bytes"])
+    serve.update(tune_launches=serve_tune_counts, best=serve_best,
                  seconds=time.perf_counter() - clock_s)
-    torch.cuda.empty_cache()
+    # the served parameters go before phase 6 draws its operands (arctic's
+    # f32 layer, 54.4 GB, beside two 17.85 GB expert operands would not fit)
+    release_memory()
     # phase 6 at the keys the two paths served (K1 at m256, the m128 chunk
-    # and m4; K3 fma and K5)
+    # and m4; K2 at an MoE tick; K3 fma and K5)
     hits = path_hits()
     rows = phase_timings([t for t in tasks if hits[t.key]], runs, gen, cfg.vocab)
     rows.update(phase_timings([t for t in serve_tasks if hits[t.key]], serve_runs,
@@ -5435,7 +5907,8 @@ def main(argv=None) -> int:
     ssd_row = phase_ssd_kernel(gen, errs)
     attention_tiles = phase_attention_tiles(gen, errs)
     gemma_rows = phase_gemma_kernels(errs)
-    clock("phases 2-3e")
+    arctic_kernel_rows = phase_arctic_kernels(gen, errs)
+    clock("phases 2-3f")
 
     cfg = get_config("smollm-135m")
     db = Database()
@@ -5703,9 +6176,34 @@ def main(argv=None) -> int:
         # unembed's; every task of a paged tick tuned (the contractions
         # the decode attention replaces are tuning targets)
         qw_cfg, gen, "qwen15", QWEN15_FORWARD_TASKS, forward_k1=4 * L,
-        unknown_key=5 * L + 2, serve_tasks=QWEN15_SERVE_TASKS)
+        unknown_key=5 * L + 2, serve_tasks=QWEN15_SERVE_TASKS,
+        plain_keys=QWEN15_TUNING_ONLY, serve_plain_keys=QWEN15_SERVE_TUNING_ONLY,
+        unschedulable=(f"dense/k=8192/m={M_FWD}/n=49152", f"dense/k=49152/m={M_FWD}/n=8192",
+                       f"dense/k=8192/m={M_FWD}/n=152064"),
+        serve_unschedulable=("dense/k=8192/m=128/n=49152", "dense/k=49152/m=128/n=8192"))
     rows.update(qw_rows)
     clock("phases 28-29 and phase 6 (qwen1.5)")
+
+    torch.cuda.empty_cache()
+    ar_cfg = dataclasses.replace(get_config(ARCTIC_ARCH), n_layers=ARCTIC_LAYERS)
+    L = ar_cfg.n_layers
+    E, D, F_ = ar_cfg.moe_experts, ar_cfg.d_model, ar_cfg.d_ff
+    ar, ar_serve, ar_rows = phase_dense(
+        # q, k, v, o and the dense residual MLP's three of every layer; the
+        # expert products (C 8) and the unembed have no schedule
+        # (``schedulable``): unknown_key at the norm's 2·L + 1 sites, the
+        # experts' 3·L and the unembed's; K2 serves the tick's experts (C 4)
+        ar_cfg, gen, "arctic", ARCTIC_FORWARD_TASKS, forward_k1=7 * L,
+        unknown_key=5 * L + 2, plain_keys=ARCTIC_TUNING_ONLY,
+        unschedulable=(f"batch_matmul/b={E}/k={D}/m=8/n={F_}",
+                       f"batch_matmul/b={E}/k={F_}/m=8/n={D}",
+                       f"dense/k={D}/m={M_FWD}/n={ar_cfg.vocab}"),
+        serve_tasks=ARCTIC_SERVE_TASKS, serve_unschedulable=(),
+        f32_layers=ARCTIC_F32_LAYERS, serve_layers=ARCTIC_SERVE_LAYERS,
+        serve_plain_keys=plain_norm(ar_cfg, SERVE_SLOTS) + ARCTIC_SERVE_TUNING_ONLY,
+        cold_width=COLD_WIDE)
+    rows.update(ar_rows)
+    clock("phases 30-31 and phase 6 (arctic)")
 
     paths = {
         "forward": {k: tune_counts[k] + fwd_counts[k] for k in KERNELS},
@@ -5746,6 +6244,9 @@ def main(argv=None) -> int:
         "hymba_train": {k: hyt_tune_counts[k] + hyt_counts[k] for k in KERNELS},
         "qwen15_forward": {k: qw["tune_launches"][k] + qw["launches"][k] for k in KERNELS},
         "qwen15_serving": {k: qw_serve["tune_launches"][k] + qw_serve["launches"][k]
+                           for k in KERNELS},
+        "arctic_forward": {k: ar["tune_launches"][k] + ar["launches"][k] for k in KERNELS},
+        "arctic_serving": {k: ar_serve["tune_launches"][k] + ar_serve["launches"][k]
                            for k in KERNELS},
     }
     launches = {k: sum(paths[p][k] for p in paths) for k in KERNELS}
@@ -5805,6 +6306,8 @@ def main(argv=None) -> int:
             hymba_train_step_launches=hyt["launches"][k],
             qwen15_forward_launches=qw["launches"][k],
             qwen15_tick_launches=qw_serve["tick_check"]["launches"][k],
+            arctic_forward_launches=ar["launches"][k],
+            arctic_tick_launches=ar_serve["tick_check"]["launches"][k],
             launches_by_path={p: paths[p][k] for p in paths},
             max_abs_err=errs[k], ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], library_device_ms=r.get("library_device_ms"),
@@ -5841,6 +6344,8 @@ def main(argv=None) -> int:
                            hymba_forward=hy, hymba_serve=hy_serve,
                            stablelm_forward=sl, stablelm_serve=sl_serve, hymba_train=hyt,
                            qwen15_forward=qw, qwen15_serve=qw_serve,
+                           arctic_forward=ar, arctic_serve=ar_serve,
+                           arctic_kernels=arctic_kernel_rows,
                            launches_by_path=paths, fixed_tiles=fixed,
                            decode_tiles=decode_tiles,
                            attention_tiles=attention_tiles,

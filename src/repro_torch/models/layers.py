@@ -103,7 +103,24 @@ def bmm_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out = ctx.batch_matmul(a, b)
         if out is not None:
             return out
-    return torch.matmul(a.float(), b.float())
+    return _plain_bmm(a, b)
+
+
+# the plain batched product casts its operands to f32; a low-precision b of
+# more elements than this is cast and multiplied in slices of its leading
+# batch axis, so that the f32 copy is one slice, not the whole operand
+# (arctic-480b's (128, 7168, 4864) bf16 experts would take 17.85 GB as one
+# f32 copy, beside the 54.9 GB of its two layers' parameters)
+PLAIN_BMM_SLICE_ELEMS = 1 << 28
+
+
+def _plain_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32, each batch entry the same product as in one call."""
+    if b.dtype == torch.float32 or b.dim() < 3 or b.numel() <= PLAIN_BMM_SLICE_ELEMS:
+        return torch.matmul(a.float(), b.float())
+    per = max(1, PLAIN_BMM_SLICE_ELEMS // (b.numel() // b.shape[0]))
+    return torch.cat([torch.matmul(a[i:i + per].float(), b[i:i + per].float())
+                      for i in range(0, b.shape[0], per)])
 
 
 # Logical axes of each parameter, keyed by the path suffix the sharding
@@ -143,7 +160,8 @@ def _init(gen, shape, scale=None, dtype=torch.bfloat16, device="cpu"):
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    # scaled in place: the draw's transient is one f32 copy of the tensor
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +480,12 @@ def mlp(p: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 def moe_init(gen, cfg, device="cpu", layers: int = 1) -> Dict:
     """The reference's MoE subtree: ``router`` (D, E) f32, ``wi`` and
     ``wg`` (E, D, F) bf16, ``wo`` (E, F, D) bf16, each stacked on L.  The
-    expert weights are drawn one layer at a time (no f32 copy of the whole
-    stack), at the fan-in scale 1/sqrt(D); ``wo`` at the reference's
-    1/sqrt(F)."""
+    expert weights are drawn one expert at a time, layer by layer, straight
+    into the bf16 stack, at the fan-in scale 1/sqrt(D); ``wo`` at the
+    reference's 1/sqrt(F).  The draw's f32 transient is one (D, F) slice:
+    a whole layer's (E, D, F) tensor would be 17.85 GB in f32 at
+    arctic-480b's width (128 experts of 7168 x 4864), and its scaled copy
+    as much again."""
     D, E, F_ = cfg.d_model, cfg.moe_experts, cfg.d_ff
     L = (layers,)
     dev = torch.device(device)
@@ -473,7 +494,8 @@ def moe_init(gen, cfg, device="cpu", layers: int = 1) -> Dict:
         out = torch.empty(L + shape, dtype=torch.bfloat16, device=dev)
         if dev.type != "meta":
             for i in range(layers):
-                out[i] = _init(gen, shape, scale=scale, device=dev)
+                for e in range(shape[0]):
+                    out[i, e] = _init(gen, shape[1:], scale=scale, device=dev)
         return out
 
     return {

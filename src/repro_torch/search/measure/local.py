@@ -3,7 +3,8 @@
 ``LocalBuilder`` lowers each candidate through the selected lowering
 backend (``backend=`` registry spec, default ``"cuda"``); ``LocalRunner``
 times the artifacts on one device.  Inputs are ``random_inputs(func, 0)``,
-moved to the device once per workload.  On a CUDA device every call is
+moved to the device once per workload (on a CUDA device drawn there from a
+generator seeded 0: ``device_inputs``).  On a CUDA device every call is
 bracketed by CUDA events; on the CPU by ``perf_counter``; the latency is
 the median of the repeats.
 
@@ -200,11 +201,26 @@ def time_artifact(
 
 
 def device_inputs(func: PrimFunc, device: torch.device) -> Dict[str, torch.Tensor]:
-    """``random_inputs(func, 0)`` as tensors on ``device``."""
-    return {
-        k: torch.from_numpy(v).to(device)
-        for k, v in random_inputs(func, 0).items()
-    }
+    """The workload's timing inputs on ``device``: ``random_inputs(func,
+    0)`` off the card.  On a CUDA device they are drawn there, N(0, 1) from
+    a ``torch.Generator`` seeded 0, in each buffer's shape and dtype: on
+    the host of an H100 machine the float64 draws of one 4.46e9-element
+    operand (arctic-480b's experts) took 113 s and 35.7 GB of host memory,
+    against 0.02 s on the card (``tools/input_draws.py``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {
+            k: torch.from_numpy(v).to(device)
+            for k, v in random_inputs(func, 0).items()
+        }
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {}
+    for b in func.inputs:
+        dtype = torch.from_numpy(np.empty(0, np.dtype(b.dtype))).dtype
+        x = torch.randn(b.shape, generator=gen, device=device)
+        out[b.name] = x if dtype == torch.float32 else x.to(dtype)
+    return out
 
 
 class LocalRunner(Runner):

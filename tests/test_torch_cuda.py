@@ -1336,3 +1336,75 @@ def test_cuda_mesh_attention_at_smollms_per_shard_shape():
     assert ctx.stats["mesh_sharded"] == 1 and ctx.stats["attention_tuned"] == 1
     want = tref.flash_attention(q, k, v, causal=True)
     assert float((got - want).abs().max()) < 1e-4
+
+
+# arctic-480b: one layer drawn on the card (27.2 GB in bf16), the experts
+# expert by expert, so the draw's transient is one (D, F) f32 slice: the
+# peak allocated stays within 1 GiB of the parameters' bytes
+def test_cuda_arctic_layer_draw_peaks_within_a_gib_of_its_bytes():
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as TT
+
+    _cuda()
+    cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=1)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = TT.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves, todo = [], [params]
+    while todo:
+        t = todo.pop()
+        for v in t.values():
+            (todo if isinstance(v, dict) else leaves).append(v)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, leaves
+    torch.cuda.empty_cache()
+    assert 27e9 < nbytes < 28e9
+    assert peak - nbytes <= 2**30
+
+
+# arctic-480b's expert products at a decode tick (b128 m4; C 4) on K2's
+# splitk variant against torch.bmm, at the tiles phase 3f runs: 17.85 GB of
+# f32 operand each
+@pytest.mark.parametrize("K,N,blocks", [(7168, 4864, (4, 608, 32)),
+                                        (4864, 7168, (4, 896, 32))])
+def test_cuda_batch_matmul_at_arctics_tick_expert_products(K, N, blocks):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(128, 4, K, generator=g, device=dev)
+    b = torch.randn(128, K, N, generator=g, device=dev)
+    n = mm.batch_matmul.launches
+    got = mm.batch_matmul(a, b, block_sizes=blocks)
+    torch.cuda.synchronize()
+    assert mm.batch_matmul.launches == n + 1
+    assert mm.batch_matmul.last_launch["variant"] == "splitk"
+    want = torch.bmm(a, b)
+    assert float((got - want).abs().max()) < TOL_MATMUL
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def test_cuda_device_inputs_are_seeded_draws_on_the_card():
+    """On a CUDA device a runner's timing inputs are drawn there, N(0, 1)
+    from a generator seeded 0: two draws are equal, in the workload's
+    shapes and dtypes."""
+    from repro_torch.core.workloads import get_workload
+    from repro_torch.search.measure.local import device_inputs
+
+    dev = _cuda()
+    func = get_workload("batch_matmul", b=128, m=4, n=4864, k=7168)
+    a, b = device_inputs(func, dev), device_inputs(func, dev)
+    assert set(a) == {buf.name for buf in func.inputs}
+    for buf in func.inputs:
+        x = a[buf.name]
+        assert x.is_cuda and tuple(x.shape) == tuple(buf.shape)
+        assert x.dtype == torch.float32 and str(buf.dtype) == "float32"
+        assert torch.equal(x, b[buf.name])
+    x = a["A"]
+    assert abs(float(x.mean())) < 0.05 and abs(float(x.std()) - 1) < 0.05
+    del a, b
+    torch.cuda.empty_cache()

@@ -25,8 +25,6 @@ Tolerances:
 """
 
 import dataclasses
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,12 +33,9 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jcfg
-from repro.core.workloads import get_workload as jget
 from repro.integration import extract as JE
 from repro.integration.dispatch import DispatchContext as JDispatch
 from repro.models import transformer as JT
-from repro.search.database import Database as JDatabase
-from repro.search.database import TuningRecord as JRecord
 from repro_torch.configs.base import get_config as tcfg
 from repro_torch.core.workloads import get_workload as tget
 from repro_torch.integration import extract as TE
@@ -49,8 +44,12 @@ from repro_torch.kernels import ScheduleRejected
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
-from repro_torch.search.database import Database, TuningRecord
+from repro_torch.search.database import Database
 from repro_torch.search.task_scheduler import TuneTask
+from torch_parity_helpers import chip_smoke, configs, divisors as _divisors
+from torch_parity_helpers import fields as _fields, numpy_params as _numpy_params
+from torch_parity_helpers import reasons as _reasons, rel as _rel, stored as _stored
+from torch_parity_helpers import tokens as _tokens
 
 ARCH = "qwen1.5-110b"
 TOL_REL = 1e-5
@@ -63,22 +62,11 @@ FULL_ATTENTION = "attention/b=1/causal=1/d=128/h=64/kvh=8/s=256/softcap=0.0/wind
 FULL_QO = "dense/k=8192/m=256/n=8192"
 H100_SMS = 132
 
-
-def _chip_smoke():
-    """``chip_smoke.py`` as a module, for its depth and its schedule rule."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-CS = _chip_smoke()
+CS = chip_smoke()
 
 
 def _configs():
-    return (dataclasses.replace(jcfg(ARCH), **NARROW),
-            dataclasses.replace(tcfg(ARCH), **NARROW))
+    return configs(ARCH, **NARROW)
 
 
 def _full():
@@ -86,42 +74,11 @@ def _full():
             dataclasses.replace(tcfg(ARCH), n_layers=LAYERS))
 
 
-def _numpy_params(jc, seed=0):
-    """float32 parameters in the reference's shapes: matrices N(0, 1) at
-    fan-in scale, the biases N(0, 1/2), norm weights 1 + N(0, 0.1)."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, spec):
-        shape = tuple(spec.shape)
-        if "ln" in path[-1].key:
-            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-        return (rng.standard_normal(shape) / np.sqrt(shape[-2])).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(draw, JT.param_specs(jc))
-
-
 @pytest.fixture(scope="module")
 def narrow():
     jc, tc = _configs()
     npp = _numpy_params(jc)
     return jc, tc, jax.tree_util.tree_map(jnp.asarray, npp), params_from_jax(npp, device="cpu")
-
-
-def _tokens(vocab, shape, seed=1):
-    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
-
-
-def _rel(got, want):
-    want = np.asarray(want, np.float32)
-    return float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
-
-
-def _fields(specs):
-    return sorted((t.key, t.weight, t.struct_hash, t.dispatchable) for t in specs)
-
-
-def _reasons(ctx):
-    return {(row["site"], r) for row in ctx.stats_by_key().values() for r in row["reasons"]}
 
 
 def test_narrow_model_keeps_qwens_attention(narrow):
@@ -162,26 +119,6 @@ def test_prefill_then_decode_steps_match_reference(narrow):
         nxt = np.array(jnp.argmax(jl, -1), np.int32)
     assert _rel(tcache["k"], jcache["k"]) <= TOL_REL
     assert _rel(tcache["v"], jcache["v"]) <= TOL_REL
-
-
-def _stored(specs, ops):
-    """Both packages' databases with the same stored trace (its JSON) for
-    each task of ``ops``, the first the port's space generates that its
-    validator accepts, and each package's tasks for them."""
-    from repro_torch.core.modules import SpaceGenerator, default_modules
-    from repro_torch.core.validator import validate_trace
-
-    jdb, db, jtasks, tasks = JDatabase(), Database(), [], []
-    for t in (s for s in specs if s.op in ops):
-        func = tget(t.op, **t.kwargs)
-        gen = SpaceGenerator(default_modules())
-        tr = next(tr for tr in (gen.generate(func, seed=s).trace for s in range(32))
-                  if validate_trace(func, tr).ok)
-        jdb.put(JRecord(t.key, tr.to_json(), 1e-5))
-        db.put(TuningRecord(t.key, tr.to_json(), 1e-5))
-        jtasks.append(type("T", (), dict(key=t.key, func=jget(t.op, **t.kwargs))))
-        tasks.append(TuneTask(key=t.key, func=func))
-    return jdb, db, jtasks, tasks
 
 
 def test_dispatched_forward_matches_reference(narrow):
@@ -316,7 +253,11 @@ def test_forward_qo_search_draws_a_tile():
     2^16 or 2^17 elements alone.  The card run's fresh search (seed 0, no
     other task in the database) rejects 6 of its first 8 candidates for the
     grid cap or the thread cap and times two, (128, 128, 8), a tc tile,
-    and (4, 4096, 4), an fma tile; which is best is the timing's call."""
+    and (4, 4096, 4), an fma tile; which is best is the timing's call.
+    The timed tiles are read from what the runner measured: the database
+    keeps a candidate only where it beats the best so far (as the
+    reference's does), so on the CPU, where both tiles run the same plain
+    product, the second tile reaches it only when its time is lower."""
     import math
 
     import repro_torch
@@ -324,16 +265,28 @@ def test_forward_qo_search_draws_a_tile():
     from repro_torch.core.validator import MAX_TILE_ELEMS
     from repro_torch.kernels import matmul as mm
     from repro_torch.search.evolutionary import SearchConfig
+    from repro_torch.search.measure import as_runner
 
     task = TuneTask(key=FULL_QO, func=tget("dense", m=256, n=8192, k=8192))
+    runner = as_runner("cached+local", backend="cuda", device="cpu")
+    timed, measure = {}, runner.inner.run
+
+    def run(inputs):
+        out = measure(inputs)
+        for res in out:
+            if res.ok:
+                timed[tuple(res.meta["pallas_blocks_snapped"])] = res.latency_s
+        return out
+
+    runner.inner.run = run
     config = repro_torch.TuneConfig(
-        search=SearchConfig(**CS.TUNE_SEARCH), runner_spec="cached+local",
+        search=SearchConfig(**CS.TUNE_SEARCH), runner_spec=runner,
         backend="cuda", device="cpu", warm_start=False)
     db = Database()
     sched = repro_torch.TaskScheduler([task], database=db, config=config)
     assert math.isfinite(sched.tune(total_rounds=1)[FULL_QO])
-    timed = {tuple(r.meta["pallas_blocks_snapped"]) for r in db.top(FULL_QO, 8)}
-    assert timed == {(128, 128, 8), (4, 4096, 4)}
+    assert set(timed) == {(128, 128, 8), (4, 4096, 4)}
+    assert all(math.isfinite(t) for t in timed.values())
     assert tuple(db.best(FULL_QO).meta["pallas_blocks_snapped"]) in timed
     errors = [err for s in sched.searches for _, err in s.errors]
     assert len(errors) == 6
@@ -343,10 +296,6 @@ def test_forward_qo_search_draws_a_tile():
         assert bm * bn * bk in (MAX_TILE_ELEMS // 2, MAX_TILE_ELEMS)
         assert (256 // bm) * (8192 // bn) * (8192 // bk) <= MAX_GRID_STEPS
         assert mm.launch_config(1, 256, 8192, 8192, blocks)["variant"] == var
-
-
-def _divisors(n):
-    return [d for d in range(1, n + 1) if n % d == 0]
 
 
 def test_k3_takes_fma_at_head_dim_128_group_8_at_every_tile():

@@ -10,8 +10,9 @@ output with one ``fmaf`` a k, in k order, whatever the tile, so every
 ``fma`` tile of a shape gives the same bits.  This script replays that
 order in float32 with numpy (each product is exact in float64, and the sum
 of a product and the float32 accumulator rounds once to float32, as
-``fmaf`` does) on the inputs a tuning task is timed and checked with
-(``random_inputs(func, 0)``, N(0, 1)), and prints the largest error of
+``fmaf`` does) on inputs drawn as a tuning task's are off the card
+(``random_inputs(func, 0)``, N(0, 1); on the card a runner draws the same
+distribution there, ``device_inputs``), and prints the largest error of
 that sum and of numpy's float32 product against the float64 product,
 beside max |y|.  ``chip_smoke.py:tuned_k1_against_plain`` holds a tuned
 tile against the plain product within ``TOL_MATMUL`` (2e-3); this is how
